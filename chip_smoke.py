@@ -4,23 +4,37 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. Phases, one line each:
-  1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile csrc/cc_labels.cu with nvcc, print ptxas's report;
-  3. k2      — the CC-label kernel against its plain torch version on the
-               card and scipy's labels, exact, at [10, 224, 224];
-  4. forward — the flagship U-Net (exp/template_cfgs/gaus_sigma2_config.json)
-               with seeded random weights at batch 16, bf16 on the card,
-               against the port's f32 forward on the CPU;
-  5. serve   — a fold with those weights serves 3 synthetic studies through
-               the cmrtpu_torch.cli.serve entry point; the kernel's launch
-               counter must show the main path went through it.
-Then one JSON line of kernel figures and, last, the result line
-``{"ok": true, "device": {...}}``. Any failed check raises, which exits
-non-zero without a result line; so does a host without CUDA. Imports
-nothing of JAX.
+  1. device    — require CUDA; print the card's name and power limit;
+  2. build     — one nvcc build of every kernel (csrc/*.cu, one process per
+                 source), print ptxas's report for each;
+  3. k2        — the CC-label kernel against its plain torch version on the
+                 card and scipy's labels, exact, at [10, 224, 224];
+  4. k1        — the Gaussian-blur kernel against its plain torch version on
+                 the card and scipy (float64, host), atol 1e-5, at the
+                 training path's [32, 224, 224] and edge cases; timed beside
+                 the plain version, a cuDNN yardstick and its bound;
+  5. forward   — the flagship U-Net (exp/template_cfgs/gaus_sigma2_config.json)
+                 with seeded random weights at batch 16, bf16 on the card,
+                 against the port's f32 forward on the CPU;
+  6. serve     — a fold with those weights serves 3 synthetic studies through
+                 the cmrtpu_torch.cli.serve entry point; K2's launch counter
+                 must show the serving path went through it;
+  7. train     — the flagship config (EPOCHS 2) trains on a written synthetic
+                 dataset through the cmrtpu_torch.cli.train entry point; K1's
+                 launch counter must show every train and eval step went
+                 through it, and the model.npz it writes must serve; then warm
+                 train steps are timed (CUDA events) and profiled;
+  8. train-f32 — one f32 train step at flagship width on the card and on the
+                 CPU from the same weights and batch, against a float64 CPU
+                 evaluation of the same step.
+Then one JSON line of kernel figures, the card's name and power limit, and,
+last, the result line ``{"ok": true, "device": {...}}``. Any failed check
+raises, which exits non-zero without a result line; so does a host without
+CUDA. Imports nothing of JAX and nothing of cmrtpu.
 """
 
 import copy
+import csv
 import json
 import os
 import subprocess
@@ -28,19 +42,26 @@ import sys
 import tempfile
 import time
 
-# the shared cmrtpu host modules import jax when this is set
-os.environ.pop("CMRTPU_PLATFORM", None)
+import numpy as np
+import scipy.ndimage
+import torch
+import torch.nn.functional as F
 
-import numpy as np  # noqa: E402
-import scipy.ndimage  # noqa: E402
-import torch  # noqa: E402
-
-from cmrtpu_torch.cli.serve import main as serve_main  # noqa: E402
-from cmrtpu_torch.io import MedicalImage, read_image, write_image  # noqa: E402
-from cmrtpu_torch.models.unet import build_model  # noqa: E402
-from cmrtpu_torch.ops import connected_components as cc  # noqa: E402
-from cmrtpu_torch.ops import cuda_kernels as kernels  # noqa: E402
-from cmrtpu_torch.train.checkpoint import save_weights  # noqa: E402
+from cmrtpu_torch.cli.serve import main as serve_main
+from cmrtpu_torch.cli.train import main as train_main
+from cmrtpu_torch.data.dataset import get_trainings_files, slice_file_name
+from cmrtpu_torch.io import MedicalImage, read_image, write_image
+from cmrtpu_torch.models.unet import build_model
+from cmrtpu_torch.ops import connected_components as cc
+from cmrtpu_torch.ops import cuda_kernels as kernels
+from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
+                                       symmetric_index)
+from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
+from cmrtpu_torch.predict.predictor import Predictor
+from cmrtpu_torch.train.checkpoint import save_weights
+from cmrtpu_torch.train.device_cache import DeviceCachedLoop
+from cmrtpu_torch.train.steps import TrainState
+from cmrtpu_torch.train.trainer import Trainer, init_model
 
 SEED = 0
 FLAGSHIP = os.path.join("exp", "template_cfgs", "gaus_sigma2_config.json")
@@ -57,6 +78,20 @@ F32_ATOL = 1e-3
 # GroupNorm skipped) must each fail one of them, or the run fails. Measured
 # on an H100 (700 W), the controls lie at max 0.385 and mean 0.095 or more
 BF16_MAX_ATOL, BF16_MEAN_ATOL = 0.25, 0.025
+# K1 against its plain version and scipy: the same float32 taps summed in
+# another order (the kernel blurs along H first, the plain version along W)
+K1_ATOL = 1e-5
+# published H100 SXM peaks (700 W): HBM bytes/s and float32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# train-f32: the f32 loss on the card against the CPU's
+LOSS_RTOL = 1e-4
+# train-f32: per parameter, the card's f32 gradient may lie at most this much
+# (x max |g|) further from the float64 gradient than the CPU's f32 gradient
+# does. A direct card-vs-CPU bound cannot work: at a random init the f32
+# gradient of this GroupNorm U-Net lies up to ~1% of max |g| from float64 on
+# any device (PERF.md), so two f32 gradients differ by as much
+GRAD_EXTRA = 1e-3
 
 
 def log(phase, **fields):
@@ -278,8 +313,346 @@ def phase_serve(cfg, model):
     return launches
 
 
+def phase_build():
+    """One build of every kernel: nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    report = kernels.build()
+    keep = ("Compiling entry function", "registers", "spill", "smem")
+    log("build", seconds=time.perf_counter() - t0,
+        sources=[os.path.relpath(src) for src in kernels.SOURCES],
+        ptxas=[line.strip() for line in report.splitlines()
+               if any(k in line for k in keep)])
+
+
+def _blur_bound(shape, sigma):
+    """Least time of one blur of a float32 [N, H, W] stack on the card:
+    every input byte read once and every output byte written once over HBM,
+    against 2 passes x (2r+1) multiply-adds per pixel at the f32 peak."""
+    n, h, w = shape
+    taps = gaussian_kernel1d(sigma).size
+    bytes_moved = 2 * n * h * w * 4
+    flops = n * h * w * 2 * taps * 2
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / F32_FLOP_S
+    return {"bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "flops": flops}
+
+
+def _blur_library(x, sigma):
+    """Yardstick, never called by the port: symmetric pad by index gather,
+    then cuDNN convolutions with the (2r+1) x 1 and 1 x (2r+1) taps."""
+    k = torch.from_numpy(gaussian_kernel1d(sigma)).to(x.device)
+    r = (k.numel() - 1) // 2
+    n, h, w = x.shape
+    padded = x.index_select(1, symmetric_index(h, r, x.device)).index_select(
+        2, symmetric_index(w, r, x.device))
+    out = F.conv2d(padded[:, None], k.view(1, 1, -1, 1))
+    return F.conv2d(out, k.view(1, 1, 1, -1))[:, 0]
+
+
+def k1_cases():
+    rng = np.random.default_rng(SEED)
+    main_path = (2 * 16, 224, 224)  # B * C = 16 * 2 heatmap channels
+    cases = [("main-s2", rng.random(main_path, np.float32), 2.0),
+             ("main-s1", rng.random(main_path, np.float32), 1.0),
+             ("main-s4", rng.random(main_path, np.float32), 4.0),
+             ("odd-37x53", rng.random((3, 37, 53), np.float32), 2.0),
+             ("r-ge-side", rng.random((2, 12, 12), np.float32), 4.0)]
+    impulse = np.zeros((1, 64, 64), np.float32)
+    impulse[0, 32, 32] = 1.0
+    cases.append(("impulse", impulse, 2.0))
+    return cases
+
+
+def phase_k1():
+    """K1 against its plain version on the card and scipy on the host."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick in full f32
+    results, max_err = {}, 0.0
+    try:
+        for name, host, sigma in k1_cases():
+            dev = torch.from_numpy(host).cuda()
+            got = kernels.gaussian_blur_2d_cuda(dev, sigma)
+            plain = gaussian_blur_2d(dev, sigma)
+            library = _blur_library(dev, sigma)
+            torch.cuda.synchronize()
+            want = np.stack([scipy.ndimage.gaussian_filter(
+                v.astype(np.float64), sigma, mode="reflect", truncate=4.0)
+                for v in host])
+            out = got.cpu().numpy()
+            err_plain = float((got - plain).abs().max())
+            err_scipy = float(np.abs(out - want).max())
+            err_library = float((got - library).abs().max())
+            max_err = max(max_err, err_plain, err_scipy)
+            check(err_plain <= K1_ATOL and err_scipy <= K1_ATOL,
+                  f"k1 {name}: max abs {err_plain} vs plain, {err_scipy} vs "
+                  f"scipy (atol {K1_ATOL})")
+            fields = {"case": name, "shape": list(host.shape),
+                      "sigma": sigma, "err_plain": err_plain,
+                      "err_scipy": err_scipy, "err_library": err_library}
+            if name == "impulse":
+                total = float(out.sum())
+                check(abs(total - 1.0) <= 1e-4, f"k1 impulse sums to {total}")
+                fields["impulse_sum"] = total
+            if name.startswith("main"):
+                fields.update(
+                    ms=cuda_ms(lambda: kernels.gaussian_blur_2d_cuda(
+                        dev, sigma), 200),
+                    plain_ms=cuda_ms(lambda: gaussian_blur_2d(dev, sigma), 20),
+                    library_ms=cuda_ms(lambda: _blur_library(dev, sigma), 50),
+                    **_blur_bound(host.shape, sigma))
+                results[name] = fields
+            log("k1", **fields)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return results, max_err
+
+
+def _write_dataset(root, patients=8, frames=("01", "12"), z=10,
+                   shape=(216, 256)):
+    """2D training slices with the port's own I/O: phantom short-axis images
+    (``_phantom``) at 1.5625 mm with two small RVIP discs, label 1 (anterior)
+    and 2 (inferior), on most slices and none on the outermost, named by
+    ``slice_file_name``; a df_kfold.csv whose fold 0 trains on 6 patients and
+    validates on 2 (40 slices, so the val set ends in a remainder batch)."""
+    rng = np.random.default_rng(SEED)
+    two_d = os.path.join(root, "2D")
+    os.makedirs(two_d)
+    ny, nx = shape
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    rows = []
+    for i in range(patients):
+        patient = f"patient{i:03d}"
+        for frame in frames:
+            vol = _phantom(rng, z, ny, nx)
+            for k in range(z):
+                msk = np.zeros(shape, np.uint8)
+                if 0 < k < z - 1:
+                    cy = ny / 2 + 3 * np.sin(k) - 20 - k
+                    cx = nx / 2 + 3 * np.cos(k) + 14
+                    msk[np.hypot(yy - cy, xx - cx) < 3] = 1
+                    msk[np.hypot(yy - (cy + 40), xx - (cx - 4)) < 3] = 2
+                for kind, arr in (("img", vol[k]), ("msk", msk)):
+                    write_image(MedicalImage(array=arr,
+                                             spacing=(1.5625, 1.5625)),
+                                os.path.join(two_d, slice_file_name(
+                                    patient, frame, k, kind)))
+        rows.append({"fold": 0, "x_path": "", "y_path": "",
+                     "modality": "train" if i < patients - 2 else "test",
+                     "patient": patient})
+    with open(os.path.join(root, "df_kfold.csv"), "w", newline="") as fh:
+        writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def _loaded_foreign():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "cmrtpu"))
+
+
+def _time_steps(cfg, data_root, steps=12, warm=3):
+    """Median train-step time over warm steps of the cached loop (CUDA
+    events around each step), then a torch.profiler window of 4 steps:
+    device time by kernel and the card's idle share in that window."""
+    x_tr, y_tr, _, _ = get_trainings_files(
+        os.path.join(data_root, "2D"), 0,
+        os.path.join(data_root, "df_kfold.csv"))
+    trainer = Trainer(cfg, device="cuda")
+    loop = DeviceCachedLoop(trainer, DataGenerator(x_tr, y_tr, config=cfg))
+    idx = torch.from_numpy(loop._epoch_indices(loop.n_train, True)).cuda()
+    for s in range(warm):
+        loop.train_step(idx[s % len(idx)])
+    torch.cuda.synchronize()
+    times = []
+    for s in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.train_step(idx[s % len(idx)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+
+    from torch.profiler import ProfilerActivity, profile
+    window = 4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(window):
+            loop.train_step(idx[s % len(idx)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        # user annotations (Optimizer.step#Adam.step) span the kernels they
+        # launch on the device timeline: counting them would count twice
+        annotation = getattr(evt, "is_user_annotation", False) \
+            or evt.key.startswith("Optimizer.")
+        if dev_us > 0 and evt.device_type.name == "CUDA" and not annotation:
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    busy_ms = sum(by_kernel.values())
+    if not busy_ms:  # the profiler saw no device time: not measured
+        return {"step_ms_median": step_ms, "timed_steps": steps,
+                "examples_per_s": loop.batch / (step_ms / 1e3),
+                "device_busy_ms": None, "idle_share": None}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    k1_ms = sum(v for k, v in by_kernel.items() if "gaussian_blur" in k)
+    busy_step = busy_ms / window
+    return {"step_ms_median": step_ms, "step_ms_min": float(min(times)),
+            "step_ms_max": float(max(times)), "timed_steps": steps,
+            "examples_per_s": loop.batch / (step_ms / 1e3),
+            "profiled_steps": window, "profiled_wall_ms": wall_ms,
+            "device_busy_ms_per_step": busy_step,
+            # share of the profiled window (the profiler slows the host)
+            # and of the unprofiled median step in which no kernel ran
+            "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+            "idle_share": 1.0 - busy_step / step_ms,
+            "k1_device_ms_per_step": k1_ms / window,
+            "device_ms_by_kernel": {k[:90]: v / window for k, v in top}}
+
+
+def phase_train(cfg):
+    """Train the flagship config for 2 epochs through the CLI entry point on
+    a written dataset, then serve the model.npz it wrote. FOLDS is cut to
+    [0], the one fold the written df_kfold.csv holds."""
+    cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        data_root = os.path.join(work, "data")
+        _write_dataset(data_root)
+        cfg_path = os.path.join(work, "config.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        cwd = os.getcwd()
+        os.chdir(work)  # EXPERIMENTS_ROOT 'exp/' lands in the work dir
+        try:
+            kernels.gaussian_blur_2d_cuda.launches = 0
+            kernels.converge_labels_cuda.launches = 0
+            t0 = time.perf_counter()
+            exp = os.path.abspath(train_main(
+                ["-cfg", cfg_path, "-data", data_root]))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = kernels.gaussian_blur_2d_cuda.launches
+            k2_launches = kernels.converge_labels_cuda.launches
+        finally:
+            os.chdir(cwd)
+        fold = os.path.join(exp, "f0")
+        with open(os.path.join(fold, "history.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        check(len(rows) == 2, f"train: {len(rows)} history rows, want 2")
+        keys = ("loss", "val_loss", "val_loc_mm")
+        history = [{k: float(r[k]) for k in keys + ("val_loc_det",
+                                                     "epoch_time")}
+                   for r in rows]
+        check(all(np.isfinite(h[k]) for h in history for k in keys),
+              f"train: non-finite history {history}")
+        npz = os.path.join(fold, "model", "model.npz")
+        check(os.path.exists(npz), "train: no model.npz")
+        n_train, n_val = 6 * 2 * 10, 2 * 2 * 10
+        batch = int(cfg["BATCHSIZE"])
+        train_steps = 2 * (n_train // batch)
+        eval_steps = 2 * -(-n_val // batch)
+        check(launches >= train_steps + eval_steps,
+              f"train: {launches} K1 launches for {train_steps} train and "
+              f"{eval_steps} eval steps")
+        check(not _loaded_foreign(), f"train: loaded {_loaded_foreign()}")
+
+        pred = Predictor(cfg, os.path.dirname(npz), device="cuda")
+        x = np.random.default_rng(SEED).standard_normal(
+            (4, 224, 224, 1)).astype(np.float32)
+        served = pred.predict(x)
+        check(served.shape == (4, 224, 224, 2) and np.isfinite(served).all(),
+              f"train: the trained model serves {served.shape}")
+        timing = _time_steps(cfg, data_root)
+    log("train", train_steps=train_steps, eval_steps=eval_steps,
+        k1_launches=launches, k2_launches=k2_launches, wall_s=wall_s,
+        history=history, **timing)
+    return launches
+
+
+def _grads(model):
+    return {n: p.grad.detach().double().cpu() for n, p in
+            model.named_parameters()}
+
+
+def phase_train_f32(cfg):
+    """One f32 train step (TF32 off, dropout 0, no augmentation) at flagship
+    width and batch on the card and on the CPU, from the same weights and
+    batch, each against a float64 evaluation of the step on the CPU."""
+    cfg = dict(cfg, MIXED_PRECISION=False, DROPOUT_MIN=0.0, DROPOUT_MAX=0.0,
+               AUGMENT=False)
+    batch = int(cfg["BATCHSIZE"])
+    rng = np.random.default_rng(SEED + 1)
+    imgs = _phantom(rng, batch, 224, 224)
+    msks = np.zeros((batch, 224, 224), np.float32)
+    for b in range(batch - 2):  # the last two slices hold no landmark
+        msks[b, 60 + b:64 + b, 120:124] = 1
+        msks[b, 100 + b:104 + b, 116:120] = 2
+    x, y = finalize_batch(torch.from_numpy(imgs), torch.from_numpy(msks), cfg)
+    weights = init_model(cfg).state_dict()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        steps = {}
+        for device in ("cuda", "cpu"):
+            trainer = Trainer(cfg, device=device)
+            trainer.model.load_state_dict(weights)
+            t0 = time.perf_counter()
+            logs = trainer.state.train_step(x.to(device), y.to(device))
+            loss = float(logs["loss"])
+            steps[device] = (loss, _grads(trainer.model),
+                             time.perf_counter() - t0)
+        ref = build_model(cfg)
+        ref.load_state_dict(weights)
+        ref.double()
+        for mod in ref.modules():
+            if hasattr(mod, "dtype"):
+                mod.dtype = torch.float64
+        ref_state = TrainState(ref, torch.optim.SGD(ref.parameters(), lr=0.0),
+                               trainer.loss_fn, {})
+        loss64 = float(ref_state.train_step(x.double(), y.double())["loss"])
+        g64 = _grads(ref)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+    def rel(a, b, scale):
+        return float((a - b).abs().max() / scale)
+
+    (loss_card, g_card, s_card), (loss_cpu, g_cpu, s_cpu) = \
+        steps["cuda"], steps["cpu"]
+    per_param = {}
+    for name, ref_g in g64.items():
+        scale = float(ref_g.abs().max()) or 1.0
+        per_param[name] = (rel(g_card[name], ref_g, scale),
+                           rel(g_cpu[name], ref_g, scale),
+                           rel(g_card[name], g_cpu[name], scale))
+    worst = max(per_param, key=lambda n: per_param[n][0] - per_param[n][1])
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log("train-f32", batch=batch, loss_card=loss_card, loss_cpu=loss_cpu,
+        loss_f64=loss64, loss_rel=loss_rel, loss_rtol=LOSS_RTOL,
+        grad_card_vs_f64_max=max(v[0] for v in per_param.values()),
+        grad_cpu_vs_f64_max=max(v[1] for v in per_param.values()),
+        grad_card_vs_cpu_max=max(v[2] for v in per_param.values()),
+        worst_param=worst, worst=per_param[worst], grad_extra=GRAD_EXTRA,
+        card_step_s=s_card, cpu_step_s=s_cpu,
+        cudnn_allow_tf32=False, matmul_allow_tf32=False)
+    check(loss_rel <= LOSS_RTOL,
+          f"train-f32: loss card {loss_card} vs CPU {loss_cpu}")
+    for name, (card, cpu, _) in per_param.items():
+        check(card <= cpu + GRAD_EXTRA,
+              f"train-f32: {name} gradient on the card lies {card} x max|g| "
+              f"from float64, the CPU's {cpu}")
+
+
 def main():
-    check("jax" not in sys.modules, "importing the port imported jax")
+    check(not _loaded_foreign(), f"importing the port loaded "
+          f"{_loaded_foreign()}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -294,27 +667,40 @@ def main():
         torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
-    ptxas = kernels.build()
-    log("build", seconds=time.perf_counter() - t0,
-        ptxas=[line.strip() for line in ptxas.splitlines()
-               if "registers" in line or "spill" in line or "smem" in line])
-
-    k2, max_err = phase_k2()
+    phase_build()
+    k2, k2_err = phase_k2()
+    k1, k1_err = phase_k1()
 
     with open(FLAGSHIP, encoding="utf-8") as fh:
         cfg = json.load(fh)
     model = phase_forward(cfg)
-    launches = phase_serve(cfg, model)
+    kernels.gaussian_blur_2d_cuda.launches = 0
+    k2_launches = phase_serve(cfg, model)
+    check(kernels.gaussian_blur_2d_cuda.launches == 0,
+          "serve: K1 launched on the serving path")
+    k1_launches = phase_train(cfg)
+    phase_train_f32(cfg)
 
-    headline = k2["random-0.55"]
-    print(json.dumps({"kernels": [{
-        "name": "converge_labels_cuda", "route": "cuda",
-        "source": "cmrtpu_torch/csrc/cc_labels.cu",
-        "replaces": "cmrtpu/ops/pallas_kernels.py:148",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": headline["ms"], "plain_ms": headline["plain_ms"]}]}),
+    h2, h1 = k2["random-0.55"], k1["main-s2"]
+    k2_bytes = Z * H * W * (1 + 4)  # uint8 masks in, int32 labels out
+    print(json.dumps({"kernels": [
+        {"name": "converge_labels_cuda", "route": "cuda",
+         "source": "cmrtpu_torch/csrc/cc_labels.cu",
+         "replaces": "cmrtpu/ops/pallas_kernels.py:148",
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "ms": h2["ms"], "plain_ms": h2["plain_ms"],
+         "bound_ms": k2_bytes / HBM_BYTES_S * 1e3,
+         "bound_us": k2_bytes / HBM_BYTES_S * 1e6,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "gaussian_blur_2d_cuda", "route": "cuda",
+         "source": "cmrtpu_torch/csrc/gaussian_blur.cu",
+         "replaces": "cmrtpu/ops/pallas_kernels.py:87",
+         "launches": k1_launches, "max_abs_err": k1_err,
+         "ms": h1["ms"], "plain_ms": h1["plain_ms"],
+         "bound_ms": h1["bound_us"] / 1e3, "bound_us": h1["bound_us"],
+         "bound_by": h1["bound_by"], "library_ms": h1["library_ms"]}]}),
         flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,26 +1,38 @@
-"""cmrtpu_torch — the serving path of ``cmrtpu`` in PyTorch, with its kernel
-written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
+"""cmrtpu_torch — the serving and training paths of ``cmrtpu`` in PyTorch,
+with its kernels written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
 
 ``cmrtpu`` (JAX/Flax/Pallas) stays the reference: every module here mirrors
 the ``cmrtpu`` module of the same name and is held against it on identical
 inputs by ``tests/test_torch_*.py``. This package imports ``torch`` and never
-``jax``, ``flax``, ``optax``, ``orbax`` or ``pandas``. It shares the
-numpy-only host modules of ``cmrtpu`` (``config``, ``io``, ``native``,
-``ops.resample``, ``pipeline.transforms``, ``predict.postprocess``,
-``utils.io_utils``), so file formats, geometry and config keys are identical
-by construction.
+``cmrtpu``, ``jax``, ``flax``, ``optax``, ``orbax`` or ``pandas``. It keeps
+its own copies of the numpy-only host modules it needs (``config``, ``io``,
+``native``, ``ops.resample``, ``pipeline.transforms``,
+``predict.postprocess``, ``utils.io_utils``, ``utils.tfevents``), so file
+formats, geometry and config keys are those of ``cmrtpu``.
 
-Layer map (the serving main path, entry point first):
+Layer map, entry points first:
   cli/serve.py                 directory serving CLI (-exp <fold_dir>)
   predict/serving.py           ServingEngine, process_study, serve_directory
   predict/predictor.py         Predictor, preprocessing, thresholding, CC_FILTER
-  models/hybrids.py            get_model (MODEL_VARIANT 'unet')
-  models/unet.py               2D U-Net nn.Modules (NHWC in, NHWC out)
+  cli/train.py                 training CLI (-cfg <json> -data <root>)
+  train/fold.py                run_experiment, train_fold
+  train/trainer.py             Trainer: epoch/callback loop, fit_cached
+  train/callbacks.py           checkpoint, LR plateau, early stop, TB, CSV
+  train/device_cache.py        dataset on the card; gather-augment-target-step
+  train/steps.py               TrainState: train_step / eval_step
+  train/losses.py, optimizers.py, eval/detection.py   loss, Adam, loc_mm
+  pipeline/generator.py        host stage (DataGenerator), finalize_batch
+  pipeline/augment.py          draw_params / apply_params on the card
+  data/dataset.py              slice names, fold lists
+  models/hybrids.py, unet.py   get_model; 2D U-Net nn.Modules (NHWC in/out)
   train/checkpoint.py          model.npz in the cmrtpu key layout (weights bridge)
-  io.py                        NIfTI/NRRD I/O (re-exports the shared cmrtpu.io)
+  ops/gaussian.py              heatmap targets; plain torch blur
   ops/connected_components.py  largest-component filter; plain torch labels
-  ops/cuda_kernels.py          nvcc build, ctypes binding, launch counter
-  csrc/cc_labels.cu            connected-component label kernel (sm_90a)
+  ops/cuda_kernels.py          nvcc build, ctypes binding, launch counters
+  csrc/gaussian_blur.cu        K1, separable Gaussian blur (sm_90a)
+  csrc/cc_labels.cu            K2, connected-component labels (sm_90a)
+  config.py, io/, native/, ops/resample.py, pipeline/transforms.py,
+  predict/postprocess.py, utils/   copies of cmrtpu's host modules
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

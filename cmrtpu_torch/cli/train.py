@@ -1,0 +1,55 @@
+"""CLI: train a RVIP detection model on a CUDA device.
+
+``python -m cmrtpu_torch.cli.train -cfg <config.json> -data <root>
+[-inmemory true] [--device cuda]``
+
+Counterpart of ``cmrtpu/cli/train.py`` (flag parity with
+``python src/models/train_model.py -cfg <json> -data <root>``). ``-data``
+holds ``2D/`` and ``df_kfold.csv``; every fold of FOLDS trains in turn into
+``EXPERIMENTS_ROOT/EXPERIMENT/<timestamp>/f<k>/``. The device defaults to
+cuda and a missing card raises unless ``--device cpu`` is given.
+``-resume`` is not ported yet (ROADMAP 3.6).
+"""
+
+import argparse
+import json
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="train a RV IP detection/segmentation model on CMR "
+                    "images (PyTorch + CUDA)")
+    parser.add_argument("-cfg", action="store", default=None,
+                        help="path to an experiment config (exp/template_cfgs)")
+    parser.add_argument("-data", action="store", default=None,
+                        help="path to the data-root folder (2D/, df_kfold.csv)")
+    parser.add_argument("-inmemory", action="store", default=None,
+                        help="cache the deterministic preprocessing in RAM "
+                             "(the only path ported; false raises)")
+    parser.add_argument("-resume", action="store", default=None,
+                        help="resume a crashed run (not ported yet)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu only when "
+                             "asked for)")
+    args = parser.parse_args(argv)
+    print(f"given parameters: {args}")
+    if args.cfg is None:
+        parser.error("no config given (-cfg)")
+    if args.data is None:
+        parser.error("no data given (-data)")
+    if args.resume:
+        parser.error("-resume: full-state resume is not ported to "
+                     "cmrtpu_torch yet (ROADMAP 3.6)")
+    in_memory = args.inmemory is None or \
+        args.inmemory.strip().lower() not in ("0", "false", "no", "off")
+
+    with open(args.cfg, encoding="utf-8") as fh:
+        config = json.load(fh)
+
+    from cmrtpu_torch.train.fold import run_experiment
+    return run_experiment(config, data_path=args.data, in_memory=in_memory,
+                          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

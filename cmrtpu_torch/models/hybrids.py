@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from cmrtpu import config as C
+from cmrtpu_torch import config as C
 from cmrtpu_torch.models.unet import UNet, build_model
 
 

@@ -19,10 +19,12 @@ and returns ``[N, H, W, classes]`` probabilities; inside, tensors are NCHW.
 Under ``MIXED_PRECISION`` the convs run in bf16 on f32 parameters, the norms
 and the head in f32, as in the reference.
 
-Only the slice of the reference that serving needs is ported: the plain 2D
-U-Net with GroupNorm, eval-mode BatchNorm or no norm, and the upsample
-decoder. Every other configuration raises ``NotImplementedError`` naming its
-ROADMAP item.
+Ported: the plain 2D U-Net with GroupNorm, eval-mode BatchNorm or no norm,
+and the upsample decoder. In train mode dropout draws its masks from an
+explicit ``torch.Generator`` passed to ``forward`` (flax draws them from the
+step's dropout key); train-mode BatchNorm is not ported (the train state
+raises, ROADMAP 2.6). Every other configuration raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cmrtpu import config as C
+from cmrtpu_torch import config as C
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -91,6 +93,13 @@ def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor
                                      generator=generator)
 
 
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of norms, head and loss: float32 under bf16 or f32
+    compute, as in the reference; float64 for a float64 model (a reference
+    evaluation of the same math)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Conv(dtype=...)`` on f32 params: input, kernel and bias are
     cast to the compute dtype; 'SAME' padding. The bias is added after the
@@ -99,6 +108,23 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     difference grows to 0.1 in probability through a depth-3 GroupNorm net."""
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding="same")
     return y + conv.bias.to(dtype)[:, None, None]
+
+
+def _dropout(x: torch.Tensor, rate: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate), in the input's dtype; the mask
+    comes from ``generator``, never from torch's global generator."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("train-mode dropout needs an explicit "
+                         "torch.Generator (forward(x, generator=...))")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _upsample_nearest(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
@@ -141,7 +167,7 @@ class ConvBlock(nn.Module):
     def _norm(self, y: torch.Tensor) -> torch.Tensor:
         if self.norm_name is None:
             return y
-        return getattr(self, self.norm_name)(y.float())
+        return getattr(self, self.norm_name)(y.to(wide_dtype(self.dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn_first:
@@ -157,11 +183,13 @@ class DownBlock(nn.Module):
     def __init__(self, in_ch: int, filters: int, drop: float, **kw):
         super().__init__()
         self.ConvBlock_0 = ConvBlock(in_ch, filters, **kw)
-        self.dropout = nn.Dropout(drop)
+        self.drop = drop
         self.ConvBlock_1 = ConvBlock(filters, filters, **kw)
 
-    def forward(self, x: torch.Tensor, m_pool: Tuple[int, int]):
-        skip = self.ConvBlock_1(self.dropout(self.ConvBlock_0(x)))
+    def forward(self, x: torch.Tensor, m_pool: Tuple[int, int],
+                generator: Optional[torch.Generator] = None):
+        skip = self.ConvBlock_1(_dropout(self.ConvBlock_0(x), self.drop,
+                                         self.training, generator))
         bad = [f"axis {i} (size {d}, pool {p})"
                for i, (d, p) in enumerate(zip(skip.shape[2:], m_pool))
                if d // int(p) < 1]
@@ -185,15 +213,17 @@ class UpBlock(nn.Module):
         self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(kw["f_size"]),
                                 padding="same")
         self.ConvBlock_0 = ConvBlock(filters + skip_ch, filters, **kw)
-        self.dropout = nn.Dropout(drop)
+        self.drop = drop
         self.ConvBlock_1 = ConvBlock(filters, filters, **kw)
 
     def forward(self, lower: torch.Tensor, skip: torch.Tensor,
-                up_size: Tuple[int, int]) -> torch.Tensor:
+                up_size: Tuple[int, int],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.act(_conv(self.Conv_0, _upsample_nearest(lower, up_size),
                            self.dtype))
         x = torch.cat([x, skip.to(x.dtype)], dim=1)
-        return self.ConvBlock_1(self.dropout(self.ConvBlock_0(x)))
+        return self.ConvBlock_1(_dropout(self.ConvBlock_0(x), self.drop,
+                                         self.training, generator))
 
 
 class UNet(nn.Module):
@@ -209,7 +239,10 @@ class UNet(nn.Module):
                  logit_softcap=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.depth = depth
+        self.filters = filters
+        self.f_size = tuple(f_size)
         self.m_pool = tuple(m_pool)
+        self.mask_classes = mask_classes
         self.logit_softcap = logit_softcap
         self.head_bias_prior = head_bias_prior
         self.dtype = dtype
@@ -225,7 +258,7 @@ class UNet(nn.Module):
             ch = f
         bottom = filters * 2 ** depth
         self.ConvBlock_0 = ConvBlock(ch, bottom, **kw)
-        self.dropout = nn.Dropout(drop_bottleneck)
+        self.drop_bottleneck = drop_bottleneck
         self.ConvBlock_1 = ConvBlock(bottom, bottom, **kw)
         ch = bottom
         drops = list(dropouts)
@@ -255,8 +288,10 @@ class UNet(nn.Module):
                 self.head.bias.fill_(float(np.log(p / (1.0 - p))))
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, H, W, C] -> [N, H, W, classes] sigmoid probabilities (f32)."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[N, H, W, C] -> [N, H, W, classes] sigmoid probabilities (f32).
+        ``generator`` draws the dropout masks in train mode."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         pools, clamped = effective_pools(x.shape[2:], self.m_pool, self.depth)
         if clamped:
@@ -266,15 +301,42 @@ class UNet(nn.Module):
                 f"per-level pools {pools}.", stacklevel=2)
         skips = []
         for level in range(self.depth):
-            skip, x = getattr(self, f"DownBlock_{level}")(x, pools[level])
+            skip, x = getattr(self, f"DownBlock_{level}")(x, pools[level],
+                                                          generator)
             skips.append(skip)
-        x = self.ConvBlock_1(self.dropout(self.ConvBlock_0(x)))
+        x = self.ConvBlock_1(_dropout(self.ConvBlock_0(x),
+                                      self.drop_bottleneck, self.training,
+                                      generator))
         for i in range(self.depth):
             x = getattr(self, f"UpBlock_{i}")(x, skips.pop(),
-                                              pools[self.depth - 1 - i])
-        logits = F.conv2d(x.float(), self.head.weight, self.head.bias)
+                                              pools[self.depth - 1 - i],
+                                              generator)
+        logits = F.conv2d(x.to(wide_dtype(self.dtype)), self.head.weight,
+                          self.head.bias)
         probs = torch.sigmoid(apply_softcap(logits, self.logit_softcap))
         return probs.permute(0, 2, 3, 1)
+
+
+def model_summary(model: UNet) -> str:
+    """Text summary with the parameter count (counterpart of
+    ``cmrtpu.models.unet.model_summary`` -> model_summary.txt): one line per
+    parameter under its flax path and shape."""
+    from cmrtpu_torch.train.checkpoint import _flatten, state_dict_to_flax
+
+    attrs = " ".join(f"{name}={getattr(model, name)}"
+                     for name in ("depth", "filters", "f_size", "m_pool",
+                                  "mask_classes", "dtype"))
+    lines = [f"{type(model).__name__} {attrs}"]
+    params, stats = state_dict_to_flax(model.state_dict())
+    total = 0
+    for path, leaf in sorted(_flatten(params).items()):
+        lines.append(f"  {'/'.join(path):60s} {str(leaf.shape):18s} "
+                     f"{leaf.size}")
+        total += leaf.size
+    lines.append(f"Trainable params: {total}")
+    lines.append("BatchNorm statistics: "
+                 f"{sum(v.size for v in _flatten(stats).values())}")
+    return "\n".join(lines)
 
 
 def dropout_schedule(config: Dict) -> Tuple[float, ...]:

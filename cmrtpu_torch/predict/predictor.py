@@ -2,8 +2,8 @@
 counterpart of the serving parts of ``cmrtpu/predict/predictor.py``.
 
 ``cmrtpu.predict.predictor`` imports jax at module level, so its numpy-only
-functions are re-implemented here over the shared ``cmrtpu`` host modules
-(``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
+functions are re-implemented here over the port's own copies of the host
+modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from cmrtpu import config as C
-from cmrtpu.ops import resample as R
+from cmrtpu_torch import config as C
+from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.io import MedicalImage
 from cmrtpu_torch.models.hybrids import get_model
 from cmrtpu_torch.ops.connected_components import clean_prediction_2d_cc
@@ -123,7 +123,7 @@ def preprocess_model_input(slices: np.ndarray, slice_spacing,
     pad/crop to DIM -> re-normalise. ``slices`` is [N, y, x];
     ``slice_spacing`` the in-plane (x, y) spacing shared by all slices.
     Returns the model-ready [N, H, W, 1] float32 batch."""
-    from cmrtpu.pipeline import transforms as T
+    from cmrtpu_torch.pipeline import transforms as T
 
     cfg = C.normalise_config(cfg)
     dim = tuple(C.get(cfg, "DIM"))

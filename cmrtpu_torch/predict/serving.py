@@ -21,10 +21,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from cmrtpu import config as C
-from cmrtpu.ops import resample as R
-from cmrtpu.predict.postprocess import undo_generator_steps
-from cmrtpu.utils.io_utils import ensure_dir
+from cmrtpu_torch import config as C
+from cmrtpu_torch.ops import resample as R
+from cmrtpu_torch.predict.postprocess import undo_generator_steps
+from cmrtpu_torch.utils.io_utils import ensure_dir
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.predict.predictor import (Predictor, _head_outputs,
                                             cc_clean_fn,

@@ -1,1 +1,1 @@
-"""PyTorch counterparts of ``cmrtpu.train`` (weights only, so far)."""
+"""PyTorch counterparts of ``cmrtpu.train``: train step, device-resident loop, callbacks, fold loop."""

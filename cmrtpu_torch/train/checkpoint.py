@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cmrtpu.utils.io_utils import ensure_dir
+from cmrtpu_torch.utils.io_utils import ensure_dir
 
 WEIGHTS_NAME = "model.npz"
 

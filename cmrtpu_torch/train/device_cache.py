@@ -1,0 +1,179 @@
+"""Device-resident training: the dataset lives in the card's memory, each
+step gathers, augments, builds its targets and trains there — counterpart of
+``cmrtpu/train/device_cache.py`` (the replicated single-device path).
+
+    upload once -> per epoch: one [steps, B] index matrix -> per step:
+        gather -> augment -> normalise -> mask channels / heatmaps (K1)
+        -> forward -> loss -> backward -> Adam
+
+Epoch shuffling stays on the host with ``np.random.default_rng(SEED)``, as
+in cmrtpu, so both packages visit the examples in the same order. Only the
+epoch's mean logs leave the card, in one transfer. Not ported: the sharded
+and per-host caches and the explicit-collectives step (ROADMAP 6.1, 6.2),
+and cache dtypes other than float32 (ROADMAP 3.5), which raise.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from cmrtpu_torch import config as C
+from cmrtpu_torch.pipeline.augment import apply_params, draw_params
+from cmrtpu_torch.pipeline.generator import finalize_batch
+
+
+def _uint8_packable(y: np.ndarray) -> bool:
+    """True when a float label cache packs losslessly to uint8 (exact small
+    non-negative integers), as cmrtpu packs its mask cache."""
+    if not (np.issubdtype(y.dtype, np.floating) and y.size):
+        return False
+    if float(y.min()) < 0 or float(y.max()) > 255:
+        return False
+    return bool(np.array_equal(y.astype(np.uint8).astype(y.dtype), y))
+
+
+def fits_device_cache(config: Dict, x: np.ndarray, y: np.ndarray) -> bool:
+    """DEVICE_CACHE_LIMIT_GB guard on the cache's bytes on the card."""
+    limit_gb = float(C.get(config, "DEVICE_CACHE_LIMIT_GB", 8.0) or 8.0)
+    y_bytes = y.size if _uint8_packable(y) else y.nbytes
+    return x.nbytes + y_bytes <= limit_gb * (1 << 30)
+
+
+def upload_cache(x: np.ndarray, y: np.ndarray, device: torch.device):
+    """The padded deterministic cache on ``device``: images float32, labels
+    uint8 when that is lossless (cast back to float32 after each gather)."""
+    y = y.astype(np.uint8) if _uint8_packable(y) else y
+    return (torch.from_numpy(np.ascontiguousarray(x)).to(device),
+            torch.from_numpy(np.ascontiguousarray(y)).to(device))
+
+
+def _check_config(cfg: Dict) -> None:
+    for key, what, item in (
+            ("CACHE_SHARDED", "the example-sharded device cache", "6.2"),
+            ("CACHE_PER_HOST", "per-host cache loading", "6.2"),
+            ("GRAD_ALLREDUCE_DTYPE", "the explicit-collectives train step",
+             "6.1")):
+        if C.get(cfg, key, None):
+            raise NotImplementedError(
+                f"{what} ({key}) is not ported to cmrtpu_torch yet (ROADMAP "
+                f"{item}); the port trains on one card")
+    cache_dtype = str(C.get(cfg, "CACHE_DTYPE", "float32")).lower()
+    if cache_dtype not in ("float32", "f32"):
+        raise NotImplementedError(
+            f"CACHE_DTYPE={cache_dtype!r} is not ported to cmrtpu_torch yet "
+            "(ROADMAP 3.5); the port caches float32 images")
+
+
+class DeviceCachedLoop:
+    """Drives epochs over a dataset held in the card's memory for a
+    Trainer, from DataGenerators whose in-memory caches hold the arrays."""
+
+    def __init__(self, trainer, train_gen, val_gen=None):
+        cfg = trainer.config
+        _check_config(cfg)
+        self.trainer = trainer
+        self.config = cfg
+        self.device = trainer.device
+        self.batch = int(C.get(cfg, "BATCHSIZE", 32) or 0)
+        if self.batch <= 0:
+            raise ValueError(f"BATCHSIZE must be positive, got {self.batch}")
+        seed = int(C.get(cfg, "SEED", 42))
+        self.rng = np.random.default_rng(seed)
+        # augmentation draws, on the card; dropout has the trainer's own
+        self.aug_generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.shuffle = bool(C.get(cfg, "SHUFFLE", True))
+        if train_gen._cache_x is None:
+            raise ValueError("device-cached training needs examples: the "
+                             "training set is empty")
+        for gen in (train_gen, val_gen):
+            if gen is not None and gen._cache_x is not None and \
+                    not fits_device_cache(cfg, gen._cache_x, gen._cache_y):
+                raise NotImplementedError(
+                    "the dataset exceeds DEVICE_CACHE_LIMIT_GB; training "
+                    "from host-streamed batches is not ported to "
+                    "cmrtpu_torch yet (ROADMAP 6.3)")
+
+        self.x_train, self.y_train = upload_cache(
+            train_gen._cache_x, train_gen._cache_y, self.device)
+        self.n_train = int(train_gen._cache_x.shape[0])
+        self._augment = bool(C.get(cfg, "AUGMENT", False))
+        self._masks = bool(train_gen.masks)
+
+        self.val = None
+        if val_gen is not None and val_gen._cache_x is not None:
+            self.x_val, self.y_val = upload_cache(
+                val_gen._cache_x, val_gen._cache_y, self.device)
+            self.n_val = int(val_gen._cache_x.shape[0])
+            self._val_masks = bool(val_gen.masks)
+            self.val = True
+        logging.info("device cache: %d train / %s val examples resident on "
+                     "%s", self.n_train, self.n_val if self.val else "no",
+                     self.device)
+
+    def _gather(self, data_x, data_y, idxs: torch.Tensor):
+        return (data_x.index_select(0, idxs).float(),
+                data_y.index_select(0, idxs).float())
+
+    def train_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """gather -> augment -> finalize (K1) -> one optimizer step."""
+        imgs, msks = self._gather(self.x_train, self.y_train, idxs)
+        if self._augment:
+            params = draw_params(self.aug_generator, self.config,
+                                 imgs.shape[0])
+            imgs, msks = apply_params(params, imgs, msks)
+        x, y = finalize_batch(imgs, msks, self.config, masks=self._masks)
+        return self.trainer.state.train_step(x, y)
+
+    def eval_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        imgs, msks = self._gather(self.x_val, self.y_val, idxs)
+        x, y = finalize_batch(imgs, msks, self.config, masks=self._val_masks)
+        return self.trainer.state.eval_step(x, y)
+
+    def _epoch_indices(self, n: int, shuffle: bool) -> np.ndarray:
+        idxs = self.rng.permutation(n) if shuffle else np.arange(n)
+        n_batches = n // self.batch
+        return idxs[:n_batches * self.batch].reshape(n_batches, self.batch)
+
+    def _to_host(self, means: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """One device -> host transfer for all of an epoch's logs."""
+        keys = list(means)
+        values = torch.stack([means[k].float() for k in keys]).tolist()
+        return dict(zip(keys, values))
+
+    def run_train_epoch(self) -> Dict[str, float]:
+        """One pass over floor(n / B) shuffled batches; the logs are the
+        mean over the steps."""
+        batches = self._epoch_indices(self.n_train, shuffle=self.shuffle)
+        if len(batches) == 0:
+            raise ValueError(
+                f"device-cached epoch is empty: {self.n_train} examples < "
+                f"BATCHSIZE {self.batch}")
+        idx_dev = torch.from_numpy(batches).to(self.device)
+        step_logs = [self.train_step(idxs) for idxs in idx_dev]
+        return self._to_host({k: torch.stack([s[k] for s in step_logs]).mean()
+                              for k in step_logs[0]})
+
+    def run_eval_epoch(self) -> Dict[str, float]:
+        """Every validation example: the full batches, then the remainder
+        as one smaller batch (reference floor semantics would drop it); the
+        epoch value is the example-weighted mean."""
+        batches: List[np.ndarray] = list(
+            self._epoch_indices(self.n_val, shuffle=False))
+        tail = self.n_val % self.batch
+        if tail:
+            batches.append(np.arange(self.n_val - tail, self.n_val))
+        if not batches:
+            return {}
+        step_logs, weights = [], []
+        for idxs in batches:
+            step_logs.append(self.eval_step(
+                torch.from_numpy(np.asarray(idxs)).to(self.device)))
+            weights.append(float(len(idxs)))
+        w = torch.tensor(weights, device=self.device)
+        return self._to_host({
+            k: (torch.stack([s[k] for s in step_logs]).float() * w).sum()
+            / w.sum() for k in step_logs[0]})
