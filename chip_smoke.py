@@ -8,17 +8,26 @@ Run from the root of a checkout. Phases, one line each:
   2. build     — one nvcc build of every kernel (csrc/*.cu, one process per
                  source), print ptxas's report for each;
   3. k2        — the CC-label kernel against its plain torch version on the
-                 card and scipy's labels, exact, at [10, 224, 224];
+                 card and scipy's labels, exact, at [10, 224, 224] (random
+                 0.3/0.55/0.7, serpentine, empty/full/single), at the serving
+                 path's stacked [20, 224, 224] (landmark-like discs) and at
+                 [4, 512, 512]; a second launch must give the same labels
+                 bit for bit (the atomics run in another order); timed by
+                 CUDA events around wrapper calls and around a CUDA graph
+                 of launches, and by the profiler's device time per pass;
   4. k1        — the Gaussian-blur kernel against its plain torch version on
                  the card and scipy (float64, host), atol 1e-5, at the
-                 training path's [32, 224, 224] and edge cases; timed beside
-                 the plain version, a cuDNN yardstick and its bound;
+                 training path's [32, 224, 224], edge cases, radii outside
+                 the kernel's constants and a width that needs column
+                 chunks; timed with L2 warm and flushed, beside the plain
+                 version, a cuDNN yardstick and its bound;
   5. forward   — the flagship U-Net (exp/template_cfgs/gaus_sigma2_config.json)
                  with seeded random weights at batch 16, bf16 on the card,
                  against the port's f32 forward on the CPU;
   6. serve     — a fold with those weights serves 3 synthetic studies through
                  the cmrtpu_torch.cli.serve entry point; K2's launch counter
-                 must show the serving path went through it;
+                 must show one launch per study and one for the engine's
+                 warm-up;
   7. train     — the flagship config (EPOCHS 2) trains on a written synthetic
                  dataset through the cmrtpu_torch.cli.train entry point; K1's
                  launch counter must show every train and eval step went
@@ -84,6 +93,10 @@ K1_ATOL = 1e-5
 # published H100 SXM peaks (700 W): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# a write of this many bytes between launches evicts the 50 MB L2
+FLUSH_BYTES = 64 << 20
+# K2's three passes, as the profiler names their kernels
+K2_KERNELS = ("cc_local_kernel", "cc_merge_kernel", "cc_flatten_kernel")
 # train-f32: the f32 loss on the card against the CPU's
 LOSS_RTOL = 1e-4
 # train-f32: per parameter, the card's f32 gradient may lie at most this much
@@ -118,6 +131,73 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Time per call of ``fn`` from CUDA events around one replay of a CUDA
+    graph of ``reps`` calls: the card's time with no host work between the
+    launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def self_device_us(evt):
+    """Device time (us) of a profiler event, under the name of this torch's
+    version."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    raise RuntimeError("the profiler's events carry no device time")
+
+
+def device_us(fn, reps, names):
+    """Device time of ``fn`` from torch.profiler over ``reps`` calls after
+    one warm call: microseconds per call of the kernels whose names hold one
+    of ``names`` (each kernel's mean over the launches the profiler
+    recorded), summed and by name, or None where the profiler saw none. A
+    kernel seen with no device time fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    time_us = {name: 0.0 for name in names}
+    count = {name: 0 for name in names}
+    for evt in prof.key_averages():
+        if evt.device_type.name != "CUDA":
+            continue
+        for name in names:
+            if name in evt.key:
+                time_us[name] += self_device_us(evt)
+                count[name] += evt.count
+    for name in names:
+        check(not count[name] or time_us[name] > 0,
+              f"profiler: {count[name]} launches of {name} with no device "
+              "time")
+    by_name = {name: time_us[name] / count[name] if count[name] else None
+               for name in names}
+    if not all(count.values()):
+        return None, by_name
+    return sum(by_name.values()), by_name
+
+
 def scipy_min_index_labels(masks):
     """scipy 4-connected labels, each component renamed to its min index."""
     out = np.full(masks.shape, INF, np.int32)
@@ -140,6 +220,22 @@ def kept_reference(labels):
     return kept
 
 
+def _discs(rng, z, h, w, values):
+    """Landmark-like label volume [Z, H, W]: per slice and label value one
+    disc of radius 3 and 0-4 discs of radius 1-2 at random centres (about
+    0.1% foreground per label at 224^2); a later value overwrites an
+    earlier one."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    pred = np.zeros((z, h, w), np.uint8)
+    for k in range(z):
+        for val in values:
+            n_small = rng.integers(0, 5)
+            for radius in (3, *rng.integers(1, 3, n_small)):
+                cy, cx = rng.integers(0, h), rng.integers(0, w)
+                pred[k][np.hypot(yy - cy, xx - cx) <= radius] = val
+    return pred
+
+
 def k2_cases():
     rng = np.random.default_rng(SEED)
     cases = {f"random-{d}": rng.random((Z, H, W)) < d
@@ -154,32 +250,56 @@ def k2_cases():
     edge[1::3] = True                      # full slices
     edge[2, 0, 0] = edge[5, H - 1, W - 1] = edge[8, H // 2, W // 3] = True
     cases["empty-full-single"] = edge      # the rest stay empty
+    # what the serving path gives K2: label 1's and label 2's masks of a
+    # z=10 study stacked
+    pred = _discs(rng, Z, H, W, (1, 2))
+    cases["landmark-like"] = np.concatenate([pred == 1, pred == 2])
+    cases["random-0.55-512"] = rng.random((4, 512, 512)) < 0.55
     return cases
 
 
+def _k2_bound_ms(shape):
+    """Least time of K2 on an [N, H, W] stack: 1 B of mask read and 4 B of
+    labels written per pixel over HBM."""
+    return int(np.prod(shape)) * (1 + 4) / HBM_BYTES_S * 1e3
+
+
 def phase_k2():
-    """Exact equality of the kernel with the plain version and scipy."""
+    """Exact equality of the kernel with the plain version and scipy, and of
+    two launches with each other."""
     results, max_err = {}, 0
     for name, masks in k2_cases().items():
         dev = torch.from_numpy(masks).cuda()
         got = kernels.converge_labels_cuda(dev)
+        again = kernels.converge_labels_cuda(dev)
         plain = cc.label_components_2d(dev)
         torch.cuda.synchronize()
         err = int((got.long() - plain.long()).abs().max())
         max_err = max(max_err, err)
         check(err == 0, f"k2 {name}: kernel != plain (max abs {err})")
+        check(torch.equal(got, again), f"k2 {name}: two launches differ")
         want = scipy_min_index_labels(masks)
         check(np.array_equal(got.cpu().numpy(), want),
               f"k2 {name}: kernel != scipy")
         check(np.array_equal(cc.largest_component_batch(dev).cpu().numpy(),
                              kept_reference(want)),
               f"k2 {name}: kept masks on the card != scipy's")
-        slow = name == "serpentine"
-        ms = cuda_ms(lambda: kernels.converge_labels_cuda(dev), 5 if slow else 50)
-        plain_ms = cuda_ms(lambda: cc.label_components_2d(dev), 2 if slow else 10)
-        results[name] = {"ms": ms, "plain_ms": plain_ms}
-        log("k2", case=name, shape=list(masks.shape), exact=True, ms=ms,
-            plain_ms=plain_ms)
+        slow = name in ("serpentine", "random-0.55-512")
+        ms = cuda_ms(lambda: kernels.converge_labels_cuda(dev), 50)
+        g_ms = graph_ms(lambda: kernels.converge_labels_cuda(dev), 20)
+        dev_us, by_kernel = device_us(
+            lambda: kernels.converge_labels_cuda(dev), 20, K2_KERNELS)
+        plain_ms = cuda_ms(lambda: cc.label_components_2d(dev),
+                           2 if slow else 10)
+        results[name] = {"shape": list(masks.shape), "ms": ms,
+                         "graph_ms": g_ms, "device_us": dev_us,
+                         "plain_ms": plain_ms,
+                         "bound_ms": _k2_bound_ms(masks.shape)}
+        log("k2", case=name, shape=list(masks.shape),
+            foreground=float(masks.mean()), exact=True, repeatable=True,
+            ms=ms, graph_ms=g_ms, device_us=dev_us,
+            device_us_by_kernel=by_kernel,
+            plain_ms=plain_ms, bound_us=_k2_bound_ms(masks.shape) * 1e3)
     return results, max_err
 
 
@@ -304,8 +424,9 @@ def phase_serve(cfg, model):
             latencies[name] = {k: record[k] for k in
                                ("read_s", "preprocess_s", "forward_s",
                                 "post_write_s", "total_s", "slices")}
-    # one launch per label value per study, plus the engine's warm-up
-    check(launches >= 2 * len(studies),
+    # one launch per study (both label values stacked), plus the engine's
+    # warm-up
+    check(launches == len(studies) + 1,
           f"serve: {launches} kernel launches for {len(studies)} studies")
     check("jax" not in sys.modules, "serve: jax was imported")
     log("serve", studies=len(studies), launches=launches, wall_s=wall_s,
@@ -350,6 +471,32 @@ def _blur_library(x, sigma):
     return F.conv2d(out, k.view(1, 1, 1, -1))[:, 0]
 
 
+def _k1_times(dev, sigma):
+    """K1's time with L2 warm (back-to-back launches on one input, as the
+    train step finds its just-written targets) by CUDA events around
+    wrapper calls (host work included) and around a CUDA graph of launches,
+    and with L2 flushed by a 64 MB write before each launch in the graph (a
+    graph of the writes alone timed apart and taken off)."""
+    def blur():
+        return kernels.gaussian_blur_2d_cuda(dev, sigma)
+
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev.device)
+
+    def flush():
+        scratch.fill_(1)
+
+    def flushed_blur():
+        flush()
+        blur()
+
+    flush_ms = graph_ms(flush, 20)
+    return {"ms": cuda_ms(blur, 200), "graph_ms": graph_ms(blur, 50),
+            "cold_graph_ms": graph_ms(flushed_blur, 20) - flush_ms,
+            "flush_graph_ms": flush_ms,
+            "plain_ms": cuda_ms(lambda: gaussian_blur_2d(dev, sigma), 20),
+            "library_ms": cuda_ms(lambda: _blur_library(dev, sigma), 50)}
+
+
 def k1_cases():
     rng = np.random.default_rng(SEED)
     main_path = (2 * 16, 224, 224)  # B * C = 16 * 2 heatmap channels
@@ -357,7 +504,12 @@ def k1_cases():
              ("main-s1", rng.random(main_path, np.float32), 1.0),
              ("main-s4", rng.random(main_path, np.float32), 4.0),
              ("odd-37x53", rng.random((3, 37, 53), np.float32), 2.0),
-             ("r-ge-side", rng.random((2, 12, 12), np.float32), 4.0)]
+             ("r-ge-side", rng.random((2, 12, 12), np.float32), 4.0),
+             # radii the kernel reads at run time (not template constants)
+             ("s1.5-odd", rng.random((3, 37, 53), np.float32), 1.5),
+             ("s3-r-ge-side", rng.random((2, 10, 8), np.float32), 3.0),
+             # too wide for one block: column chunks
+             ("wide-chunks", rng.random((2, 300, 2600), np.float32), 2.0)]
     impulse = np.zeros((1, 64, 64), np.float32)
     impulse[0, 32, 32] = 1.0
     cases.append(("impulse", impulse, 2.0))
@@ -395,12 +547,8 @@ def phase_k1():
                 check(abs(total - 1.0) <= 1e-4, f"k1 impulse sums to {total}")
                 fields["impulse_sum"] = total
             if name.startswith("main"):
-                fields.update(
-                    ms=cuda_ms(lambda: kernels.gaussian_blur_2d_cuda(
-                        dev, sigma), 200),
-                    plain_ms=cuda_ms(lambda: gaussian_blur_2d(dev, sigma), 20),
-                    library_ms=cuda_ms(lambda: _blur_library(dev, sigma), 50),
-                    **_blur_bound(host.shape, sigma))
+                fields.update(_k1_times(dev, sigma), **_blur_bound(
+                    host.shape, sigma))
                 results[name] = fields
             log("k1", **fields)
     finally:
@@ -486,7 +634,7 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
     for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        dev_us = self_device_us(evt)
         # user annotations (Optimizer.step#Adam.step) span the kernels they
         # launch on the device timeline: counting them would count twice
         annotation = getattr(evt, "is_user_annotation", False) \
@@ -650,6 +798,10 @@ def phase_train_f32(cfg):
               f"from float64, the CPU's {cpu}")
 
 
+def _ms(us):
+    return None if us is None else us / 1e3
+
+
 def main():
     check(not _loaded_foreign(), f"importing the port loaded "
           f"{_loaded_foreign()}")
@@ -682,22 +834,29 @@ def main():
     phase_train_f32(cfg)
 
     h2, h1 = k2["random-0.55"], k1["main-s2"]
-    k2_bytes = Z * H * W * (1 + 4)  # uint8 masks in, int32 labels out
+    stacked = k2["landmark-like"]
     print(json.dumps({"kernels": [
         {"name": "converge_labels_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/cc_labels.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:148",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": h2["ms"], "plain_ms": h2["plain_ms"],
-         "bound_ms": k2_bytes / HBM_BYTES_S * 1e3,
-         "bound_us": k2_bytes / HBM_BYTES_S * 1e6,
-         "bound_by": "bytes", "library_ms": None},
+         "case": f"random-0.55 {h2['shape']}",
+         "ms": h2["ms"], "graph_ms": h2["graph_ms"],
+         "device_ms": _ms(h2["device_us"]),
+         "plain_ms": h2["plain_ms"], "bound_ms": h2["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "stacked_case": f"landmark-like {stacked['shape']}",
+         "stacked_ms": stacked["ms"], "stacked_graph_ms": stacked["graph_ms"],
+         "stacked_device_ms": _ms(stacked["device_us"]),
+         "stacked_bound_ms": stacked["bound_ms"]},
         {"name": "gaussian_blur_2d_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/gaussian_blur.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:87",
          "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": h1["ms"], "plain_ms": h1["plain_ms"],
-         "bound_ms": h1["bound_us"] / 1e3, "bound_us": h1["bound_us"],
+         "case": f"main-s2 {h1['shape']} sigma 2, L2 warm",
+         "ms": h1["ms"], "graph_ms": h1["graph_ms"],
+         "cold_graph_ms": h1["cold_graph_ms"],
+         "plain_ms": h1["plain_ms"], "bound_ms": h1["bound_us"] / 1e3,
          "bound_by": h1["bound_by"], "library_ms": h1["library_ms"]}]}),
         flush=True)
     print(smi, flush=True)

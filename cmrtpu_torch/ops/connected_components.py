@@ -1,15 +1,14 @@
 """Largest-connected-component filtering on torch tensors — counterpart of
 ``cmrtpu/ops/connected_components.py`` (2D part).
 
-Labels are converged by iterative min-label propagation: every foreground
-pixel is seeded with its linear index and takes the min over its
-4-neighbourhood until a fixed point, so a component's id is its smallest
-linear index and background is the sentinel 2**30. On a CUDA tensor the
-labels come from the hand-written kernel (``ops/cuda_kernels.py``); on a CPU
-tensor from the plain torch version below, which is also the reference the
-kernel is held against. Component sizes are counted with one scatter-add and
-the biggest component is kept, as in the reference.
-"""
+A component's id is its smallest linear index and background is the
+sentinel 2**30. On a CUDA tensor the labels come from the hand-written
+union-find kernel (``ops/cuda_kernels.py``); on a CPU tensor from the plain
+torch version below, iterative min-label propagation (every foreground pixel
+seeded with its linear index takes the min over its 4-neighbourhood until a
+fixed point), which is also the reference the kernel is held against.
+Component sizes are counted with one scatter-add and the biggest component
+is kept, as in the reference."""
 
 from __future__ import annotations
 
@@ -81,12 +80,18 @@ def clean_prediction_2d_cc(pred_flat, label_values: Sequence[int] = (1, 2),
                            device=None) -> torch.Tensor:
     """Per-slice, per-label biggest-component filter of a [Z, H, W] label
     volume (numpy or tensor), on ``device`` (default: the tensor's own, the
-    CPU for numpy); one kernel launch per label value on a CUDA device. A
-    later label value overwrites an earlier one."""
+    CPU for numpy). The masks of all label values go through one
+    [len(values) * Z, H, W] labelling, one kernel launch on a CUDA device;
+    a later label value overwrites an earlier one, as in the reference."""
     pred = torch.as_tensor(pred_flat, device=device)
     out = torch.zeros_like(pred)
-    for val in label_values:
-        keep = largest_component_batch(pred == val)
+    values = list(label_values)
+    if not values:
+        return out
+    kept = largest_component_batch(
+        torch.cat([pred == val for val in values])).reshape(
+            len(values), *pred.shape)
+    for val, keep in zip(values, kept):
         out = torch.where(keep, torch.as_tensor(val, dtype=pred.dtype,
                                                 device=pred.device), out)
     return out

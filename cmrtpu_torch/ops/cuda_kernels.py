@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,12 +39,19 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # opt-in dynamic shared memory one block may use on sm_90 (H100/H200)
 SMEM_LIMIT = 232_448
-# K1's output tile side and largest radius (csrc/gaussian_blur.cu kTile,
-# kMaxRadius): the (32 + 2r)^2 window plus the 32 x (32 + 2r) scratch must
-# fit SMEM_LIMIT
-BLUR_TILE = 32
-BLUR_MAX_RADIUS = 96
-MAX_GRID_Z = 65_535
+# K1's block is a strip of output rows by a chunk of output columns
+# (csrc/gaussian_blur.cu): the strip's rows plus their halo, the scratch of
+# the pass along H and a column table must fit SMEM_LIMIT. The strip height
+# is the one measured fastest at the training path's [32, 224, 224]
+# (cmrtpu_torch/tools/k1_sweep.py, PERF.md); the smallest block (4 rows by
+# 32 columns) bounds the radius.
+BLUR_STRIP_ROWS = 28
+BLUR_MIN_STRIP, BLUR_MIN_CHUNK = 4, 32
+BLUR_MAX_RADIUS = 108
+# a grid's y and z extents
+MAX_GRID_YZ = 65_535
+# K2's tile side (csrc/cc_labels.cu kTile)
+CC_TILE = 32
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -115,14 +122,25 @@ def _library() -> ctypes.CDLL:
             lib.cc_labels_launch.restype = i32
             lib.gaussian_blur_launch.argtypes = [
                 ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float), i32,
-                ptr]
+                i32, i32, ptr]
             lib.gaussian_blur_launch.restype = i32
             _lib = lib
     return _lib
 
 
-def _stream(device: torch.device):
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(launcher, device: torch.device, *args) -> None:
+    """Call a C launcher with ``args`` and the current stream of
+    ``device``, which is made the current device for the call; raise on a
+    CUDA error. The raw-stream lookup is the one torch's own generated
+    kernels use: a launch's host time is of the order of a kernel's."""
+    index = device.index
+    if torch.cuda.current_device() != index:
+        with torch.cuda.device(index):
+            _launch(launcher, device, *args)
+        return
+    err = launcher(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{launcher.__name__} failed: cudaError_t {err}")
 
 
 def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
@@ -132,8 +150,9 @@ def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
     Returns int32 [N, H, W]: component id = min linear index of the
     component, background = 2**30 — the contract of
     ``cmrtpu.ops.pallas_kernels.converge_labels_pallas``, always run to the
-    fixed point. One slice's labels must fit one block's shared memory
-    (``SMEM_LIMIT``); larger slices raise ``ValueError``."""
+    fixed point. Any slice size whose indices stay below the sentinel
+    (H * W < 2**30) is taken; one call is one launch of the union-find's
+    three passes."""
     if masks.device.type != "cuda":
         raise ValueError(
             f"converge_labels_cuda takes a CUDA tensor, got {masks.device}; "
@@ -148,21 +167,17 @@ def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
     if not masks.is_contiguous():
         raise ValueError("masks must be contiguous")
     n, h, w = masks.shape
-    smem = h * w * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"[{h}, {w}] int32 labels take {smem} B of shared memory; the "
-            f"kernel keeps one slice per block and a block may hold at most "
-            f"{SMEM_LIMIT} B")
+    if h * w >= 2 ** 30:
+        raise ValueError(f"[{h}, {w}] slices have indices >= 2**30, the "
+                         "background sentinel")
+    if -(-h // CC_TILE) > MAX_GRID_YZ:
+        raise ValueError(f"{h} rows exceed the grid's y limit "
+                         f"({MAX_GRID_YZ} tiles of {CC_TILE})")
     labels = torch.empty((n, h, w), dtype=torch.int32, device=masks.device)
-    if n == 0:
+    if labels.numel() == 0:
         return labels
-    lib = _library()
-    with torch.cuda.device(masks.device):
-        err = lib.cc_labels_launch(masks.data_ptr(), labels.data_ptr(), n, h,
-                                   w, _stream(masks.device))
-    if err != 0:
-        raise RuntimeError(f"cc_labels_launch failed: cudaError_t {err}")
+    _launch(_library().cc_labels_launch, masks.device, masks.data_ptr(),
+            labels.data_ptr(), n, h, w)
     converge_labels_cuda.launches += 1
     return labels
 
@@ -171,20 +186,66 @@ converge_labels_cuda.launches = 0  # kernel launches since the last reset
 
 
 @functools.lru_cache(maxsize=None)
-def _blur_taps(sigma: float, truncate: float) -> np.ndarray:
-    """gaussian_kernel1d's float32 taps, computed once per (sigma,
-    truncate): the launch passes them by value."""
+def _blur_taps(sigma: float, truncate: float):
+    """gaussian_kernel1d's float32 taps and a ctypes pointer to them,
+    made once per (sigma, truncate): the launch copies them into the
+    kernel's parameters."""
     from cmrtpu_torch.ops.gaussian import gaussian_kernel1d
 
-    return np.ascontiguousarray(gaussian_kernel1d(sigma, truncate),
+    taps = np.ascontiguousarray(gaussian_kernel1d(sigma, truncate),
                                 np.float32)
+    return taps, taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
-def blur_smem_bytes(radius: int) -> int:
-    """Shared memory one K1 block needs at ``radius`` (mirrors
-    ``gaussian_blur_launch`` in the source)."""
-    span = BLUR_TILE + 2 * radius
-    return (span * span + BLUR_TILE * span) * 4
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def blur_smem_bytes(radius: int, strip_rows: int = BLUR_MIN_STRIP,
+                    chunk_cols: int = BLUR_MIN_CHUNK) -> int:
+    """Shared memory of one K1 block of ``strip_rows`` x ``chunk_cols``
+    outputs at ``radius`` (mirrors ``smem_words`` in the source): the
+    strip's rows with their 2r halo rows, the scratch of the pass along H
+    and the table of window columns. The defaults are the smallest block."""
+    span = chunk_cols + 2 * radius
+    return 4 * ((strip_rows + 2 * radius) * (_round4(span) + 8)
+                + strip_rows * _round4(span + 4) + span)
+
+
+@functools.lru_cache(maxsize=64)
+def blur_geometry(h: int, w: int, radius: int) -> Tuple[int, int]:
+    """(strip rows, chunk columns) of K1's blocks on [H, W] slices:
+    ``BLUR_STRIP_ROWS`` rows of the full width where that fits one block's
+    shared memory; otherwise narrower chunks (down to 64 columns), then
+    lower strips, then 32 columns."""
+    if radius > BLUR_MAX_RADIUS:
+        raise ValueError(
+            f"radius {radius}: even a {BLUR_MIN_STRIP} x {BLUR_MIN_CHUNK} "
+            f"block takes {blur_smem_bytes(radius)} B of shared memory; a "
+            f"block may hold at most {SMEM_LIMIT} B (radius <= "
+            f"{BLUR_MAX_RADIUS})")
+    strip, chunk = min(BLUR_STRIP_ROWS, _round4(h)), _round4(w)
+    while blur_smem_bytes(radius, strip, chunk) > SMEM_LIMIT:
+        if chunk > 2 * BLUR_MIN_CHUNK:
+            chunk = _round4(-(-chunk // 2))
+        elif strip > BLUR_MIN_STRIP:
+            strip = _round4(strip // 2)
+        else:
+            chunk = BLUR_MIN_CHUNK
+    return strip, chunk
+
+
+def _launch_blur(x: torch.Tensor, out: torch.Tensor, taps, strip: int,
+                 chunk: int) -> None:
+    """One launch of K1 on ``x`` into ``out`` with the given block shape
+    and ``_blur_taps``; counts nothing (``gaussian_blur_2d_cuda`` does)."""
+    (host_taps, pointer), (n, h, w) = taps, x.shape
+    if -(-h // strip) > MAX_GRID_YZ or -(-w // chunk) > MAX_GRID_YZ:
+        raise ValueError(f"[{h}, {w}] slices need more than {MAX_GRID_YZ} "
+                         f"blocks of {strip} x {chunk} along a side")
+    _launch(_library().gaussian_blur_launch, x.device, x.data_ptr(),
+            out.data_ptr(), n, h, w, pointer, (host_taps.size - 1) // 2, strip,
+            chunk)
 
 
 def gaussian_blur_2d_cuda(x: torch.Tensor, sigma: float,
@@ -193,8 +254,8 @@ def gaussian_blur_2d_cuda(x: torch.Tensor, sigma: float,
     (contiguous, on a CUDA device), scipy parity: radius
     ``int(truncate * sigma + 0.5)``, normalised taps, 'reflect' border — the
     contract of ``cmrtpu.ops.pallas_kernels.gaussian_blur_2d_pallas``.
-    A radius whose window does not fit one block's shared memory
-    (``SMEM_LIMIT``) raises ``ValueError``."""
+    A radius above ``BLUR_MAX_RADIUS``, whose smallest block does not fit
+    one block's shared memory (``SMEM_LIMIT``), raises ``ValueError``."""
     if x.device.type != "cuda":
         raise ValueError(
             f"gaussian_blur_2d_cuda takes a CUDA tensor, got {x.device}; "
@@ -206,28 +267,12 @@ def gaussian_blur_2d_cuda(x: torch.Tensor, sigma: float,
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     taps = _blur_taps(float(sigma), float(truncate))
-    radius = (taps.size - 1) // 2
-    smem = blur_smem_bytes(radius)
-    if radius > BLUR_MAX_RADIUS or smem > SMEM_LIMIT:
-        raise ValueError(
-            f"sigma {sigma} gives radius {radius}: its "
-            f"{BLUR_TILE + 2 * radius}^2 window and scratch take {smem} B of "
-            f"shared memory; a block may hold at most {SMEM_LIMIT} B "
-            f"(radius <= {BLUR_MAX_RADIUS})")
-    n, h, w = x.shape
-    if n > MAX_GRID_Z:
-        raise ValueError(f"{n} slices exceed the grid's z limit {MAX_GRID_Z}")
+    _, h, w = x.shape
+    strip, chunk = blur_geometry(h, w, (taps[0].size - 1) // 2)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.gaussian_blur_launch(
-            x.data_ptr(), out.data_ptr(), n, h, w,
-            taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), radius,
-            _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"gaussian_blur_launch failed: cudaError_t {err}")
+    _launch_blur(x, out, taps, strip, chunk)
     gaussian_blur_2d_cuda.launches += 1
     return out
 

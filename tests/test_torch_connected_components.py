@@ -4,7 +4,12 @@ Labels must be equal as int32 arrays to the Pallas kernel (interpret mode on
 the CPU), to the XLA ``label_components_2d`` and to scipy's labels relabelled
 to min-index ids; kept masks must equal the JAX filter and the host (scipy)
 filter. On a CPU tensor the plain torch version runs and the CUDA kernel's
-launch counter stays at 0."""
+launch counter stays at 0. A numpy model of the CUDA kernel's union-find
+(csrc/cc_labels.cu: tile-local unions, border merge, flatten) with its
+unions interleaved at random, as concurrent atomics may run, is held to the
+same labels."""
+
+import random
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +55,30 @@ def empty_full_single():
     return m
 
 
+def discs(rng, z, h, w, values):
+    """Landmark-like label volume [Z, H, W]: per slice and label value one
+    disc of radius 3 and 0-4 discs of radius 1-2 at random centres (about
+    0.1% foreground per label at 224^2); a later value overwrites an
+    earlier one."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    pred = np.zeros((z, h, w), np.uint8)
+    for k in range(z):
+        for val in values:
+            n_small = rng.integers(0, 5)
+            for radius in (3, *rng.integers(1, 3, n_small)):
+                cy, cx = rng.integers(0, h), rng.integers(0, w)
+                pred[k][np.hypot(yy - cy, xx - cx) <= radius] = val
+    return pred
+
+
+def landmark_like():
+    """The masks the serving path stacks for K2: label 1's and label 2's."""
+    pred = discs(np.random.default_rng(6), 3, 48, 40, (1, 2))
+    return np.concatenate([pred == 1, pred == 2])
+
+
 CASES = {
+    "landmark-like": landmark_like,
     "random-0.2": lambda: (np.random.default_rng(1).random((3, 32, 32)) < 0.2),
     "random-0.55": lambda: (np.random.default_rng(2).random((3, 32, 40)) < 0.55),
     "random-0.8": lambda: (np.random.default_rng(3).random((3, 32, 32)) < 0.8),
@@ -125,3 +153,137 @@ def test_cpu_tensor_takes_plain_version_and_never_the_kernel():
     with pytest.raises(ValueError, match="CUDA tensor"):
         converge_labels_cuda(masks)
     assert converge_labels_cuda.launches == 0
+
+
+@pytest.mark.parametrize("values", [(1, 2), (1, 2, 3)], ids=["1-2", "1-2-3"])
+def test_stacked_labels_match_cmrtpu(values):
+    """One stacked labelling for every label value gives cmrtpu's filter
+    and the host (scipy) filter; every slice holds background."""
+    rng = np.random.default_rng(len(values))
+    pred = discs(rng, 4, 40, 36, values)
+    noise = rng.random(pred.shape) < 0.04  # stray pixels the filter drops
+    pred[noise] = rng.choice(values, int(noise.sum()))
+    assert (pred == 0).any(axis=(1, 2)).all()
+    out = CC.clean_prediction_2d_cc(pred, values).numpy()
+    np.testing.assert_array_equal(out, np.asarray(jax_clean(pred, values)))
+    np.testing.assert_array_equal(out, clean_3d_prediction_2d_cc_host(pred))
+    assert (out != pred).any()
+
+
+def _interleave(steps, rng):
+    """Run generators one step at a time in a random order, as the
+    kernel's threads may interleave."""
+    live = list(steps)
+    while live:
+        i = rng.randrange(len(live))
+        try:
+            next(live[i])
+        except StopIteration:
+            live[i] = live[-1]
+            live.pop()
+
+
+def _find(parent, a):
+    """The kernel's find_root with path splitting, one step per read or
+    atomicMin of a parent."""
+    p = parent[a]
+    yield
+    while p != a:
+        gp = parent[p]
+        yield
+        if gp != p:
+            parent[a] = min(parent[a], gp)  # atomicMin
+            yield
+        a, p = p, gp
+    return a
+
+
+def _unite(parent, a, b):
+    """The kernel's unite: min-root linking by atomicMin, retried from the
+    old parent when the root had moved."""
+    while True:
+        a = yield from _find(parent, a)
+        b = yield from _find(parent, b)
+        if a == b:
+            return
+        a, b = min(a, b), max(a, b)
+        old = parent[b]
+        parent[b] = min(old, a)  # atomicMin: read and write in one step
+        yield
+        if old == b:
+            return
+        b = old
+
+
+def _first_of_runs(bits):
+    """Lanes that start a run of set lanes: the kernel's
+    ``both & ~(both << 1)``."""
+    return bits & ~np.concatenate([[False], bits[:-1]])
+
+
+def _root(parent, a):
+    while parent[a] != a:
+        a = parent[a]
+    return a
+
+
+def k2_model(masks, tile=8, seed=0):
+    """csrc/cc_labels.cu in numpy, at a tile side of ``tile``. Per tile:
+    each pixel's parent is the first pixel of its run in the row, then one
+    union per overlap of a run with a run of the row above, then each
+    pixel's tile root written as a slice-linear index. Then one union per
+    run of foreground pairs across each tile's top row and left column.
+    Then the flatten. The unions of a phase interleave at random, step by
+    step, as concurrent atomics may."""
+    rng = random.Random(seed)
+    n, h, w = masks.shape
+    out = np.full(masks.shape, 2 ** 30, np.int64)
+    for z in range(n):
+        m = np.zeros((-(-h // tile) * tile, -(-w // tile) * tile), bool)
+        m[:h, :w] = masks[z].astype(bool)
+        lab = out[z].reshape(-1)
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                box = m[y0:y0 + tile, x0:x0 + tile]
+                loc = np.full(tile * tile, -1, np.int64)
+                for ly in range(tile):
+                    start = 0
+                    for lx in range(tile):
+                        if not box[ly, lx]:
+                            start = lx + 1
+                        else:
+                            loc[ly * tile + lx] = ly * tile + start
+                steps = [_unite(loc, ly * tile + lx, (ly - 1) * tile + lx)
+                         for ly in range(1, tile) for lx in np.nonzero(
+                             _first_of_runs(box[ly] & box[ly - 1]))[0]]
+                _interleave(steps, rng)
+                for ly, lx in zip(*np.nonzero(box)):
+                    root = _root(loc, ly * tile + lx)
+                    lab[(y0 + ly) * w + x0 + lx] = \
+                        (y0 + root // tile) * w + x0 + root % tile
+        steps = []
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                if y0 > 0:  # top row against the row above
+                    for x in x0 + np.nonzero(_first_of_runs(
+                            m[y0, x0:x0 + tile] & m[y0 - 1, x0:x0 + tile]))[0]:
+                        steps.append(_unite(lab, y0 * w + x, (y0 - 1) * w + x))
+                if x0 > 0:  # left column against the column to its left
+                    for y in y0 + np.nonzero(_first_of_runs(
+                            m[y0:y0 + tile, x0] & m[y0:y0 + tile, x0 - 1]))[0]:
+                        steps.append(_unite(lab, y * w + x0, y * w + x0 - 1))
+        _interleave(steps, rng)
+        for i in range(h * w):  # the flatten: roots no longer move
+            if lab[i] != 2 ** 30:
+                lab[i] = _root(lab, i)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_union_find_model_matches_reference(case):
+    masks = np.asarray(CASES[case](), np.uint8)
+    want = scipy_min_index_labels(masks)
+    np.testing.assert_array_equal(
+        want, np.asarray(converge_labels_pallas(masks)))
+    for seed in range(2):  # two orders of the atomics, one answer
+        np.testing.assert_array_equal(k2_model(masks, seed=seed), want)
