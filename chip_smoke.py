@@ -17,10 +17,11 @@ Run from the root of a checkout. Phases, one line each:
                  of launches, and by the profiler's device time per pass;
   4. k1        — the Gaussian-blur kernel against its plain torch version on
                  the card and scipy (float64, host), atol 1e-5, at the
-                 training path's [32, 224, 224], edge cases, radii outside
-                 the kernel's constants and a width that needs column
-                 chunks; timed with L2 warm and flushed, beside the plain
-                 version, a cuDNN yardstick and its bound;
+                 training path's [32, 224, 224], the prediction path's
+                 [20, 224, 224] of landmark channels, edge cases, radii
+                 outside the kernel's constants and a width that needs
+                 column chunks; timed with L2 warm and flushed, beside the
+                 plain version, a cuDNN yardstick and its bound;
   5. forward   — the flagship U-Net (exp/template_cfgs/gaus_sigma2_config.json)
                  with seeded random weights at batch 16, bf16 on the card,
                  against the port's f32 forward on the CPU;
@@ -28,23 +29,35 @@ Run from the root of a checkout. Phases, one line each:
                  the cmrtpu_torch.cli.serve entry point; K2's launch counter
                  must show one launch per study and one for the engine's
                  warm-up;
-  7. train     — the flagship config (EPOCHS 2) trains on a written synthetic
-                 dataset through the cmrtpu_torch.cli.train entry point; K1's
-                 launch counter must show every train and eval step went
-                 through it, and the model.npz it writes must serve; then warm
+  7. train     — the full_cv_demo tool's phantom cohort (8 patients,
+                 10 slices) is sliced by the cmrtpu_torch.cli.make_dataset
+                 entry point; the flagship config (EPOCHS 2) trains fold 0
+                 through cmrtpu_torch.cli.train, which chains pred_fold. K1
+                 must launch exactly once per train and eval step and once
+                 per patient-phase of pred_fold, K2 exactly once per
+                 patient-phase; pred/, gt/ and _cmr files must stand in the
+                 cohort's geometry, and the model.npz must serve; then warm
                  train steps are timed (CUDA events) and profiled;
-  8. train-f32 — one f32 train step at flagship width on the card and on the
+  8. predict   — cmrtpu_torch.cli.predict on the fold rewrites every output
+                 with exactly one launch of each kernel per patient-phase;
+  9. evaluate  — cmrtpu_torch.cli.evaluate_cv writes df_eval.csv: one row
+                 per patient-phase, all four sources' columns, finite
+                 prediction distances; then one line of the chained
+                 pred_fold's and the CLIs' wall times and stage ms;
+ 10. train-f32 — one f32 train step at flagship width on the card and on the
                  CPU from the same weights and batch, against a float64 CPU
                  evaluation of the same step.
-Then one JSON line of kernel figures, the card's name and power limit, and,
-last, the result line ``{"ok": true, "device": {...}}``. Any failed check
-raises, which exits non-zero without a result line; so does a host without
-CUDA. Imports nothing of JAX and nothing of cmrtpu.
+Then one JSON line of kernel figures (launches by path: serve, train,
+pred_fold, predict_cli), the card's name and power limit, and, last, the
+result line ``{"ok": true, "device": {...}}``. Any failed check raises,
+which exits non-zero without a result line; so does a host without CUDA.
+Imports nothing of JAX and nothing of cmrtpu.
 """
 
 import copy
 import csv
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -56,9 +69,12 @@ import scipy.ndimage
 import torch
 import torch.nn.functional as F
 
+from cmrtpu_torch.cli.evaluate_cv import main as evaluate_main
+from cmrtpu_torch.cli.make_dataset import cli as make_dataset_main
+from cmrtpu_torch.cli.predict import main as predict_main
 from cmrtpu_torch.cli.serve import main as serve_main
 from cmrtpu_torch.cli.train import main as train_main
-from cmrtpu_torch.data.dataset import get_trainings_files, slice_file_name
+from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.models.unet import build_model
 from cmrtpu_torch.ops import connected_components as cc
@@ -66,7 +82,8 @@ from cmrtpu_torch.ops import cuda_kernels as kernels
 from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
                                        symmetric_index)
 from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
-from cmrtpu_torch.predict.predictor import Predictor
+from cmrtpu_torch.predict.predictor import TIMING_LOG, Predictor
+from cmrtpu_torch.tools.full_cv_demo import generate_cohort
 from cmrtpu_torch.train.checkpoint import save_weights
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
 from cmrtpu_torch.train.steps import TrainState
@@ -75,6 +92,8 @@ from cmrtpu_torch.train.trainer import Trainer, init_model
 SEED = 0
 FLAGSHIP = os.path.join("exp", "template_cfgs", "gaus_sigma2_config.json")
 Z, H, W = 10, 224, 224
+# the train phase's cohort (cmrtpu_torch/tools/full_cv_demo.py defaults)
+COHORT_PATIENTS, COHORT_HW, COHORT_SPACING = 8, 200, (1.37, 1.37, 8.0)
 INF = 2 ** 30
 # card f32 (TF32 off) against CPU f32: the same math summed in another
 # order, so a tight bound on probabilities
@@ -500,7 +519,11 @@ def _k1_times(dev, sigma):
 def k1_cases():
     rng = np.random.default_rng(SEED)
     main_path = (2 * 16, 224, 224)  # B * C = 16 * 2 heatmap channels
+    # pred_fold blurs one patient-phase's binary landmark channels: z * C
+    pred_path = _discs(rng, Z, H, W, (1, 2))
     cases = [("main-s2", rng.random(main_path, np.float32), 2.0),
+             ("pred-s2", np.concatenate([pred_path == 1, pred_path == 2])
+              .astype(np.float32), 2.0),
              ("main-s1", rng.random(main_path, np.float32), 1.0),
              ("main-s4", rng.random(main_path, np.float32), 4.0),
              ("odd-37x53", rng.random((3, 37, 53), np.float32), 2.0),
@@ -546,7 +569,7 @@ def phase_k1():
                 total = float(out.sum())
                 check(abs(total - 1.0) <= 1e-4, f"k1 impulse sums to {total}")
                 fields["impulse_sum"] = total
-            if name.startswith("main"):
+            if name.startswith(("main", "pred")):
                 fields.update(_k1_times(dev, sigma), **_blur_bound(
                     host.shape, sigma))
                 results[name] = fields
@@ -556,42 +579,81 @@ def phase_k1():
     return results, max_err
 
 
-def _write_dataset(root, patients=8, frames=("01", "12"), z=10,
-                   shape=(216, 256)):
-    """2D training slices with the port's own I/O: phantom short-axis images
-    (``_phantom``) at 1.5625 mm with two small RVIP discs, label 1 (anterior)
-    and 2 (inferior), on most slices and none on the outermost, named by
-    ``slice_file_name``; a df_kfold.csv whose fold 0 trains on 6 patients and
-    validates on 2 (40 slices, so the val set ends in a remainder batch)."""
-    rng = np.random.default_rng(SEED)
-    two_d = os.path.join(root, "2D")
-    os.makedirs(two_d)
-    ny, nx = shape
-    yy, xx = np.mgrid[0:ny, 0:nx]
-    rows = []
-    for i in range(patients):
-        patient = f"patient{i:03d}"
-        for frame in frames:
-            vol = _phantom(rng, z, ny, nx)
-            for k in range(z):
-                msk = np.zeros(shape, np.uint8)
-                if 0 < k < z - 1:
-                    cy = ny / 2 + 3 * np.sin(k) - 20 - k
-                    cx = nx / 2 + 3 * np.cos(k) + 14
-                    msk[np.hypot(yy - cy, xx - cx) < 3] = 1
-                    msk[np.hypot(yy - (cy + 40), xx - (cx - 4)) < 3] = 2
-                for kind, arr in (("img", vol[k]), ("msk", msk)):
-                    write_image(MedicalImage(array=arr,
-                                             spacing=(1.5625, 1.5625)),
-                                os.path.join(two_d, slice_file_name(
-                                    patient, frame, k, kind)))
-        rows.append({"fold": 0, "x_path": "", "y_path": "",
-                     "modality": "train" if i < patients - 2 else "test",
-                     "patient": patient})
-    with open(os.path.join(root, "df_kfold.csv"), "w", newline="") as fh:
-        writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
-        writer.writeheader()
-        writer.writerows(rows)
+def _make_dataset(root):
+    """The phantom cohort of the port's full_cv_demo tool (8 patients x
+    ED/ES x 10 slices of 200 x 200 at 1.37 mm, ventricle masks, RVIP
+    masks, 4D cines) sliced by the make_dataset CLI, which writes a 4-fold
+    df_kfold.csv: fold 0 trains on 6 patients (120 slices) and validates on
+    2 (40 slices, so the val set ends in a remainder batch)."""
+    generate_cohort(root, n_patients=COHORT_PATIENTS, n_slices=Z)
+    make_dataset_main(["-data_root", root,
+                       "-acdc_data", os.path.join(root, "original")])
+
+
+class _Spans(logging.Handler):
+    """pred_fold's spans (``TIMING_LOG``), each with both kernels' launch
+    counts at the moment it was logged."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(dict(
+            record.timing, k1=kernels.gaussian_blur_2d_cuda.launches,
+            k2=kernels.converge_labels_cuda.launches))
+
+    def __enter__(self):
+        TIMING_LOG.setLevel(logging.DEBUG)
+        TIMING_LOG.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        TIMING_LOG.removeHandler(self)
+
+    def pred_fold(self):
+        """The one pred_fold call logged: launches of each kernel in it,
+        launches before it, its wall seconds and its patient-phases."""
+        starts = [r for r in self.records if r["event"] == "start"]
+        ends = [r for r in self.records if r["event"] == "end"]
+        check(len(starts) == len(ends) == 1,
+              f"pred_fold spans: {len(starts)} starts, {len(ends)} ends")
+        (start,), (end,) = starts, ends
+        return {"k1": end["k1"] - start["k1"], "k2": end["k2"] - start["k2"],
+                "k1_before": start["k1"], "k2_before": start["k2"],
+                "wall_s": end["wall_s"],
+                "phases": [r for r in self.records if r["event"] == "phase"]}
+
+
+def _ms_per_phase(phases):
+    """Median ms of each pred_fold stage over the patient-phases."""
+    keys = ("load_s", "finalize_s", "forward_s", "cc_s", "write_s",
+            "total_s")
+    return {k[:-2] + "_ms": float(np.median([p[k] for p in phases])) * 1e3
+            for k in keys}
+
+
+def _check_predictions(fold, test_patients):
+    """pred/, gt/ and _cmr files of every test patient x ED/ES in the
+    cohort's geometry; returns their modification times."""
+    mtimes = {}
+    for p in test_patients:
+        for phase in ("ED", "ES"):
+            for sub, tail in (("pred", "msk"), ("gt", "msk"), ("pred", "cmr")):
+                path = os.path.join(fold, sub, f"{p}_{phase}_{tail}.nrrd")
+                img = read_image(path)
+                check(img.array.shape == (Z, COHORT_HW, COHORT_HW)
+                      and np.allclose(img.spacing, COHORT_SPACING),
+                      f"{path}: shape {img.array.shape}, spacing "
+                      f"{img.spacing}")
+                if tail == "msk":
+                    check(set(np.unique(img.array)) <= {0, 1, 2},
+                          f"{path}: labels {np.unique(img.array)}")
+                if sub == "gt":  # every cohort slice holds both landmarks
+                    check(all((img.array == v).any() for v in (1, 2)),
+                          f"{path}: a gt label is missing")
+                mtimes[path] = os.path.getmtime(path)
+    return mtimes
 
 
 def _loaded_foreign():
@@ -664,12 +726,14 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
 
 def phase_train(cfg):
     """Train the flagship config for 2 epochs through the CLI entry point on
-    a written dataset, then serve the model.npz it wrote. FOLDS is cut to
-    [0], the one fold the written df_kfold.csv holds."""
+    the cohort that make_dataset sliced, with the chained pred_fold, then
+    serve the model.npz it wrote, time warm train steps, predict the fold
+    again through the predict CLI and evaluate it through the evaluate_cv
+    CLI. FOLDS is cut to [0]. Returns each kernel's launches by path."""
     cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         data_root = os.path.join(work, "data")
-        _write_dataset(data_root)
+        _make_dataset(data_root)
         cfg_path = os.path.join(work, "config.json")
         with open(cfg_path, "w") as fh:
             json.dump(cfg, fh)
@@ -679,8 +743,9 @@ def phase_train(cfg):
             kernels.gaussian_blur_2d_cuda.launches = 0
             kernels.converge_labels_cuda.launches = 0
             t0 = time.perf_counter()
-            exp = os.path.abspath(train_main(
-                ["-cfg", cfg_path, "-data", data_root]))
+            with _Spans() as spans:
+                exp = os.path.abspath(train_main(
+                    ["-cfg", cfg_path, "-data", data_root]))
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = kernels.gaussian_blur_2d_cuda.launches
@@ -699,13 +764,30 @@ def phase_train(cfg):
               f"train: non-finite history {history}")
         npz = os.path.join(fold, "model", "model.npz")
         check(os.path.exists(npz), "train: no model.npz")
-        n_train, n_val = 6 * 2 * 10, 2 * 2 * 10
+        n_train, n_val = 6 * 2 * Z, 2 * 2 * Z
         batch = int(cfg["BATCHSIZE"])
         train_steps = 2 * (n_train // batch)
         eval_steps = 2 * -(-n_val // batch)
-        check(launches >= train_steps + eval_steps,
-              f"train: {launches} K1 launches for {train_steps} train and "
-              f"{eval_steps} eval steps")
+        test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+        check(len(test) == 2, f"train: fold 0 tests {test}")
+        phases = 2 * len(test)
+        chained = spans.pred_fold()
+        # K1: one launch per train and eval step, then one per
+        # patient-phase in the chained pred_fold; K2 only in pred_fold
+        check(chained["k1_before"] == train_steps + eval_steps
+              and chained["k2_before"] == 0,
+              f"train: {chained['k1_before']} K1 and {chained['k2_before']} "
+              f"K2 launches for {train_steps} train and {eval_steps} eval "
+              "steps")
+        check(chained["k1"] == chained["k2"] == phases,
+              f"train: the chained pred_fold launched K1 {chained['k1']} and "
+              f"K2 {chained['k2']} times for {phases} patient-phases")
+        check(launches == train_steps + eval_steps + phases
+              and k2_launches == phases,
+              f"train: {launches} K1 and {k2_launches} K2 launches in all")
+        check(len(chained["phases"]) == phases,
+              f"train: {len(chained['phases'])} patient-phases predicted")
+        mtimes = _check_predictions(fold, test)
         check(not _loaded_foreign(), f"train: loaded {_loaded_foreign()}")
 
         pred = Predictor(cfg, os.path.dirname(npz), device="cuda")
@@ -715,10 +797,64 @@ def phase_train(cfg):
         check(served.shape == (4, 224, 224, 2) and np.isfinite(served).all(),
               f"train: the trained model serves {served.shape}")
         timing = _time_steps(cfg, data_root)
-    log("train", train_steps=train_steps, eval_steps=eval_steps,
-        k1_launches=launches, k2_launches=k2_launches, wall_s=wall_s,
-        history=history, **timing)
-    return launches
+        log("train", train_steps=train_steps, eval_steps=eval_steps,
+            k1_launches=launches, k2_launches=k2_launches, wall_s=wall_s,
+            history=history, **timing)
+        predicted = phase_predict(fold, data_root, test, mtimes)
+        evaluate_s = phase_evaluate(exp, data_root, phases)
+    log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
+        chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
+        chained_patient_phases=chained["phases"],
+        predict_cli_wall_s=predicted["wall_s"],
+        predict_cli_ms_per_patient_phase=_ms_per_phase(predicted["phases"]),
+        evaluate_cv_wall_s=evaluate_s)
+    return {"train": {"k1": chained["k1_before"], "k2": chained["k2_before"]},
+            "pred_fold": {"k1": chained["k1"], "k2": chained["k2"]},
+            "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]}}
+
+
+def phase_predict(fold, data_root, test_patients, mtimes):
+    """The predict CLI on the trained fold rewrites every output with one
+    launch of each kernel per patient-phase."""
+    kernels.gaussian_blur_2d_cuda.launches = 0
+    kernels.converge_labels_cuda.launches = 0
+    with _Spans() as spans:
+        predict_main(["-exp", fold, "-data", data_root])
+    k1 = kernels.gaussian_blur_2d_cuda.launches
+    k2 = kernels.converge_labels_cuda.launches
+    phases = 2 * len(test_patients)
+    check(k1 == k2 == phases,
+          f"predict: K1 {k1} and K2 {k2} launches for {phases} "
+          "patient-phases")
+    again = _check_predictions(fold, test_patients)
+    check(all(again[f] > mtimes[f] for f in mtimes),
+          "predict: an output was not rewritten")
+    return dict(spans.pred_fold(), k1=k1, k2=k2)
+
+
+def phase_evaluate(exp, data_root, phases):
+    """The evaluate_cv CLI writes one df_eval.csv row per patient-phase with
+    the columns of all four sources (pred, gt, io, original ventricle
+    masks) and finite prediction distances. Returns its wall seconds."""
+    t0 = time.perf_counter()
+    evaluate_main(["-exp", exp, "-data", data_root])
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(exp, "df_eval.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    check(len(rows) == phases, f"evaluate: {len(rows)} rows, want {phases}")
+    for col in ("ips_pred", "ips_gt", "ips_io", "ips_orig_msk",
+                "mdists_ant_gtio", "mdists_ant_gtorig", "pathology"):
+        check(col in rows[0] and all(r[col] for r in rows),
+              f"evaluate: column {col} missing or empty")
+    dists = [float(r[c] or "nan") for r in rows
+             for c in ("mdists_ant_gtpred", "mdists_inf_gtpred")]
+    check(np.isfinite(dists).all(), f"evaluate: prediction distances {dists}")
+    log("evaluate", rows=len(rows), columns=len(rows[0]), wall_s=wall_s,
+        mdists_gtpred_mm=dists,
+        tpr_ppv_th15={c: [float(r[c]) for r in rows] for c in (
+            "tpr_ant_point_th15", "ppv_ant_point_th15",
+            "tpr_inf_point_th15", "ppv_inf_point_th15")})
+    return wall_s
 
 
 def _grads(model):
@@ -827,19 +963,25 @@ def main():
         cfg = json.load(fh)
     model = phase_forward(cfg)
     kernels.gaussian_blur_2d_cuda.launches = 0
-    k2_launches = phase_serve(cfg, model)
-    check(kernels.gaussian_blur_2d_cuda.launches == 0,
+    by_path = {"serve": {"k2": phase_serve(cfg, model),
+                         "k1": kernels.gaussian_blur_2d_cuda.launches}}
+    check(by_path["serve"]["k1"] == 0,
           "serve: K1 launched on the serving path")
-    k1_launches = phase_train(cfg)
+    by_path.update(phase_train(cfg))
     phase_train_f32(cfg)
 
-    h2, h1 = k2["random-0.55"], k1["main-s2"]
+    h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
     stacked = k2["landmark-like"]
+
+    def launches(kernel):
+        return {"launches": sum(n[kernel] for n in by_path.values()),
+                "launches_by_path": {path: n[kernel]
+                                     for path, n in by_path.items()}}
     print(json.dumps({"kernels": [
         {"name": "converge_labels_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/cc_labels.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:148",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         **launches("k2"), "max_abs_err": k2_err,
          "case": f"random-0.55 {h2['shape']}",
          "ms": h2["ms"], "graph_ms": h2["graph_ms"],
          "device_ms": _ms(h2["device_us"]),
@@ -852,12 +994,17 @@ def main():
         {"name": "gaussian_blur_2d_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/gaussian_blur.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:87",
-         "launches": k1_launches, "max_abs_err": k1_err,
+         **launches("k1"), "max_abs_err": k1_err,
          "case": f"main-s2 {h1['shape']} sigma 2, L2 warm",
          "ms": h1["ms"], "graph_ms": h1["graph_ms"],
          "cold_graph_ms": h1["cold_graph_ms"],
          "plain_ms": h1["plain_ms"], "bound_ms": h1["bound_us"] / 1e3,
-         "bound_by": h1["bound_by"], "library_ms": h1["library_ms"]}]}),
+         "bound_by": h1["bound_by"], "library_ms": h1["library_ms"],
+         "pred_case": f"pred-s2 {p1['shape']} sigma 2, L2 warm",
+         "pred_ms": p1["ms"], "pred_graph_ms": p1["graph_ms"],
+         "pred_plain_ms": p1["plain_ms"],
+         "pred_bound_ms": p1["bound_us"] / 1e3,
+         "pred_library_ms": p1["library_ms"]}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

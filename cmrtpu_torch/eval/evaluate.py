@@ -1,0 +1,302 @@
+"""CV evaluation: assemble the per-patient df_eval.csv without pandas —
+counterpart of ``cmrtpu/eval/evaluate.py:evaluate_cv``.
+
+Per patient x phase: insertion points from the prediction / GT /
+inter-observer / original ventricle masks, mean-IP and slice-wise angles and
+mm distances (plain, single-also, upper-bound variants) and slice-, point-
+and threshold-based TPR/PPV (ref: src/models/evaluate_cv.py:662-883). The
+columns are computed by the same functions in the same order as cmrtpu's
+DataFrame, and each cell is written as pandas' ``to_csv`` writes it, so on
+the same tree the two df_eval.csv files are equal byte for byte:
+
+  * a column of ints only is an int column: ``str``;
+  * a column of numbers and missing values is a float column: ``repr`` of
+    the float, an empty cell where missing;
+  * any other column is an object column: ``str`` of the value (tuples and
+    numpy arrays included), an empty cell for None or NaN.
+"""
+
+from __future__ import annotations
+
+import csv
+import glob
+import logging
+import math
+import numbers
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from cmrtpu_torch.data.dataset import get_acdc_pathologies
+from cmrtpu_torch.eval import landmarks as LM
+from cmrtpu_torch.io import read_image
+
+
+def _align_by_patient_phase(files, patients, phases):
+    """Order frame-named source files (``patientXXX_frameYY_*``) onto the
+    pred rows' (patient, ED|ES) keys. Per patient, the lowest frame number is
+    ED and the next ES (ACDC convention, ref: predict_model.py:109-116).
+    Rows with no matching file get None."""
+    by_patient = {}
+    for f in files:
+        base = os.path.basename(f)
+        patient = base.split("_")[0]
+        frame = int(base.split("_")[1].split("frame")[1].split(".")[0])
+        by_patient.setdefault(patient, []).append((frame, f))
+    lookup = {}
+    for patient, frame_files in by_patient.items():
+        # only the two lowest frames map to phases; extra annotated frames
+        # (e.g. 4D exports) must not steal the ES slot
+        for rank, (_, f) in enumerate(sorted(frame_files)[:2]):
+            lookup[(patient, "ED" if rank == 0 else "ES")] = f
+    return [lookup.get(key) for key in zip(patients, phases)]
+
+
+def _check_single_head(pred_files) -> None:
+    """cmrtpu adds per-structure dice columns for every extra head family
+    next to the ``*_msk.nrrd`` predictions; the port writes none and does
+    not evaluate them."""
+    for f in pred_files:
+        stem = os.path.basename(f)[: -len("_msk.nrrd")]
+        for g in glob.glob(os.path.join(os.path.dirname(f), stem + "_*.nrrd")):
+            suffix = os.path.basename(g)[len(stem) + 1: -len(".nrrd")]
+            if suffix not in ("msk", "cmr"):
+                raise NotImplementedError(
+                    f"{g}: multi-head (HEADS) outputs are not evaluated by "
+                    "cmrtpu_torch yet (ROADMAP 3.4); use cmrtpu's evaluate_cv")
+
+
+# filename sorting rules (ref: evaluate_cv.py:222-225)
+def sorting_lambda(x):
+    return int(os.path.basename(x).split("_")[0].split("patient")[1])
+
+
+def sorting_lambda_frame(x):
+    return (int(os.path.basename(x).split("_")[0].split("patient")[1]),
+            int(os.path.basename(x).split("_")[1].split("frame")[1]))
+
+
+def _missing(v) -> bool:
+    return v is None or (isinstance(v, float) and math.isnan(v))
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, numbers.Number) and not isinstance(v, bool)
+
+
+def _cells(values: List) -> List[str]:
+    """One column's cells as pandas' ``to_csv`` writes the column it
+    infers from these values (see the module docstring)."""
+    if all(isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+           for v in values):
+        return [str(int(v)) for v in values]
+    if all(_missing(v) or _is_number(v) for v in values):
+        return ["" if _missing(v) else repr(float(v)) for v in values]
+    return ["" if _missing(v) else str(v) for v in values]
+
+
+def write_csv(columns: Dict[str, List], path: str) -> None:
+    """Write columns (name -> values, in order) as ``to_csv(index=False)``."""
+    cells = [_cells(values) for values in columns.values()]
+    with open(path, "w", newline="", encoding="utf-8") as fh:
+        writer = csv.writer(fh, lineterminator="\n")
+        writer.writerow(list(columns))
+        writer.writerows(zip(*cells))
+
+
+def _scaled(values, spacing):
+    return [None if v is None else v * s for v, s in zip(values, spacing)]
+
+
+def evaluate_cv(exp_path: str, data_path: str,
+                out_csv: Optional[str] = None) -> Dict[str, List]:
+    """Evaluate every fold's predictions under ``exp_path`` against the
+    sources under ``data_path``; write ``df_eval.csv`` (or ``out_csv``) and
+    return its columns, name -> one value per patient-phase row."""
+    data_root = data_path
+    path_to_exp = exp_path
+    glob_exp = os.path.join(path_to_exp, "*/*/")
+
+    io_files = sorted(glob.glob(os.path.join(data_root, "io", "*rvip.nrrd")),
+                      key=sorting_lambda_frame)
+    pred_files = sorted(glob.glob(os.path.join(glob_exp, "pred", "*msk.nrrd")),
+                        key=sorting_lambda)
+    gt_files = sorted(glob.glob(os.path.join(glob_exp, "gt", "*msk.nrrd")),
+                      key=sorting_lambda)
+    cmr_files = sorted(glob.glob(os.path.join(glob_exp, "pred", "*cmr.nrrd")),
+                       key=sorting_lambda)
+    if not pred_files:  # flat fold layout exp/f<k>/pred as fallback
+        pred_files = sorted(glob.glob(os.path.join(path_to_exp,
+                                                   "*/pred/*msk.nrrd")),
+                            key=sorting_lambda)
+        gt_files = sorted(glob.glob(os.path.join(path_to_exp,
+                                                 "*/gt/*msk.nrrd")),
+                          key=sorting_lambda)
+        cmr_files = sorted(glob.glob(os.path.join(path_to_exp,
+                                                  "*/pred/*cmr.nrrd")),
+                           key=sorting_lambda)
+    logging.info("source files: %d pred / %d gt / %d cmr / %d inter-observer",
+                 len(pred_files), len(gt_files), len(cmr_files), len(io_files))
+
+    orig_msk_files = sorted(glob.glob(os.path.join(data_root, "original",
+                                                   "*/*frame*gt.nii.gz")),
+                            key=sorting_lambda_frame)
+    logging.info("original ventricle-mask files: %d", len(orig_msk_files))
+
+    if not pred_files:
+        raise FileNotFoundError(
+            f"no prediction masks under {glob_exp}pred/ or "
+            f"{path_to_exp}/*/pred/ — run predict first (pred_fold) or check "
+            "the -exp path (expects the timestamped experiment root)")
+    if len(gt_files) != len(pred_files):
+        raise ValueError(f"{len(pred_files)} prediction masks but "
+                         f"{len(gt_files)} gt masks under {path_to_exp}")
+    _check_single_head(pred_files)
+
+    col: Dict[str, List] = {}
+    col["files_pred"] = list(pred_files)
+    col["files_gt"] = list(gt_files)
+    rows = range(len(pred_files))
+    col["patient"] = [os.path.basename(x).split("_")[0] for x in pred_files]
+    col["phase"] = [os.path.basename(x).split("_")[1] for x in pred_files]
+
+    # io / original-mask sources are joined by patient + phase; a missing
+    # file leaves that row's io/orig cells empty
+    have_io = len(io_files) > 0
+    have_orig = len(orig_msk_files) > 0
+    if have_io:
+        col["files_io"] = _align_by_patient_phase(
+            io_files, col["patient"], col["phase"])
+    if have_orig:
+        col["files_orig_msk"] = _align_by_patient_phase(
+            orig_msk_files, col["patient"], col["phase"])
+    try:
+        pathology = get_acdc_pathologies(os.path.join(data_root, "original"))
+        col["pathology"] = [pathology.get(p) for p in col["patient"]]
+    except (IndexError, OSError, ValueError) as exc:
+        # a tree without a file of cmrtpu's table: the column stays empty
+        logging.warning(
+            "pathology join against %s/original failed (%s: %s) — the "
+            "'pathology' column will be empty", data_root,
+            type(exc).__name__, exc)
+        col["pathology"] = [None for _ in rows]
+
+    col["spacing"] = [read_image(x).spacing for x in col["files_gt"]]
+    spacing = col["inplane_spacing"] = [x[0] for x in col["spacing"]]
+
+    # --- insertion points per source -----------------------------------
+    col["ips_pred"] = [LM.get_ip_from_rvip_file(x, keepdim=True)
+                       for x in col["files_pred"]]
+    col["ips_gt"] = [LM.get_ip_from_rvip_file(x, keepdim=True)
+                     for x in col["files_gt"]]
+    ips_gt = col["ips_gt"]
+    if have_io:
+        col["ips_io"] = [LM.get_ip_from_rvip_file(x, keepdim=True)
+                         if isinstance(x, str) else None
+                         for x in col["files_io"]]
+    if have_orig:
+        col["ips_orig_msk"] = [LM.get_ip_from_ventriclemsk_file(x, keepdim=True)
+                               if isinstance(x, str) else None
+                               for x in col["files_orig_msk"]]
+
+    # --- mean ips, mean angles, mean-angle diffs, mean distances -------
+    sources = ["pred"] + (["io"] if have_io else []) \
+        + (["orig_msk"] if have_orig else [])
+    mips_gt = col["mips_gt"] = [LM.calc_mean_ip(x) for x in ips_gt]
+    mangle_gt = col["mangle_gt"] = [LM.get_angle2x(x[0], x[1])
+                                    for x in mips_gt]
+    suffix_map = {"pred": "gtpred", "io": "gtio", "orig_msk": "gtorig"}
+    for src in sources:
+        mips = col[f"mips_{src}"] = [
+            LM.calc_mean_ip(x) if x is not None else (np.nan, np.nan)
+            for x in col[f"ips_{src}"]]
+        mangle = col[f"mangle_{src}"] = [LM.get_angle2x(x[0], x[1])
+                                         for x in mips]
+        suf = suffix_map[src]
+        col[f"mdiffs_{suf}"] = [LM.get_diff(a, b)
+                                for a, b in zip(mangle_gt, mangle)]
+        for k, side in ((0, "ant"), (1, "inf")):
+            col[f"mdists_{side}_{suf}"] = _scaled(
+                [LM.get_dist(g[k], m[k]) for g, m in zip(mips_gt, mips)],
+                spacing)
+
+    # --- slice-wise angles, distances, angle diffs ---------------------
+    angles_gt = col["angles_gt"] = [LM.get_angles2x(x) for x in ips_gt]
+    for src in sources:
+        suf = suffix_map[src]
+        ips = col[f"ips_{src}"]
+        angles = col[f"angles_{src}"] = [
+            LM.get_angles2x(x) if x is not None
+            else np.array([None] * len(g[0])) for x, g in zip(ips, ips_gt)]
+        dists = [LM.get_distances(g, x, s) if x is not None
+                 else (np.array([None] * len(g[0])),
+                       np.array([None] * len(g[1])))
+                 for g, x, s in zip(ips_gt, ips, spacing)]
+        col[f"dists_ant_{suf}"] = [d[0] for d in dists]
+        col[f"dists_inf_{suf}"] = [d[1] for d in dists]
+        col[f"diffs_{suf}"] = [LM.get_differences(a, b)
+                               for a, b in zip(angles_gt, angles)]
+    col["EXP"] = [path_to_exp for _ in rows]
+
+    def rates(fn, ips, thresh=None):
+        """(anterior, inferior) of ``fn`` (TPR or PPV) per row; with
+        ``thresh`` in mm at the row's in-plane spacing."""
+        out = []
+        for g, x, s in zip(ips_gt, ips, spacing):
+            if x is None:
+                out.append((np.nan, np.nan))
+            elif thresh is None:
+                out.append(fn(g, x))
+            else:
+                out.append(fn(g, x, thresh=thresh, spacing=s))
+        return out
+
+    # --- TPR / PPV: slice-based ----------------------------------------
+    tpr_suffix = {"pred": "", "io": "_io", "orig_msk": "_msk"}
+    for src in sources:
+        s = tpr_suffix[src]
+        for name, fn in (("tpr", LM.calc_tpr_thresh),
+                         ("ppv", LM.calc_ppv_thresh)):
+            ant_inf = rates(fn, col[f"ips_{src}"])
+            col[f"{name}_ant{s}"] = [v[0] for v in ant_inf]
+            col[f"{name}_inf{s}"] = [v[1] for v in ant_inf]
+
+    # --- point-based (single-IP-also), plain and with a 15 mm threshold -
+    single = col["ips_pred_single_also"] = [
+        LM.get_ip_from_rvip_file(x, keepdim=True, both_only=False)
+        for x in col["files_pred"]]
+    for tail, thresh in (("point", None), ("point_th15", 15)):
+        for name, fn in (("tpr", LM.calc_tpr_thresh),
+                         ("ppv", LM.calc_ppv_thresh)):
+            ant_inf = rates(fn, single, thresh)
+            col[f"{name}_ant_{tail}"] = [v[0] for v in ant_inf]
+            col[f"{name}_inf_{tail}"] = [v[1] for v in ant_inf]
+
+    # --- single-also mean distances ------------------------------------
+    mips_single = col["mips_pred_single_also"] = [LM.calc_mean_ip(x)
+                                                  for x in single]
+    for k, side in ((0, "ant"), (1, "inf")):
+        col[f"mdists_{side}_gtpred_single_also"] = _scaled(
+            [LM.get_dist(g[k], m[k]) for g, m in zip(mips_gt, mips_single)],
+            spacing)
+
+    # --- slice-wise mean distances (both-only / single-also, plain / UB) -
+    for side in ("ant", "inf"):
+        col[f"mdists_{side}_gtpred_slice_wise"] = [
+            LM.get_mean_dist(d) for d in col[f"dists_{side}_gtpred"]]
+    for tail, fn, ips in (
+            ("single_also", LM.get_distances, single),
+            ("up", LM.get_distances_upper_bound, col["ips_pred"]),
+            ("single_also_up", LM.get_distances_upper_bound, single)):
+        dists = [fn(g, x, s) for g, x, s in zip(ips_gt, ips, spacing)]
+        col[f"dists_ant_gtpred_{tail}"] = [d[0] for d in dists]
+        col[f"dists_inf_gtpred_{tail}"] = [d[1] for d in dists]
+        for side in ("ant", "inf"):
+            col[f"mdists_{side}_gtpred_slice_wise_{tail}"] = [
+                LM.get_mean_dist(d) for d in col[f"dists_{side}_gtpred_{tail}"]]
+
+    out_csv = out_csv or os.path.join(path_to_exp, "df_eval.csv")
+    write_csv(col, out_csv)
+    logging.info("evaluation written for %s -> %s", glob_exp, out_csv)
+    return col

@@ -1,5 +1,6 @@
-"""Restored model + batched forward, thresholding and the CC_FILTER cleaner —
-counterpart of the serving parts of ``cmrtpu/predict/predictor.py``.
+"""Restored model + batched forward, thresholding, the CC_FILTER cleaner and
+the per-fold inference entry point ``pred_fold`` — counterpart of
+``cmrtpu/predict/predictor.py``.
 
 ``cmrtpu.predict.predictor`` imports jax at module level, so its numpy-only
 functions are re-implemented here over the port's own copies of the host
@@ -8,17 +9,30 @@ modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import glob
+import logging
+import os
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from cmrtpu_torch import config as C
-from cmrtpu_torch.ops import resample as R
-from cmrtpu_torch.io import MedicalImage
+from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
+from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.models.hybrids import get_model
+from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.connected_components import clean_prediction_2d_cc
+from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
+from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.train.checkpoint import load_weights_for_model
+from cmrtpu_torch.utils.io_utils import ensure_dir
+
+# pred_fold's spans at DEBUG, each with a dict in ``record.timing``: its
+# start, every patient-phase with its stage seconds, and its end with the
+# wall seconds of the call (a handler on this logger reads them)
+TIMING_LOG = logging.getLogger(__name__ + ".timing")
 
 _BUCKET = 8  # Predictor.predict pads slice batches to a multiple of this
 
@@ -85,6 +99,10 @@ class Predictor:
         return self._forward(x)[:n].cpu().numpy()
 
 
+def filter_by_patient_id(p_id: str, f_names: List[str]) -> List[str]:
+    return [elem for elem in f_names if p_id in elem]
+
+
 def threshold_and_flatten(channels: np.ndarray) -> np.ndarray:
     """sigmoid channels -> flat labels (ch0>0.5 -> 1, ch1>0.5 -> 2; later
     channels overwrite)."""
@@ -142,3 +160,122 @@ def preprocess_model_input(slices: np.ndarray, slice_spacing,
         arr = T.pad_and_crop(arr.astype(np.float32), dim)
         xs.append(T.normalise_image(arr, scaler))
     return np.stack(xs)[..., None]
+
+
+def pred_fold(config: Dict, device="cuda") -> bool:
+    """Inference for one fold's test patients on ``device`` (ref: pred_fold,
+    predict_model.py:7-201): restore the fold's model; per patient split
+    the sorted slice files into ED/ES halves; per half build the inputs and
+    the heatmap targets on the device in one batch (``finalize_batch``,
+    K1), predict, threshold 0.5 into flat labels {1: anterior, 2:
+    inferior}, keep the biggest component per label and slice (CC_FILTER,
+    K2, both labels in one launch), map back to the original CMR geometry
+    and write ``gt/`` and ``pred/<patient>_<ED|ES>_msk.nrrd`` and
+    ``pred/<patient>_<ED|ES>_cmr.nrrd``."""
+    start = time.perf_counter()
+    TIMING_LOG.debug("pred_fold start", extra={"timing": {"event": "start"}})
+    cfg = C.normalise_config(config)
+    fold = C.get(cfg, "FOLD")
+    df_folds = C.get(cfg, "DF_FOLDS")
+    _, _, x_val, y_val = get_trainings_files(
+        data_path=C.get(cfg, "DATA_PATH_SAX"), path_to_folds_df=df_folds,
+        fold=fold)
+
+    path_to_orig = C.get(cfg, "DATA_PATH_ORIG") or ""
+    orig_cmr_files = sorted(glob.glob(
+        os.path.join(path_to_orig, "*/*frame[0-9][0-9].nii.gz")))
+    logging.info("Found %d orig 3D CMR images", len(orig_cmr_files))
+
+    predictor = Predictor(cfg, device=device)
+    dev = predictor.device
+
+    exp_path = C.get(cfg, "EXP_PATH")
+    pred_path = os.path.join(exp_path, "pred")
+    gt_path = os.path.join(exp_path, "gt")
+    ensure_dir(pred_path)
+    ensure_dir(gt_path)
+
+    pred_config = dict(cfg)
+    pred_config.update(SHUFFLE=False, AUGMENT=False, BATCHSIZE=1,
+                       HIST_MATCHING=False)
+
+    cc = cc_clean_fn(cfg)
+    for p in fold_patients(df_folds, fold, "test"):
+        files_ = filter_by_patient_id(p, x_val)
+        masks_ = filter_by_patient_id(p, y_val)
+        if not files_:
+            continue
+        half = len(files_) // 2
+        splits = {"ED": (files_[:half], masks_[:half]),
+                  "ES": (files_[half:], masks_[half:])}
+        assert len(splits["ED"][0]) == len(splits["ED"][1]), (
+            "number of images and masks should be the same")
+
+        for phase, (phase_files, phase_masks) in splits.items():
+            t0 = time.perf_counter()
+            gen = DataGenerator(phase_files, phase_masks, config=pred_config)
+            t1 = time.perf_counter()
+            # cmrtpu finalizes one slice per call; every example is
+            # normalised on its own, so one batch gives the same targets
+            x, y = finalize_batch(torch.from_numpy(gen._cache_x).to(dev),
+                                  torch.from_numpy(gen._cache_y).to(dev),
+                                  pred_config)
+            x, gts = x.cpu().numpy(), y.cpu().numpy()
+            gts_cmr = x[..., 0]                                  # [z, H, W]
+            t2 = time.perf_counter()
+            preds = predictor.predict(x)                         # [z, H, W, C]
+            t3 = time.perf_counter()
+
+            orig = None
+            if orig_cmr_files:
+                matches = filter_by_patient_id(p, orig_cmr_files)
+                if matches:
+                    orig = read_image(matches[0])
+                else:
+                    logging.warning(
+                        "pred_fold: no original file for patient %s under "
+                        "DATA_PATH_ORIG — writing this patient's outputs "
+                        "on the model grid with the config-spacing header",
+                        p)
+            # RESAMPLE=False keeps the slices on their native in-plane
+            # grid, so the header carries the slice files' own spacing
+            if bool(C.get(cfg, "RESAMPLE", False)):
+                inplane = tuple(reversed(C.get(cfg, "SPACING")))
+            else:
+                inplane = tuple(read_image(phase_files[0]).spacing[:2])
+            spacing = inplane + (10.0,)
+
+            def to_orig(arr: np.ndarray) -> MedicalImage:
+                if orig is not None:
+                    return undo_generator_steps(arr, cfg, R.NEAREST, orig)
+                return MedicalImage(array=arr, spacing=spacing)
+
+            cc_s = 0.0
+            for suffix, preds_flat, gts_flat, label_values in \
+                    _head_outputs(cfg, preds, gts):
+                if cc is not None:
+                    t = time.perf_counter()
+                    preds_flat = cc(preds_flat, label_values,
+                                    device=dev).cpu().numpy()
+                    cc_s += time.perf_counter() - t
+                write_image(to_orig(gts_flat.astype(np.uint8)),
+                            os.path.join(gt_path, f"{p}_{phase}_{suffix}.nrrd"))
+                write_image(to_orig(preds_flat.astype(np.uint8)), os.path.join(
+                    pred_path, f"{p}_{phase}_{suffix}.nrrd"))
+            write_image(to_orig(gts_cmr),
+                        os.path.join(pred_path, f"{p}_{phase}_cmr.nrrd"))
+            t4 = time.perf_counter()
+            timing = {"event": "phase", "patient": p, "phase": phase,
+                      "slices": len(phase_files), "load_s": t1 - t0,
+                      "finalize_s": t2 - t1, "forward_s": t3 - t2,
+                      "cc_s": cc_s, "write_s": t4 - t3 - cc_s,
+                      "total_s": t4 - t0}
+            TIMING_LOG.debug("pred_fold %s %s", p, phase,
+                             extra={"timing": timing})
+            logging.info("patient %s phase %s: %d slices predicted",
+                         p, phase, len(phase_files))
+
+    logging.info("done! Check %s and %s", gt_path, pred_path)
+    TIMING_LOG.debug("pred_fold end", extra={"timing": {
+        "event": "end", "wall_s": time.perf_counter() - start}})
+    return True

@@ -3,12 +3,14 @@ src/models/train_model.py).
 
 ``train_fold``: fold paths, the saved config, train and val generators (val
 with AUGMENT and HIST_MATCHING off), the model summary, the callback set,
-the device-resident fit and ``fold_complete.json``.
+the device-resident fit, the chained ``pred_fold`` on the same device and
+``fold_complete.json``. cmrtpu logs and swallows any error of the chained
+prediction; here it propagates, so a fault in the prediction path (K1, K2)
+cannot hide behind a fold that reports success.
 ``run_experiment``: the timestamped EXP_PATH, data paths, one fold after
 another over FOLDS.
 
-Not ported yet: the chained ``pred_fold`` after training (ROADMAP 2.8, it is
-logged as not run) and ``RESUME`` (ROADMAP 3.6, it raises).
+Not ported yet: ``RESUME`` (ROADMAP 3.6, it raises).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from cmrtpu_torch import config as C
 from cmrtpu_torch.data.dataset import get_trainings_files
 from cmrtpu_torch.models.unet import model_summary
 from cmrtpu_torch.pipeline.generator import DataGenerator
+from cmrtpu_torch.predict.predictor import pred_fold
 from cmrtpu_torch.train.callbacks import get_callbacks
 from cmrtpu_torch.train.trainer import Trainer
 from cmrtpu_torch.utils.io_utils import console_and_file_logger
@@ -77,9 +80,7 @@ def train_fold(config: Dict, in_memory: bool = True,
     trainer.fit_cached(batch_generator, val_gen=validation_generator,
                        epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks)
 
-    logging.warning("the chained pred_fold after training is not ported to "
-                    "cmrtpu_torch yet (ROADMAP 2.8); fold %s has no "
-                    "predictions", fold)
+    pred_fold(dict(cfg, EXP_PATH=fold_root), device=trainer.device)
 
     with open(os.path.join(fold_root, _FOLD_COMPLETE), "w") as fh:
         json.dump({"fold": fold, "epochs_run": len(trainer.history),

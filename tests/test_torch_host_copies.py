@@ -4,8 +4,13 @@ their sources: one case per copied module, on the same seeded inputs.
 Configs compare as equal dicts, files written with the native codec byte
 for byte (and each package reads the other's files), arrays exactly (the
 copies run the same numpy code), with the native codec and with its
-pure-Python path."""
+pure-Python path. The evaluation's copies (contours, landmarks) give equal
+results; the dataset functions write the same 2D slices and, without pandas
+or scikit-learn, the same df_kfold.csv bytes; the phantom cohort of the
+port's full_cv_demo tool is the same as examples/full_cv_demo.py's."""
 
+import glob
+import importlib.util
 import json
 import os
 
@@ -13,6 +18,9 @@ import numpy as np
 import pytest
 
 import cmrtpu.config as jc
+import cmrtpu.data.dataset as jd
+import cmrtpu.eval.contours as jcont
+import cmrtpu.eval.landmarks as jlm
 import cmrtpu.io as jio
 import cmrtpu.native.cmrio as jcmrio
 import cmrtpu.ops.resample as jr
@@ -21,6 +29,10 @@ import cmrtpu.predict.postprocess as jpp
 import cmrtpu.utils.io_utils as jutil
 import cmrtpu.utils.tfevents as jtf
 import cmrtpu_torch.config as tc
+import cmrtpu_torch.data.dataset as td
+import cmrtpu_torch.eval.contours as tcont
+import cmrtpu_torch.eval.landmarks as tlm
+import cmrtpu_torch.tools.full_cv_demo as tdemo
 import cmrtpu_torch.io as tio
 import cmrtpu_torch.native.cmrio as tcmrio
 import cmrtpu_torch.ops.resample as tr
@@ -29,9 +41,8 @@ import cmrtpu_torch.predict.postprocess as tpp
 import cmrtpu_torch.utils.io_utils as tutil
 import cmrtpu_torch.utils.tfevents as ttf
 
-FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "exp", "template_cfgs",
-    "gaus_sigma2_config.json")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = os.path.join(REPO, "exp", "template_cfgs", "gaus_sigma2_config.json")
 
 
 def _config(tmp_path):
@@ -153,3 +164,206 @@ def test_copy_matches_cmrtpu(check, native, tmp_path, monkeypatch):
             monkeypatch.setattr(f"{build}._lib", None)
             monkeypatch.setattr(f"{build}._failed", False)
     check(tmp_path)
+
+
+def _same_file(a, b):
+    """Byte-equal with the native codec; with the pure-Python gzip path
+    (which stamps the current second into its header) equal arrays and
+    geometry."""
+    if tcmrio.get_library() is not None:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+    ia, ib = tio.read_image(a), tio.read_image(b)
+    return np.array_equal(ia.array, ib.array) and \
+        (ia.spacing, ia.origin, ia.direction) == \
+        (ib.spacing, ib.origin, ib.direction)
+
+
+def _ventricle_masks():
+    """Phantom LV/MYO/RV slices of the demo cohort, and the degenerate
+    cases: empty, MYO only, RV without MYO."""
+    rng = np.random.default_rng(8)
+    masks = [tdemo._slice_phantom(64, (32 + rng.integers(-3, 4),
+                                       32 + rng.integers(-3, 4)),
+                                  rng.uniform(6, 9), rng.uniform(2, 4),
+                                  rng.uniform(-0.5, 0.5), rng.uniform(6, 9),
+                                  rng)[1]
+             for _ in range(6)]
+    blank = np.zeros((64, 64), np.uint8)
+    myo = blank.copy()
+    myo[20:30, 20:30] = 2
+    rv = blank.copy()
+    rv[5:9, 5:9] = 1
+    return np.stack(masks + [blank, myo, rv])
+
+
+def test_contours_and_landmarks_match_cmrtpu():
+    rng = np.random.default_rng(7)
+    for density in (0.1, 0.3, 0.6):
+        mask = rng.random((23, 31)) < density
+        assert tcont.find_external_contours(mask) == \
+            jcont.find_external_contours(mask)
+    rvip = np.zeros((6, 30, 28), np.uint8)
+    for z in range(5):  # the last slice stays empty
+        for value in (1, 2)[:1 + z % 2]:
+            y, x = rng.integers(0, 26, 2)
+            rvip[z, y:y + 3, x:x + 2] = value
+    for both_only in (True, False):
+        for keepdim in (True, False):
+            assert tlm.get_ip_from_rvip_mask_3d(
+                rvip, keepdim=keepdim, both_only=both_only) == \
+                jlm.get_ip_from_rvip_mask_3d(
+                    rvip, keepdim=keepdim, both_only=both_only)
+    vent = _ventricle_masks()
+    found = [tlm.get_ip_from_2dmask(nda) for nda in vent]
+    assert sum(a is not None and b is not None for a, b in found) == 6
+    for nda in vent:
+        for rev in (False, True):
+            assert tlm.get_ip_from_2dmask(nda, rev=rev) == \
+                jlm.get_ip_from_2dmask(nda, rev=rev)
+    assert tlm.get_ip_from_mask_3d(vent, keepdim=True, rev=True) == \
+        jlm.get_ip_from_mask_3d(vent, keepdim=True, rev=True)
+
+
+def test_landmark_metrics_match_cmrtpu():
+    rng = np.random.default_rng(9)
+
+    def ips(n):
+        return tuple([None if rng.random() < 0.3 else
+                      [float(v) for v in rng.uniform(0, 60, 2)]
+                      for _ in range(n)] for _ in range(2))
+
+    gt, pred = ips(12), ips(12)
+    np.testing.assert_array_equal(tlm.get_angles2x(gt), jlm.get_angles2x(gt))
+    for a, b in zip(gt[0] + [[1.0, np.nan]], pred[1] + [[2.0, 3.0]]):
+        assert tlm.get_angle2x(a, b) == jlm.get_angle2x(a, b)
+        assert tlm.get_dist(a, b) == jlm.get_dist(a, b) or \
+            np.isnan(tlm.get_dist(a, b))
+    for pair in (gt, str(gt)):
+        t, j = tlm.calc_mean_ip(pair), jlm.calc_mean_ip(pair)
+        np.testing.assert_array_equal(t[0], j[0])
+        np.testing.assert_array_equal(t[1], j[1])
+    for threshold in (None, 20.0):
+        for t, j in zip(tlm.get_distances(gt, pred, 1.3, threshold),
+                        jlm.get_distances(gt, pred, 1.3, threshold)):
+            np.testing.assert_array_equal(t, j)
+            assert tlm.get_mean_dist(t) == jlm.get_mean_dist(j)
+    for t, j in zip(tlm.get_distances_upper_bound(gt, pred, 1.3, 64),
+                    jlm.get_distances_upper_bound(gt, pred, 1.3, 64)):
+        np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(
+        tlm.get_differences(tlm.get_angles2x(gt), tlm.get_angles2x(pred)),
+        jlm.get_differences(jlm.get_angles2x(gt), jlm.get_angles2x(pred)))
+    for kw in ({}, {"thresh": 15, "spacing": 1.3}, {"thresh": 1e-3}):
+        for fn in ("calc_tpr_thresh", "calc_ppv_thresh"):
+            for g, p in ((gt, pred), (str(gt), str(pred)), (gt, gt)):
+                assert getattr(tlm, fn)(g, p, **kw) == \
+                    getattr(jlm, fn)(g, p, **kw)
+
+
+def test_dataset_functions_match_cmrtpu(tmp_path):
+    rng = np.random.default_rng(10)
+    acdc = tmp_path / "original" / "patient007"
+    acdc.mkdir(parents=True)
+    (acdc / "Info.cfg").write_text("ED: 1\nES: 9\nGroup: MINF\n"
+                                   "Height: 184.0\nNbFrame: 30\n")
+    geo = dict(spacing=(1.5, 1.5, 10.0), origin=(1.0, 2.0, 3.0))
+    for frame in ("01", "09"):
+        for tail, arr in (("", rng.normal(size=(3, 12, 14)).astype(np.float32)),
+                          ("_gt", rng.integers(0, 4, (3, 12, 14), np.uint8))):
+            tio.write_image(tio.MedicalImage(array=arr, **geo), str(
+                acdc / f"patient007_frame{frame}{tail}.nii.gz"))
+    rvip = str(tmp_path / "patient007_frame01_rvip.nrrd")
+    tio.write_image(tio.MedicalImage(array=rng.integers(0, 3, (3, 12, 14),
+                                                        np.uint8), **geo), rvip)
+    img = str(acdc / "patient007_frame01.nii.gz")
+    for mask in (rvip, None):
+        got = td.create_2d_slices_from_3d_volume_files(
+            img, mask, str(tmp_path / "port"))
+        want = jd.create_2d_slices_from_3d_volume_files(
+            img, mask, str(tmp_path / "ref"))
+        assert [os.path.basename(f) for f in got] == \
+            [os.path.basename(f) for f in want]
+        names = sorted(os.listdir(tmp_path / "ref"))
+        assert names == sorted(os.listdir(tmp_path / "port")) and names
+        for name in names:
+            assert _same_file(str(tmp_path / "port" / name),
+                              str(tmp_path / "ref" / name)), name
+
+    cfg = str(acdc / "Info.cfg")
+    assert td.read_cfg_file(cfg) == jd.read_cfg_file(cfg)
+    for phase in ("ED", "ES"):
+        for gt in (False, True):
+            assert td.get_phase_file(str(acdc), phase, gt) == \
+                jd.get_phase_file(str(acdc), phase, gt)
+    assert td.get_pathology_group(str(acdc)) == \
+        jd.get_pathology_group(str(acdc)) == "MINF"
+
+    # the pathology join: equal where cmrtpu's table builds, raising where
+    # it raises (a folder without *4d.nii.gz, a tree without folders)
+    original = str(tmp_path / "original")
+    with pytest.raises(IndexError):
+        jd.get_acdc_dataset_as_df(original)
+    with pytest.raises(IndexError):
+        td.get_acdc_pathologies(original)
+    tio.write_image(tio.MedicalImage(array=np.zeros((2, 3, 12, 14),
+                                                    np.float32)),
+                    str(acdc / "patient007_4d.nii.gz"))
+    df = jd.get_acdc_dataset_as_df(original)
+    assert td.get_acdc_pathologies(original) == dict(
+        df.drop_duplicates("patient")[["patient", "pathology"]].values)
+    with pytest.raises(ValueError):
+        jd.get_acdc_dataset_as_df(str(tmp_path / "none"))
+    with pytest.raises(ValueError):
+        td.get_acdc_pathologies(str(tmp_path / "none"))
+
+
+@pytest.mark.parametrize("n,k", [(6, 2), (8, 4), (9, 4), (100, 4)])
+def test_kfold_csv_matches_cmrtpu(n, k, tmp_path):
+    from sklearn.model_selection import KFold
+
+    two_d = tmp_path / "2D"
+    two_d.mkdir()
+    for p in range(n):
+        for z in range(2):
+            for kind in ("img", "msk"):
+                (two_d / f"patient{p:03d}__t01_z{z}_{kind}.nrrd").touch()
+    splits = list(KFold(k, shuffle=True, random_state=42).split(range(n)))
+    for (tr, te), (want_tr, want_te) in zip(td.kfold_split(n, k), splits):
+        np.testing.assert_array_equal(tr, want_tr)
+        np.testing.assert_array_equal(te, want_te)
+    ref, port = str(tmp_path / "ref.csv"), str(tmp_path / "port.csv")
+    jd.get_kfolded_data(kfolds=k, path_to_data=str(two_d)).to_csv(
+        ref, index=False)
+    td.write_kfold_csv(td.get_kfolded_data(kfolds=k,
+                                           path_to_data=str(two_d)), port)
+    with open(ref, "rb") as a, open(port, "rb") as b:
+        assert a.read() == b.read()
+    for fold in range(k):  # the port's reader of the table it wrote
+        x_tr, _, x_te, _ = td.get_trainings_files(str(two_d), fold, port)
+        assert len(x_tr) + len(x_te) == 2 * n
+        assert {td.get_patient(f) for f in x_te} == \
+            set(td.fold_patients(port, fold))
+
+
+def test_demo_cohort_matches_example(tmp_path):
+    spec = importlib.util.spec_from_file_location(
+        "full_cv_demo_example", os.path.join(REPO, "examples",
+                                             "full_cv_demo.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    kw = dict(n_patients=3, hw=64, n_slices=3, spacing=1.3, seed=5)
+    example.generate_cohort(str(tmp_path / "ref"), **kw)
+    tdemo.generate_cohort(str(tmp_path / "port"), **kw)
+    names = sorted(os.path.relpath(f, tmp_path / "ref") for f in glob.glob(
+        str(tmp_path / "ref" / "**" / "*.*"), recursive=True))
+    assert names == sorted(
+        os.path.relpath(f, tmp_path / "port") for f in glob.glob(
+            str(tmp_path / "port" / "**" / "*.*"), recursive=True))
+    assert len(names) == 3 * (2 * 3 + 2)  # frames, gt, rvip, 4d, Info.cfg
+    for name in names:
+        a, b = str(tmp_path / "port" / name), str(tmp_path / "ref" / name)
+        if name.endswith(".cfg"):
+            assert open(a).read() == open(b).read()
+        else:
+            assert _same_file(a, b), name

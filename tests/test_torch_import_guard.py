@@ -1,10 +1,11 @@
-"""cmrtpu_torch never imports cmrtpu, jax, flax, optax, orbax or pandas.
+"""cmrtpu_torch never imports cmrtpu, jax, flax, optax, orbax, pandas or
+scikit-learn.
 
 The port runs on hosts that have none of them and keeps its own copies of
-the host modules it needs, so every module of the package — the serving and
-training entry points first — is imported in a fresh interpreter and
-``sys.modules`` is checked for those packages and for ``cmrtpu`` and every
-``cmrtpu.*`` module. ``CMRTPU_PLATFORM`` is set, which makes
+the host modules it needs, so every module of the package — the serving,
+training, prediction, evaluation and dataset entry points first — is
+imported in a fresh interpreter and ``sys.modules`` is checked for those
+packages and for ``cmrtpu`` and every ``cmrtpu.*`` module. ``CMRTPU_PLATFORM`` is set, which makes
 ``cmrtpu/__init__.py`` import jax: the port must not care."""
 
 import os
@@ -17,9 +18,11 @@ _CHECK = """
 import importlib, pkgutil, sys
 import cmrtpu_torch, cmrtpu_torch.predict.serving, cmrtpu_torch.cli.serve
 import cmrtpu_torch.cli.train, cmrtpu_torch.train.fold
+import cmrtpu_torch.cli.predict, cmrtpu_torch.cli.evaluate_cv
+import cmrtpu_torch.cli.make_dataset, cmrtpu_torch.tools.full_cv_demo
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
-banned = ("jax", "flax", "optax", "orbax", "pandas", "cmrtpu")
+banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("loaded:", bad)
 sys.exit(1 if bad else 0)
