@@ -46,16 +46,41 @@ Run from the root of a checkout. Phases, one line each:
                  pred_fold's and the CLIs' wall times and stage ms;
  10. train-f32 — one f32 train step at flagship width on the card and on the
                  CPU from the same weights and batch, against a float64 CPU
-                 evaluation of the same step.
+                 evaluation of the same step;
+ 11. train-f32-bn — the same for example_config.json with ELU (BatchNorm
+                 in train mode): gradients and the running averages it
+                 moves;
+ 12. histmatch — the binned histogram matcher (Var.1) on the card against
+                 its CPU version on the same [16, 224, 224] slices: equal
+                 bin indices, values within 1e-6;
+ 13. forward-transpose — the flagship with the transpose-conv decoder
+                 (USE_UPSAMPLE false), bf16 on the card against f32 on the
+                 CPU, within bounds tighter than phase 5's (this net
+                 rounds less, and its controls must fail them too);
+ 14. variants  — one phantom cohort with per-slice _seg targets; each of
+                 example (Base), gaus_sigma4 (Var.3), histmatch (Var.1)
+                 and multihead at its own widths, EPOCHS 2 and FOLDS [0],
+                 through cli.train (chained pred_fold) and cli.evaluate_cv,
+                 with exact launch counts (K1: none for Base and Var.1, one
+                 per train and eval step and patient-phase otherwise; K2:
+                 one per patient-phase and head); one line per template of
+                 warm step ms beside the flagship's GroupNorm step, the
+                 matcher's ms per step (Var.1), pred_fold ms per
+                 patient-phase, evaluate_cv s and the seg-dice columns;
+ 15. serve-multihead — the multihead fold serves 3 studies through
+                 cli.serve: _msk and _seg per study, K2 twice per study and
+                 once for the warm-up.
 Then one JSON line of kernel figures (launches by path: serve, train,
-pred_fold, predict_cli), the card's name and power limit, and, last, the
-result line ``{"ok": true, "device": {...}}``. Any failed check raises,
+pred_fold, predict_cli and the variants' and multihead serving's paths),
+the card's name and power limit, and, last, the result line
+``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
 Imports nothing of JAX and nothing of cmrtpu.
 """
 
 import copy
 import csv
+import types
 import json
 import logging
 import os
@@ -76,21 +101,32 @@ from cmrtpu_torch.cli.serve import main as serve_main
 from cmrtpu_torch.cli.train import main as train_main
 from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
-from cmrtpu_torch.models.unet import build_model
+from cmrtpu_torch.models.unet import BatchNorm, build_model
 from cmrtpu_torch.ops import connected_components as cc
 from cmrtpu_torch.ops import cuda_kernels as kernels
 from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
                                        symmetric_index)
 from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
+from cmrtpu_torch.pipeline.histmatch import _binned_cdf, \
+    match_histograms_binned
 from cmrtpu_torch.predict.predictor import TIMING_LOG, Predictor
-from cmrtpu_torch.tools.full_cv_demo import generate_cohort
+from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
 from cmrtpu_torch.train.checkpoint import save_weights
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
 from cmrtpu_torch.train.steps import TrainState
 from cmrtpu_torch.train.trainer import Trainer, init_model
 
 SEED = 0
-FLAGSHIP = os.path.join("exp", "template_cfgs", "gaus_sigma2_config.json")
+TEMPLATES = os.path.join("exp", "template_cfgs")
+FLAGSHIP = os.path.join(TEMPLATES, "gaus_sigma2_config.json")
+# the variants phase: template -> (K1 on its train and pred_fold paths,
+# heads per patient-phase for K2)
+VARIANTS = {"example_config.json": (False, 1),
+            "gaus_sigma4_config.json": (True, 1),
+            "histmatch_config.json": (False, 1),
+            "multihead_config.json": (True, 2)}
+# histmatch: the card's binned matcher against the CPU's, same inputs
+HIST_ATOL = 1e-6
 Z, H, W = 10, 224, 224
 # the train phase's cohort (cmrtpu_torch/tools/full_cv_demo.py defaults)
 COHORT_PATIENTS, COHORT_HW, COHORT_SPACING = 8, 200, (1.37, 1.37, 8.0)
@@ -106,6 +142,12 @@ F32_ATOL = 1e-3
 # GroupNorm skipped) must each fail one of them, or the run fails. Measured
 # on an H100 (700 W), the controls lie at max 0.385 and mean 0.095 or more
 BF16_MAX_ATOL, BF16_MEAN_ATOL = 0.25, 0.025
+# the transpose-conv flagship (forward-transpose) rounds less: measured on an
+# H100 (700 W) max 0.045, mean 0.0043 (PERF.md), where the control
+# without the bottleneck's GroupNorm lay at max 0.224, mean 0.019, inside
+# the bounds above. Its own bounds keep ~2x over its bf16 error and leave
+# every control outside
+BF16_T_MAX_ATOL, BF16_T_MEAN_ATOL = 0.1, 0.01
 # K1 against its plain version and scipy: the same float32 taps summed in
 # another order (the kernel blurs along H first, the plain version along W)
 K1_ATOL = 1e-5
@@ -124,6 +166,14 @@ LOSS_RTOL = 1e-4
 # gradient of this GroupNorm U-Net lies up to ~1% of max |g| from float64 on
 # any device (PERF.md), so two f32 gradients differ by as much
 GRAD_EXTRA = 1e-3
+# train-f32-bn: the card's f32 gradient of the BatchNorm (ELU) U-Net against
+# float64, x max |g| per parameter. The batch statistics' backward makes it
+# worse conditioned than GroupNorm's: measured on an H100 (700 W) 0.78% on
+# the card and 0.31% on the CPU (PERF.md), so the CPU-relative bound
+# above cannot hold. A backward that treats the batch statistics as
+# constants lies ~640x max |g| off (CPU, 96^2); the control below must fail
+# this bound in the same run
+BN_GRAD_ATOL = 2e-2
 
 
 def log(phase, **fields):
@@ -334,7 +384,8 @@ def _without_norm(model, block):
     return control
 
 
-def phase_forward(cfg):
+def phase_forward(cfg, phase="forward", bf16_max=BF16_MAX_ATOL,
+                  bf16_mean=BF16_MEAN_ATOL):
     """Flagship forward: card bf16 and card f32 against the CPU, and
     control forwards that the bf16 bounds must reject."""
     torch.backends.cudnn.allow_tf32 = False
@@ -365,21 +416,21 @@ def phase_forward(cfg):
     check(np.isfinite(bf16).all() and bf16.shape == (batch, H, W, 2),
           f"forward: bad output {bf16.shape}")
     f32_err, bf16_err = _errors(f32, ref), _errors(bf16, ref)
-    bounds = {"f32_max": F32_ATOL, "bf16_max": BF16_MAX_ATOL,
-              "bf16_mean": BF16_MEAN_ATOL}
-    log("forward", batch=batch, dtype="bfloat16", ms=ms, f32_ms=ms_f32,
+    bounds = {"f32_max": F32_ATOL, "bf16_max": bf16_max,
+              "bf16_mean": bf16_mean}
+    log(phase, batch=batch, dtype="bfloat16", ms=ms, f32_ms=ms_f32,
+        use_upsample=bool(cfg.get("USE_UPSAMPLE", True)),
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         f32_vs_cpu_f32=f32_err, bf16_vs_cpu_f32=bf16_err,
         controls_vs_cpu_f32=controls, bounds=bounds)
     check(f32_err["max"] <= F32_ATOL,
-          f"forward: card f32 max {f32_err['max']} > {F32_ATOL}")
-    check(bf16_err["max"] <= BF16_MAX_ATOL
-          and bf16_err["mean"] <= BF16_MEAN_ATOL,
-          f"forward: card bf16 {bf16_err} outside the bounds {bounds}")
+          f"{phase}: card f32 max {f32_err['max']} > {F32_ATOL}")
+    check(bf16_err["max"] <= bf16_max and bf16_err["mean"] <= bf16_mean,
+          f"{phase}: card bf16 {bf16_err} outside the bounds {bounds}")
     for name, err in controls.items():
-        check(err["max"] > BF16_MAX_ATOL or err["mean"] > BF16_MEAN_ATOL,
-              f"forward: control {name} {err} passes the bf16 bounds, which "
+        check(err["max"] > bf16_max or err["mean"] > bf16_mean,
+              f"{phase}: control {name} {err} passes the bf16 bounds, which "
               "therefore cannot tell a wrong forward from bf16 rounding")
     return model.cpu()
 
@@ -398,58 +449,75 @@ def _phantom(rng, z, ny, nx):
 
 def phase_serve(cfg, model):
     """Serve synthetic studies through the CLI entry point."""
-    rng = np.random.default_rng(SEED)
-    studies = {"study0.nrrd": (0.0, 0.0, 0.0),
-               "study1.nii.gz": (-120.5, 80.25, 30.0),
-               "study2.nrrd": (12.0, -7.5, -45.0)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         fold = os.path.join(work, "fold")
         os.makedirs(os.path.join(fold, "config"))
         with open(os.path.join(fold, "config", "config.json"), "w") as fh:
             json.dump(cfg, fh)
         save_weights(os.path.join(fold, "model"), model)
-        in_dir, out_dir = os.path.join(work, "in"), os.path.join(work, "out")
-        os.makedirs(in_dir)
-        for name, origin in studies.items():
-            path = os.path.join(in_dir, name)
-            write_image(MedicalImage(array=_phantom(rng, Z, 216, 256),
-                                     spacing=(1.5625, 1.5625, 10.0),
-                                     origin=origin), path)
-            os.utime(path, (0, 0))  # settled
+        return _serve_fold(fold, work, "serve", {"msk": {0, 1, 2}})
 
-        kernels.converge_labels_cuda.launches = 0
-        t0 = time.perf_counter()
-        totals = serve_main(["-exp", fold, "-in", in_dir, "-out", out_dir,
-                             "--max-studies", str(len(studies))])
-        wall_s = time.perf_counter() - t0
-        launches = kernels.converge_labels_cuda.launches
 
-        check(totals["studies"] == len(studies), f"serve: totals {totals}")
-        latencies = {}
-        for name, origin in studies.items():
-            stem = name.split(".")[0]
-            with open(os.path.join(out_dir, f"{stem}.done.json")) as fh:
-                record = json.load(fh)
-            check("error" not in record, f"serve {name}: {record}")
-            pred = read_image(os.path.join(out_dir, f"{stem}_msk_pred.nrrd"))
+def _serve_fold(fold, work, phase, outputs):
+    """Serve 3 synthetic studies from ``fold`` through cli.serve. Each
+    study writes one ``<stem>_<suffix>_pred.nrrd`` per entry of ``outputs``
+    (suffix -> allowed labels) in its own geometry; K2 launches once per
+    study and head, plus once for the engine's warm-up. Returns K2's
+    launches."""
+    rng = np.random.default_rng(SEED)
+    studies = {"study0.nrrd": (0.0, 0.0, 0.0),
+               "study1.nii.gz": (-120.5, 80.25, 30.0),
+               "study2.nrrd": (12.0, -7.5, -45.0)}
+    in_dir, out_dir = os.path.join(work, "in"), os.path.join(work, "out")
+    os.makedirs(in_dir)
+    for name, origin in studies.items():
+        path = os.path.join(in_dir, name)
+        write_image(MedicalImage(array=_phantom(rng, Z, 216, 256),
+                                 spacing=(1.5625, 1.5625, 10.0),
+                                 origin=origin), path)
+        os.utime(path, (0, 0))  # settled
+
+    kernels.converge_labels_cuda.launches = 0
+    t0 = time.perf_counter()
+    totals = serve_main(["-exp", fold, "-in", in_dir, "-out", out_dir,
+                         "--max-studies", str(len(studies))])
+    wall_s = time.perf_counter() - t0
+    launches = kernels.converge_labels_cuda.launches
+
+    check(totals["studies"] == len(studies), f"{phase}: totals {totals}")
+    latencies, labels = {}, {}
+    for name, origin in studies.items():
+        stem = name.split(".")[0]
+        with open(os.path.join(out_dir, f"{stem}.done.json")) as fh:
+            record = json.load(fh)
+        check("error" not in record, f"{phase} {name}: {record}")
+        check(record["outputs"] == [f"{stem}_{suffix}_pred.nrrd"
+                                    for suffix in outputs],
+              f"{phase} {name}: outputs {record['outputs']}")
+        for suffix, allowed in outputs.items():
+            pred = read_image(os.path.join(out_dir,
+                                           f"{stem}_{suffix}_pred.nrrd"))
             check(pred.array.shape == (Z, 216, 256),
-                  f"serve {name}: shape {pred.array.shape}")
+                  f"{phase} {name}: shape {pred.array.shape}")
             check(np.allclose(pred.spacing, (1.5625, 1.5625, 10.0)),
-                  f"serve {name}: spacing {pred.spacing}")
+                  f"{phase} {name}: spacing {pred.spacing}")
             check(np.allclose(pred.origin, origin),
-                  f"serve {name}: origin {pred.origin}")
-            check(set(np.unique(pred.array)) <= {0, 1, 2},
-                  f"serve {name}: labels {np.unique(pred.array)}")
-            latencies[name] = {k: record[k] for k in
-                               ("read_s", "preprocess_s", "forward_s",
-                                "post_write_s", "total_s", "slices")}
-    # one launch per study (both label values stacked), plus the engine's
-    # warm-up
-    check(launches == len(studies) + 1,
-          f"serve: {launches} kernel launches for {len(studies)} studies")
-    check("jax" not in sys.modules, "serve: jax was imported")
-    log("serve", studies=len(studies), launches=launches, wall_s=wall_s,
-        totals=totals, latencies=latencies)
+                  f"{phase} {name}: origin {pred.origin}")
+            found = set(np.unique(pred.array).tolist())
+            check(found <= allowed, f"{phase} {name}: {suffix} labels {found}")
+            labels[suffix] = sorted(set(labels.get(suffix, [])) | found)
+        latencies[name] = {k: record[k] for k in
+                           ("read_s", "preprocess_s", "forward_s",
+                            "post_write_s", "total_s", "slices")}
+    # one launch per study and head (a head's label values stacked), plus
+    # the engine's warm-up
+    want = len(studies) * len(outputs) + 1
+    check(launches == want,
+          f"{phase}: {launches} kernel launches for {len(studies)} studies "
+          f"and {len(outputs)} heads, want {want}")
+    check("jax" not in sys.modules, f"{phase}: jax was imported")
+    log(phase, studies=len(studies), launches=launches, wall_s=wall_s,
+        totals=totals, latencies=latencies, labels_served=labels)
     return launches
 
 
@@ -633,24 +701,29 @@ def _ms_per_phase(phases):
             for k in keys}
 
 
-def _check_predictions(fold, test_patients):
-    """pred/, gt/ and _cmr files of every test patient x ED/ES in the
-    cohort's geometry; returns their modification times."""
+def _check_predictions(fold, test_patients, seg=False):
+    """pred/, gt/ and _cmr files (and the _seg files of a multihead fold)
+    of every test patient x ED/ES in the cohort's geometry; returns their
+    modification times."""
     mtimes = {}
+    files = (("pred", "msk"), ("gt", "msk"), ("pred", "cmr")) \
+        + ((("pred", "seg"), ("gt", "seg")) if seg else ())
     for p in test_patients:
         for phase in ("ED", "ES"):
-            for sub, tail in (("pred", "msk"), ("gt", "msk"), ("pred", "cmr")):
+            for sub, tail in files:
                 path = os.path.join(fold, sub, f"{p}_{phase}_{tail}.nrrd")
                 img = read_image(path)
                 check(img.array.shape == (Z, COHORT_HW, COHORT_HW)
                       and np.allclose(img.spacing, COHORT_SPACING),
                       f"{path}: shape {img.array.shape}, spacing "
                       f"{img.spacing}")
-                if tail == "msk":
-                    check(set(np.unique(img.array)) <= {0, 1, 2},
+                if tail in ("msk", "seg"):
+                    allowed = {0, 1, 2} if tail == "msk" else {0, 1, 2, 3}
+                    check(set(np.unique(img.array)) <= allowed,
                           f"{path}: labels {np.unique(img.array)}")
-                if sub == "gt":  # every cohort slice holds both landmarks
-                    check(all((img.array == v).any() for v in (1, 2)),
+                if sub == "gt":  # every cohort slice holds every label
+                    values = (1, 2) if tail == "msk" else (1, 2, 3)
+                    check(all((img.array == v).any() for v in values),
                           f"{path}: a gt label is missing")
                 mtimes[path] = os.path.getmtime(path)
     return mtimes
@@ -684,6 +757,22 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     step_ms = float(np.median(times))
+    match = {}
+    if loop._match_fn is not None:  # Var.1: the matcher alone, per step
+        match_times = []
+        for s in range(steps):
+            imgs, _ = loop._gather(loop.x_train, loop.y_train,
+                                   idx[s % len(idx)])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loop.hist_match(imgs)
+            end.record()
+            torch.cuda.synchronize()
+            match_times.append(start.elapsed_time(end))
+        match = {"match_ms_per_step_median": float(np.median(match_times)),
+                 "match_candidates_per_step": loop._quota,
+                 "match_gate_p": loop._gate_p}
 
     from torch.profiler import ProfilerActivity, profile
     window = 4
@@ -707,7 +796,7 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
     if not busy_ms:  # the profiler saw no device time: not measured
         return {"step_ms_median": step_ms, "timed_steps": steps,
                 "examples_per_s": loop.batch / (step_ms / 1e3),
-                "device_busy_ms": None, "idle_share": None}
+                "device_busy_ms": None, "idle_share": None, **match}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     k1_ms = sum(v for k, v in by_kernel.items() if "gaussian_blur" in k)
     busy_step = busy_ms / window
@@ -721,7 +810,32 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
             "idle_share_profiled": 1.0 - busy_ms / wall_ms,
             "idle_share": 1.0 - busy_step / step_ms,
             "k1_device_ms_per_step": k1_ms / window,
-            "device_ms_by_kernel": {k[:90]: v / window for k, v in top}}
+            "device_ms_by_kernel": {k[:90]: v / window for k, v in top},
+            **match}
+
+
+def _train_cli(cfg, data_root, work, name):
+    """Train ``cfg`` through cli.train (chained pred_fold) on the sliced
+    cohort; returns the fold, the kernels' launches and pred_fold's span."""
+    cfg_path = os.path.join(work, f"{name}.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    cwd = os.getcwd()
+    os.chdir(work)  # EXPERIMENTS_ROOT 'exp/' lands in the work dir
+    try:
+        kernels.gaussian_blur_2d_cuda.launches = 0
+        kernels.converge_labels_cuda.launches = 0
+        t0 = time.perf_counter()
+        with _Spans() as spans:
+            exp = os.path.abspath(train_main(
+                ["-cfg", cfg_path, "-data", data_root]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1 = kernels.gaussian_blur_2d_cuda.launches
+        k2 = kernels.converge_labels_cuda.launches
+    finally:
+        os.chdir(cwd)
+    return exp, k1, k2, spans.pred_fold(), wall_s
 
 
 def phase_train(cfg):
@@ -729,29 +843,14 @@ def phase_train(cfg):
     the cohort that make_dataset sliced, with the chained pred_fold, then
     serve the model.npz it wrote, time warm train steps, predict the fold
     again through the predict CLI and evaluate it through the evaluate_cv
-    CLI. FOLDS is cut to [0]. Returns each kernel's launches by path."""
+    CLI. FOLDS is cut to [0]. Returns each kernel's launches by path and
+    the warm step's timing."""
     cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         data_root = os.path.join(work, "data")
         _make_dataset(data_root)
-        cfg_path = os.path.join(work, "config.json")
-        with open(cfg_path, "w") as fh:
-            json.dump(cfg, fh)
-        cwd = os.getcwd()
-        os.chdir(work)  # EXPERIMENTS_ROOT 'exp/' lands in the work dir
-        try:
-            kernels.gaussian_blur_2d_cuda.launches = 0
-            kernels.converge_labels_cuda.launches = 0
-            t0 = time.perf_counter()
-            with _Spans() as spans:
-                exp = os.path.abspath(train_main(
-                    ["-cfg", cfg_path, "-data", data_root]))
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            launches = kernels.gaussian_blur_2d_cuda.launches
-            k2_launches = kernels.converge_labels_cuda.launches
-        finally:
-            os.chdir(cwd)
+        exp, launches, k2_launches, chained, wall_s = _train_cli(
+            cfg, data_root, work, "flagship")
         fold = os.path.join(exp, "f0")
         with open(os.path.join(fold, "history.csv")) as fh:
             rows = list(csv.DictReader(fh))
@@ -771,7 +870,6 @@ def phase_train(cfg):
         test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
         check(len(test) == 2, f"train: fold 0 tests {test}")
         phases = 2 * len(test)
-        chained = spans.pred_fold()
         # K1: one launch per train and eval step, then one per
         # patient-phase in the chained pred_fold; K2 only in pred_fold
         check(chained["k1_before"] == train_steps + eval_steps
@@ -810,7 +908,8 @@ def phase_train(cfg):
         evaluate_cv_wall_s=evaluate_s)
     return {"train": {"k1": chained["k1_before"], "k2": chained["k2_before"]},
             "pred_fold": {"k1": chained["k1"], "k2": chained["k2"]},
-            "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]}}
+            "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]}}, \
+        timing
 
 
 def phase_predict(fold, data_root, test_patients, mtimes):
@@ -862,16 +961,38 @@ def _grads(model):
             model.named_parameters()}
 
 
-def phase_train_f32(cfg):
+def _bn_stats_detached(self, x):
+    """A wrong BatchNorm for the control: batch statistics without their
+    backward."""
+    mean = x.mean(dim=(0, 2, 3)).detach()
+    var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mean.square(),
+                      min=0.0).detach()
+    mul = torch.rsqrt(var + self.eps) * self.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] \
+        + self.bias[:, None, None]
+
+
+def _moved_buffers(model, start):
+    """How far one step moved each BatchNorm running average, in float64
+    on the host."""
+    return {n: b.detach().double().cpu() - start[n].double()
+            for n, b in model.named_buffers()}
+
+
+def phase_train_f32(cfg, phase="train-f32", grad_atol=None):
     """One f32 train step (TF32 off, dropout 0, no augmentation) at flagship
     width and batch on the card and on the CPU, from the same weights and
-    batch, each against a float64 evaluation of the step on the CPU."""
+    batch, each against a float64 evaluation of the step on the CPU: the
+    gradients and, for BatchNorm, the running averages the step moved.
+    With ``grad_atol`` the card's gradients are held to it directly, and a
+    control step whose BatchNorm drops the batch statistics' backward must
+    lie beyond it."""
     cfg = dict(cfg, MIXED_PRECISION=False, DROPOUT_MIN=0.0, DROPOUT_MAX=0.0,
                AUGMENT=False)
     batch = int(cfg["BATCHSIZE"])
     rng = np.random.default_rng(SEED + 1)
-    imgs = _phantom(rng, batch, 224, 224)
-    msks = np.zeros((batch, 224, 224), np.float32)
+    imgs = _phantom(rng, batch, H, W)
+    msks = np.zeros((batch, H, W), np.float32)
     for b in range(batch - 2):  # the last two slices hold no landmark
         msks[b, 60 + b:64 + b, 120:124] = 1
         msks[b, 100 + b:104 + b, 116:120] = 2
@@ -890,7 +1011,16 @@ def phase_train_f32(cfg):
             logs = trainer.state.train_step(x.to(device), y.to(device))
             loss = float(logs["loss"])
             steps[device] = (loss, _grads(trainer.model),
-                             time.perf_counter() - t0)
+                             time.perf_counter() - t0,
+                             _moved_buffers(trainer.model, weights))
+        if grad_atol is not None:
+            trainer = Trainer(cfg, device="cuda")
+            trainer.model.load_state_dict(weights)
+            for mod in trainer.model.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.forward = types.MethodType(_bn_stats_detached, mod)
+            trainer.state.train_step(x.cuda(), y.cuda())
+            g_control = _grads(trainer.model)
         ref = build_model(cfg)
         ref.load_state_dict(weights)
         ref.double()
@@ -901,6 +1031,7 @@ def phase_train_f32(cfg):
                                trainer.loss_fn, {})
         loss64 = float(ref_state.train_step(x.double(), y.double())["loss"])
         g64 = _grads(ref)
+        b64 = _moved_buffers(ref, weights)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
@@ -908,17 +1039,25 @@ def phase_train_f32(cfg):
     def rel(a, b, scale):
         return float((a - b).abs().max() / scale)
 
-    (loss_card, g_card, s_card), (loss_cpu, g_cpu, s_cpu) = \
+    (loss_card, g_card, s_card, b_card), (loss_cpu, g_cpu, s_cpu, b_cpu) = \
         steps["cuda"], steps["cpu"]
     per_param = {}
-    for name, ref_g in g64.items():
+    for name, ref_g in {**g64, **b64}.items():
+        card, cpu = (g_card, g_cpu) if name in g64 else (b_card, b_cpu)
         scale = float(ref_g.abs().max()) or 1.0
-        per_param[name] = (rel(g_card[name], ref_g, scale),
-                           rel(g_cpu[name], ref_g, scale),
-                           rel(g_card[name], g_cpu[name], scale))
+        per_param[name] = (rel(card[name], ref_g, scale),
+                           rel(cpu[name], ref_g, scale),
+                           rel(card[name], cpu[name], scale))
+    check(not b64 or all(float(v.abs().max()) > 0 for v in b64.values()),
+          f"{phase}: the step left a running average where it was")
     worst = max(per_param, key=lambda n: per_param[n][0] - per_param[n][1])
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log("train-f32", batch=batch, loss_card=loss_card, loss_cpu=loss_cpu,
+    control = {}
+    if grad_atol is not None:
+        control = {"grad_atol": grad_atol, "control_stats_detached_max": max(
+            rel(g_control[n], g, float(g.abs().max()) or 1.0)
+            for n, g in g64.items())}
+    log(phase, batch=batch, running_averages=len(b64), **control, loss_card=loss_card, loss_cpu=loss_cpu,
         loss_f64=loss64, loss_rel=loss_rel, loss_rtol=LOSS_RTOL,
         grad_card_vs_f64_max=max(v[0] for v in per_param.values()),
         grad_cpu_vs_f64_max=max(v[1] for v in per_param.values()),
@@ -927,11 +1066,144 @@ def phase_train_f32(cfg):
         card_step_s=s_card, cpu_step_s=s_cpu,
         cudnn_allow_tf32=False, matmul_allow_tf32=False)
     check(loss_rel <= LOSS_RTOL,
-          f"train-f32: loss card {loss_card} vs CPU {loss_cpu}")
+          f"{phase}: loss card {loss_card} vs CPU {loss_cpu}")
+    if grad_atol is not None:
+        check(control["control_stats_detached_max"] > grad_atol,
+              f"{phase}: the control {control} passes the bound, which "
+              "therefore cannot tell a wrong BatchNorm backward")
     for name, (card, cpu, _) in per_param.items():
+        if grad_atol is not None and name in g64:
+            check(card <= grad_atol,
+                  f"{phase}: {name} gradient on the card lies {card} x "
+                  f"max|g| from float64 (bound {grad_atol})")
+            continue
         check(card <= cpu + GRAD_EXTRA,
-              f"train-f32: {name} gradient on the card lies {card} x max|g| "
-              f"from float64, the CPU's {cpu}")
+              f"{phase}: {name} gradient (or running-average step) on the "
+              f"card lies {card} x max|g| from float64, the CPU's {cpu}")
+
+
+def _cache_like(rng, n):
+    """[n, 224, 224] slices as the padded cache holds them: MinMax-scaled
+    phantoms of 200 x 200 centred in zeros (H - 24 x W - 24 in general)."""
+    out = np.zeros((n, H, W), np.float32)
+    vol = _phantom(rng, n, H - 24, W - 24)
+    lo = vol.min(axis=(1, 2), keepdims=True)
+    hi = vol.max(axis=(1, 2), keepdims=True)
+    out[:, 12:H - 12, 12:W - 12] = (vol - lo) / (hi - lo)
+    return out
+
+
+def phase_histmatch():
+    """The binned matcher (HIST_MATCHING_BINS 2048, zeros excluded, as the
+    cached loop runs it) on the card against its CPU version on the same
+    [16, 224, 224] sources and references: equal bin indices, values within
+    HIST_ATOL; then its time on the card for the whole batch."""
+    rng = np.random.default_rng(SEED + 2)
+    src, ref = _cache_like(rng, 16), _cache_like(rng, 16)
+    bins = 2048
+    cpu = match_histograms_binned(torch.from_numpy(src),
+                                  torch.from_numpy(ref), bins, True)
+    s_dev, r_dev = torch.from_numpy(src).cuda(), torch.from_numpy(ref).cuda()
+    card = match_histograms_binned(s_dev, r_dev, bins, True)
+    idx_cpu = _binned_cdf(torch.from_numpy(src).reshape(16, -1), bins,
+                          True)[3]
+    idx_card = _binned_cdf(s_dev.reshape(16, -1), bins, True)[3]
+    torch.cuda.synchronize()
+    err = float((card.cpu() - cpu).abs().max())
+    same_bins = bool(torch.equal(idx_card.cpu(), idx_cpu))
+    ms = cuda_ms(lambda: match_histograms_binned(s_dev, r_dev, bins, True),
+                 20)
+    log("histmatch", shape=list(src.shape), bins=bins, exclude_zeros=True,
+        max_abs_err=err, atol=HIST_ATOL, bin_indices_equal=same_bins,
+        ms_batch_of_16=ms, cpu_changed=float((cpu - torch.from_numpy(src))
+                                             .abs().max()))
+    check(same_bins, "histmatch: bin indices on the card differ from the CPU")
+    check(err <= HIST_ATOL, f"histmatch: card vs CPU max abs {err}")
+    check(bool((card[s_dev == 0] == 0).all()),
+          "histmatch: a zero border pixel was matched")
+
+
+def phase_variants(flagship_timing):
+    """The four other shipped 2D templates at their own widths (EPOCHS 2,
+    FOLDS [0]) on one cohort with _seg targets: cli.train with the chained
+    pred_fold, exact launch counts, cli.evaluate_cv, and per template the
+    warm step beside the flagship's GroupNorm step of this run; the
+    multihead fold then serves. Returns the launches by path."""
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as work:
+        data_root = os.path.join(work, "data")
+        _make_dataset(data_root)
+        _write_seg_slices(data_root)
+        test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+        phases = 2 * len(test)
+        for name, (blurs, heads) in VARIANTS.items():
+            tag = name.replace("_config.json", "")
+            with open(os.path.join(TEMPLATES, name), encoding="utf-8") as fh:
+                cfg = dict(json.load(fh), EPOCHS=2, FOLDS=[0])
+            exp, k1, k2, chained, wall_s = _train_cli(cfg, data_root, work,
+                                                      tag)
+            batch = int(cfg["BATCHSIZE"])
+            steps = 2 * (6 * 2 * Z // batch) + 2 * -(-(2 * 2 * Z) // batch)
+            want_k1 = (steps + phases) if blurs else 0
+            check(k1 == want_k1 and k2 == phases * heads,
+                  f"variants {tag}: K1 {k1} (want {want_k1}), K2 {k2} "
+                  f"(want {phases * heads})")
+            check(chained["k1_before"] == (steps if blurs else 0)
+                  and chained["k2_before"] == 0
+                  and chained["k2"] == phases * heads,
+                  f"variants {tag}: launches by span {chained}")
+            fold = os.path.join(exp, "f0")
+            with open(os.path.join(fold, "history.csv")) as fh:
+                rows = list(csv.DictReader(fh))
+            check(len(rows) == 2 and all(
+                np.isfinite(float(r[k])) for r in rows
+                for k in ("loss", "val_loss")),
+                f"variants {tag}: history {rows}")
+            _check_predictions(fold, test, seg=heads > 1)
+            t0 = time.perf_counter()
+            evaluate_main(["-exp", exp, "-data", data_root])
+            evaluate_s = time.perf_counter() - t0
+            with open(os.path.join(exp, "df_eval.csv"), newline="") as fh:
+                df = list(csv.DictReader(fh))
+            check(len(df) == phases, f"variants {tag}: {len(df)} rows")
+            dists = [float(r[c] or "nan") for r in df
+                     for c in ("mdists_ant_gtpred", "mdists_inf_gtpred")]
+            seg_dice = {}
+            if heads > 1:
+                for c in ("seg_dice_rv", "seg_dice_myo", "seg_dice_lv"):
+                    check(c in df[0] and all(r[c] for r in df),
+                          f"variants {tag}: column {c} missing or empty")
+                    seg_dice[c] = [float(r[c]) for r in df]
+            timing = _time_steps(cfg, data_root)
+            log("variant", template=name, train_wall_s=wall_s,
+                k1_launches=k1, k2_launches=k2, train_steps=2 * (
+                    6 * 2 * Z // batch),
+                flagship_gn_step_ms_median=flagship_timing["step_ms_median"],
+                pred_fold_wall_s=chained["wall_s"],
+                pred_fold_ms_per_patient_phase=_ms_per_phase(
+                    chained["phases"]),
+                evaluate_cv_s=evaluate_s, mdists_gtpred_mm=dists,
+                seg_dice=seg_dice, history=[
+                    {k: float(r[k]) for k in ("loss", "val_loss")}
+                    for r in rows], **timing)
+            by_path[f"{tag}:train"] = {"k1": chained["k1_before"],
+                                       "k2": chained["k2_before"]}
+            by_path[f"{tag}:pred_fold"] = {"k1": chained["k1"],
+                                           "k2": chained["k2"]}
+            if heads > 1:  # serve the multihead fold before work goes
+                kernels.gaussian_blur_2d_cuda.launches = 0
+                k2_served = _serve_fold(fold, os.path.join(work, "serve"),
+                                        "serve-multihead",
+                                        {"msk": {0, 1, 2},
+                                         "seg": {0, 1, 2, 3}})
+                by_path["serve_multihead"] = {
+                    "k1": kernels.gaussian_blur_2d_cuda.launches,
+                    "k2": k2_served}
+                check(by_path["serve_multihead"]["k1"] == 0,
+                      "serve-multihead: K1 launched on the serving path")
+    check("serve_multihead" in by_path, "variants: no multihead fold served")
+    check(not _loaded_foreign(), f"variants: loaded {_loaded_foreign()}")
+    return by_path
 
 
 def _ms(us):
@@ -967,8 +1239,20 @@ def main():
                          "k1": kernels.gaussian_blur_2d_cuda.launches}}
     check(by_path["serve"]["k1"] == 0,
           "serve: K1 launched on the serving path")
-    by_path.update(phase_train(cfg))
+    train_paths, flagship_timing = phase_train(cfg)
+    by_path.update(train_paths)
     phase_train_f32(cfg)
+    with open(os.path.join(TEMPLATES, "example_config.json"),
+              encoding="utf-8") as fh:
+        # with ELU: at a random init the float32 gradient of this ReLU
+        # BatchNorm net lies 5.5% (CPU) to 16% (card) of max |g| from
+        # float64 (PERF.md), so no bound could tell a fault there
+        phase_train_f32(dict(json.load(fh), ACTIVATION="elu"),
+                        phase="train-f32-bn", grad_atol=BN_GRAD_ATOL)
+    phase_histmatch()
+    phase_forward(dict(cfg, USE_UPSAMPLE=False), phase="forward-transpose",
+                  bf16_max=BF16_T_MAX_ATOL, bf16_mean=BF16_T_MEAN_ATOL)
+    by_path.update(phase_variants(flagship_timing))
 
     h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
     stacked = k2["landmark-like"]

@@ -23,6 +23,7 @@ Layer map, entry points first:
   train/losses.py, optimizers.py, eval/detection.py   loss, Adam, loc_mm
   pipeline/generator.py        host stage (DataGenerator), finalize_batch
   pipeline/augment.py          draw_params / apply_params on the card
+  pipeline/histmatch.py        Var.1 histogram matching (binned, exact), quota gate
   data/dataset.py              slice names, fold lists
   models/hybrids.py, unet.py   get_model; 2D U-Net nn.Modules (NHWC in/out)
   train/checkpoint.py          model.npz in the cmrtpu key layout (weights bridge)

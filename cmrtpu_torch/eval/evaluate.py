@@ -4,7 +4,9 @@ counterpart of ``cmrtpu/eval/evaluate.py:evaluate_cv``.
 Per patient x phase: insertion points from the prediction / GT /
 inter-observer / original ventricle masks, mean-IP and slice-wise angles and
 mm distances (plain, single-also, upper-bound variants) and slice-, point-
-and threshold-based TPR/PPV (ref: src/models/evaluate_cv.py:662-883). The
+and threshold-based TPR/PPV (ref: src/models/evaluate_cv.py:662-883), and
+for a HEADS experiment one hard-dice column per label of each extra head
+family written next to the ``*_msk.nrrd`` predictions. The
 columns are computed by the same functions in the same order as cmrtpu's
 DataFrame, and each cell is written as pandas' ``to_csv`` writes it, so on
 the same tree the two df_eval.csv files are equal byte for byte:
@@ -31,6 +33,7 @@ import numpy as np
 from cmrtpu_torch.data.dataset import get_acdc_pathologies
 from cmrtpu_torch.eval import landmarks as LM
 from cmrtpu_torch.io import read_image
+from cmrtpu_torch.train.losses import dice_numpy
 
 
 def _align_by_patient_phase(files, patients, phases):
@@ -53,18 +56,67 @@ def _align_by_patient_phase(files, patients, phases):
     return [lookup.get(key) for key in zip(patients, phases)]
 
 
-def _check_single_head(pred_files) -> None:
-    """cmrtpu adds per-structure dice columns for every extra head family
-    next to the ``*_msk.nrrd`` predictions; the port writes none and does
-    not evaluate them."""
+def _head_suffixes(pred_files):
+    """Extra multi-head output families next to the *_msk.nrrd predictions:
+    every sibling ``<patient>_<phase>_<suffix>.nrrd`` whose suffix is not
+    ``msk`` or ``cmr``."""
+    suffixes = set()
     for f in pred_files:
-        stem = os.path.basename(f)[: -len("_msk.nrrd")]
+        base = os.path.basename(f)
+        if not base.endswith("_msk.nrrd"):
+            continue
+        stem = base[: -len("_msk.nrrd")]
         for g in glob.glob(os.path.join(os.path.dirname(f), stem + "_*.nrrd")):
             suffix = os.path.basename(g)[len(stem) + 1: -len(".nrrd")]
             if suffix not in ("msk", "cmr"):
-                raise NotImplementedError(
-                    f"{g}: multi-head (HEADS) outputs are not evaluated by "
-                    "cmrtpu_torch yet (ROADMAP 3.4); use cmrtpu's evaluate_cv")
+                suffixes.add(suffix)
+    return sorted(suffixes)
+
+
+def _sibling_file(path: str, suffix: str):
+    cand = path.replace("_msk.nrrd", f"_{suffix}.nrrd")
+    return cand if cand != path and os.path.isfile(cand) else None
+
+
+# ACDC ventricle labels 1/2/3 = RV cavity / myocardium / LV cavity
+_ACDC_STRUCTURES = {1: "rv", 2: "myo", 3: "lv"}
+
+
+def _append_seg_dice_columns(col: Dict[str, List], suffix: str) -> None:
+    """Per-structure hard dice between a head's pred and gt label masks,
+    one column per foreground label: rv/myo/lv when the gt labels are
+    exactly {1, 2, 3}, l<k> otherwise. Missing files give an empty cell;
+    when the whole gt family is missing the columns follow the labels
+    predicted. A label absent from both masks of a pair scores 1.0
+    (``dice_numpy``'s empty score). One pair is read at a time."""
+    pred_col = [_sibling_file(f, suffix) for f in col["files_pred"]]
+    gt_col = [_sibling_file(f, suffix) for f in col["files_gt"]]
+    col[f"files_{suffix}_pred"] = pred_col
+    col[f"files_{suffix}_gt"] = gt_col
+
+    row_dices = []
+    gt_labels = set()
+    for pf, gf in zip(pred_col, gt_col):
+        if not (pf and gf):
+            row_dices.append(None)
+            continue
+        pred = read_image(pf).array
+        gt = read_image(gf).array
+        present = (set(np.unique(gt).astype(int))
+                   | set(np.unique(pred).astype(int))) - {0}
+        row_dices.append({l: dice_numpy(gt == l, pred == l)
+                          for l in present})
+        gt_labels |= set(np.unique(gt).astype(int)) - {0}
+    labels = gt_labels
+    if not labels:  # gt family absent: keep the schema from the predictions
+        labels = {l for d in row_dices if d for l in d}
+    labels = sorted(labels)
+    names = {l: _ACDC_STRUCTURES[l] for l in labels} \
+        if set(labels) == set(_ACDC_STRUCTURES) \
+        else {l: f"l{l}" for l in labels}
+    for label in labels:
+        col[f"{suffix}_dice_{names[label]}"] = [
+            np.nan if d is None else d.get(label, 1.0) for d in row_dices]
 
 
 # filename sorting rules (ref: evaluate_cv.py:222-225)
@@ -152,7 +204,6 @@ def evaluate_cv(exp_path: str, data_path: str,
     if len(gt_files) != len(pred_files):
         raise ValueError(f"{len(pred_files)} prediction masks but "
                          f"{len(gt_files)} gt masks under {path_to_exp}")
-    _check_single_head(pred_files)
 
     col: Dict[str, List] = {}
     col["files_pred"] = list(pred_files)
@@ -295,6 +346,10 @@ def evaluate_cv(exp_path: str, data_path: str,
         for side in ("ant", "inf"):
             col[f"mdists_{side}_gtpred_slice_wise_{tail}"] = [
                 LM.get_mean_dist(d) for d in col[f"dists_{side}_gtpred_{tail}"]]
+
+    # --- multi-head families: per-structure dice ------------------------
+    for suffix in _head_suffixes(pred_files):
+        _append_seg_dice_columns(col, suffix)
 
     out_csv = out_csv or os.path.join(path_to_exp, "df_eval.csv")
     write_csv(col, out_csv)

@@ -4,27 +4,29 @@ Same blocks, same order, same parameter tree:
 
   * ConvBlock  = Conv -> norm -> act (BN_FIRST) or Conv+act -> norm
   * DownBlock  = ConvBlock, Dropout, ConvBlock, MaxPool (VALID, window = stride)
-  * UpBlock    = nearest Upsample + Conv+act, Concat([up, skip]), ConvBlock,
-                 Dropout, ConvBlock
+  * UpBlock    = nearest Upsample + Conv+act (USE_UPSAMPLE) or transpose
+                 Conv+act, Concat([up, skip]), ConvBlock, Dropout, ConvBlock
   * UNet       = depth x DownBlock, bottleneck ConvBlock-Dropout-ConvBlock,
-                 depth x UpBlock, 1x1 f32 head + sigmoid
+                 depth x UpBlock, 1x1 f32 head + sigmoid, or one 1x1 f32
+                 ``head_<name>`` per HEADS entry (sigmoid or softmax)
 
 Submodules carry the flax auto-names (``DownBlock_0/ConvBlock_1/Conv_0`` and
 so on), so a ``state_dict`` key is the flax path with ``/`` -> ``.`` and the
 weights bridge (``cmrtpu_torch/train/checkpoint.py``) is a rename plus an
-HWIO -> OIHW transpose.
+HWIO -> OIHW transpose (and a spatial flip for the transpose convolution).
 
 Public layout follows the JAX package: ``UNet.forward`` takes ``[N, H, W, C]``
 and returns ``[N, H, W, classes]`` probabilities; inside, tensors are NCHW.
 Under ``MIXED_PRECISION`` the convs run in bf16 on f32 parameters, the norms
 and the head in f32, as in the reference.
 
-Ported: the plain 2D U-Net with GroupNorm, eval-mode BatchNorm or no norm,
-and the upsample decoder. In train mode dropout draws its masks from an
-explicit ``torch.Generator`` passed to ``forward`` (flax draws them from the
-step's dropout key); train-mode BatchNorm is not ported (the train state
-raises, ROADMAP 2.6). Every other configuration raises
-``NotImplementedError`` naming its ROADMAP item.
+Ported: the plain 2D U-Net with GroupNorm, BatchNorm (flax's, train and
+eval mode) or no norm, the upsample and the transpose-conv decoders, and
+single- or multi-head outputs. In train mode dropout draws its masks from
+an explicit ``torch.Generator`` passed to ``forward`` (flax draws them from
+the step's dropout key). Every other configuration (deep supervision, 3D,
+the hybrids, int8, weight standardisation) raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -82,11 +84,13 @@ def apply_softcap(logits: torch.Tensor, softcap) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
-def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def he_normal_(weight: torch.Tensor, generator: torch.Generator,
+               fan_in: Optional[int] = None) -> torch.Tensor:
     """flax ``he_normal``: variance_scaling(2.0, 'fan_in', 'truncated_normal'),
     a normal truncated at two standard deviations and rescaled so the
-    truncated distribution has variance 2 / fan_in. ``weight`` is OIHW."""
-    fan_in = weight[0].numel()
+    truncated distribution has variance 2 / fan_in. ``weight`` is OIHW;
+    pass ``fan_in`` for other layouts."""
+    fan_in = fan_in or weight[0].numel()
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -107,6 +111,30 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     it into the bf16 convolution rounds once instead of twice, and the
     difference grows to 0.1 in probability through a depth-3 GroupNorm net."""
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding="same")
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+def _conv_transpose(conv: nn.ConvTranspose2d, x: torch.Tensor,
+                    strides: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.ConvTranspose(strides, padding='SAME')`` on f32 params, which
+    is ``lax.conv_transpose`` without kernel flip. The bridge stores the
+    flax kernel flipped in torch's [in, out, kh, kw], so torch's transposed
+    convolution with no padding computes the full output; 'SAME' keeps
+    ``n * s`` of it per axis, from ``k - 1 - pad_a`` on, with lax's
+    ``pad_a`` (zeros past the full output when s > k). The bias is added
+    after rounding to ``dtype``, as in ``_conv``."""
+    y = F.conv_transpose2d(x.to(dtype), conv.weight.to(dtype),
+                           stride=tuple(int(s) for s in strides))
+    for axis, (k, s) in enumerate(zip(conv.weight.shape[2:], strides),
+                                  start=2):
+        k, s = int(k), int(s)
+        pad_a = k - 1 if s > k - 1 else int(math.ceil((k + s - 2) / 2))
+        start, length = k - 1 - pad_a, x.shape[axis] * s
+        short = start + length - y.shape[axis]
+        if short > 0:
+            pad = [0, 0] * (y.dim() - axis - 1) + [0, short]
+            y = F.pad(y, pad)
+        y = y.narrow(axis, start, length)
     return y + conv.bias.to(dtype)[:, None, None]
 
 
@@ -135,13 +163,59 @@ def _upsample_nearest(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
     return x
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` over the channels
+    of NCHW, in the input's (wide) dtype.
+
+    Train mode normalises with the biased batch statistics over N, H, W in
+    flax's fast form, var = max(mean(x^2) - mean(x)^2, 0), and moves the
+    running averages to ``0.99 * old + 0.01 * batch`` with that biased
+    variance (``nn.BatchNorm2d`` would fold in the unbiased one). Eval mode
+    reads the running averages. Either way y = (x - mean) * (rsqrt(var +
+    eps) * scale) + bias, in flax's order. ``weight`` is flax's ``scale``."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp(x.square().mean(dim=(0, 2, 3))
+                              - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
 class ConvBlock(nn.Module):
     """Conv + norm + activation with the reference's ordering switch.
 
     ``group_norm=N`` uses GroupNorm with min(N, filters) groups, reduced
-    until it divides ``filters``; otherwise BatchNorm when ``batch_norm``.
-    Both use epsilon 1e-3 and run in f32; the block output is cast to
-    ``dtype``."""
+    until it divides ``filters``; otherwise ``BatchNorm`` when
+    ``batch_norm``. Both use epsilon 1e-3 and run in f32; the block output
+    is cast to ``dtype``."""
 
     def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, int],
                  activation: str = "relu", batch_norm: bool = True,
@@ -160,9 +234,8 @@ class ConvBlock(nn.Module):
             self.norm_name = "GroupNorm_0"
             self.GroupNorm_0 = nn.GroupNorm(groups, filters, eps=1e-3)
         elif batch_norm:
-            # flax momentum 0.99 on the running average == torch momentum 0.01
             self.norm_name = "BatchNorm_0"
-            self.BatchNorm_0 = nn.BatchNorm2d(filters, eps=1e-3, momentum=0.01)
+            self.BatchNorm_0 = BatchNorm(filters)
 
     def _norm(self, y: torch.Tensor) -> torch.Tensor:
         if self.norm_name is None:
@@ -203,15 +276,21 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """upsample + conv, concat [upsampled, skip], conv-drop-conv."""
+    """upsample + conv (or transpose conv), concat [up, skip],
+    conv-drop-conv."""
 
     def __init__(self, in_ch: int, skip_ch: int, filters: int, drop: float,
-                 **kw):
+                 use_upsample: bool = True, **kw):
         super().__init__()
         self.act = _ACTIVATIONS[kw["activation"]]
         self.dtype = kw["dtype"]
-        self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(kw["f_size"]),
-                                padding="same")
+        self.use_upsample = use_upsample
+        if use_upsample:
+            self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(kw["f_size"]),
+                                    padding="same")
+        else:
+            self.ConvTranspose_0 = nn.ConvTranspose2d(
+                in_ch, filters, tuple(kw["f_size"]))
         self.ConvBlock_0 = ConvBlock(filters + skip_ch, filters, **kw)
         self.drop = drop
         self.ConvBlock_1 = ConvBlock(filters, filters, **kw)
@@ -219,15 +298,21 @@ class UpBlock(nn.Module):
     def forward(self, lower: torch.Tensor, skip: torch.Tensor,
                 up_size: Tuple[int, int],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.act(_conv(self.Conv_0, _upsample_nearest(lower, up_size),
-                           self.dtype))
+        if self.use_upsample:
+            x = _conv(self.Conv_0, _upsample_nearest(lower, up_size),
+                      self.dtype)
+        else:
+            x = _conv_transpose(self.ConvTranspose_0, lower, up_size,
+                                self.dtype)
+        x = self.act(x)
         x = torch.cat([x, skip.to(x.dtype)], dim=1)
         return self.ConvBlock_1(_dropout(self.ConvBlock_0(x), self.drop,
                                          self.training, generator))
 
 
 class UNet(nn.Module):
-    """Encoder/decoder 2D U-Net with a sigmoid head (single head)."""
+    """Encoder/decoder 2D U-Net with a sigmoid head, or one head per
+    ``heads`` entry (name, channels, 'sigmoid' | 'softmax')."""
 
     def __init__(self, in_channels: int = 1, depth: int = 4, filters: int = 32,
                  f_size: Tuple[int, int] = (3, 3),
@@ -236,7 +321,9 @@ class UNet(nn.Module):
                  drop_bottleneck: float = 0.5, activation: str = "relu",
                  batch_norm: bool = True, bn_first: bool = False,
                  group_norm: int = 0, head_bias_prior=None,
-                 logit_softcap=None, dtype: torch.dtype = torch.bfloat16):
+                 logit_softcap=None, use_upsample: bool = True,
+                 heads: Sequence[Tuple[str, int, str]] = (),
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.depth = depth
         self.filters = filters
@@ -245,6 +332,7 @@ class UNet(nn.Module):
         self.mask_classes = mask_classes
         self.logit_softcap = logit_softcap
         self.head_bias_prior = head_bias_prior
+        self.heads = tuple((str(n), int(c), str(a)) for n, c, a in heads)
         self.dtype = dtype
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
@@ -268,29 +356,46 @@ class UNet(nn.Module):
             # reference's dropouts.pop()
             self.add_module(f"UpBlock_{i}",
                             UpBlock(ch, skips[depth - 1 - i], f, drops.pop(),
-                                    **kw))
+                                    use_upsample=use_upsample, **kw))
             ch = f
-        self.head = nn.Conv2d(ch, mask_classes, 1)
+        if self.heads:
+            for name, channels, _ in self.heads:
+                self.add_module(f"head_{name}", nn.Conv2d(ch, channels, 1))
+        else:
+            self.head = nn.Conv2d(ch, mask_classes, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> "UNet":
         """Random init with the reference's initialisers from an explicit
-        generator: he_normal conv kernels, zero biases, unit norm scales,
-        zero-mean/unit-variance running stats and the head-bias prior."""
+        generator: he_normal conv kernels (fan-in of the transposed kernel
+        [in, out, kh, kw] is in * kh * kw, as flax's HWIO), zero biases, unit
+        norm scales, zero-mean/unit-variance running stats and the head-bias
+        prior on sigmoid heads (a softmax head's common shift is a no-op,
+        so its bias stays zero)."""
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, nn.Conv2d):
                     he_normal_(mod.weight, generator)
                     mod.bias.zero_()
-                elif isinstance(mod, (nn.GroupNorm, nn.BatchNorm2d)):
+                elif isinstance(mod, nn.ConvTranspose2d):
+                    he_normal_(mod.weight, generator,
+                               fan_in=mod.weight[:, 0].numel())
+                    mod.bias.zero_()
+                elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
                     mod.reset_parameters()
             if self.head_bias_prior is not None:
                 p = float(self.head_bias_prior)
-                self.head.bias.fill_(float(np.log(p / (1.0 - p))))
+                prior = float(np.log(p / (1.0 - p)))
+                if not self.heads:
+                    self.head.bias.fill_(prior)
+                for name, _, act in self.heads:
+                    if act != "softmax":
+                        getattr(self, f"head_{name}").bias.fill_(prior)
         return self
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[N, H, W, C] -> [N, H, W, classes] sigmoid probabilities (f32).
+                generator: Optional[torch.Generator] = None):
+        """[N, H, W, C] -> [N, H, W, classes] sigmoid probabilities (f32),
+        or with heads a dict name -> [N, H, W, channels] probabilities.
         ``generator`` draws the dropout masks in train mode."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         pools, clamped = effective_pools(x.shape[2:], self.m_pool, self.depth)
@@ -311,9 +416,20 @@ class UNet(nn.Module):
             x = getattr(self, f"UpBlock_{i}")(x, skips.pop(),
                                               pools[self.depth - 1 - i],
                                               generator)
-        logits = F.conv2d(x.to(wide_dtype(self.dtype)), self.head.weight,
-                          self.head.bias)
-        probs = torch.sigmoid(apply_softcap(logits, self.logit_softcap))
+        x = x.to(wide_dtype(self.dtype))
+        if not self.heads:
+            return self._head(self.head, x, "sigmoid")
+        return {name: self._head(getattr(self, f"head_{name}"), x, act)
+                for name, _, act in self.heads}
+
+    def _head(self, conv: nn.Conv2d, x: torch.Tensor,
+              act: str) -> torch.Tensor:
+        """1x1 conv in the wide dtype, soft cap, then softmax over the
+        channels or sigmoid; NHWC out."""
+        logits = apply_softcap(F.conv2d(x, conv.weight, conv.bias),
+                               self.logit_softcap)
+        probs = torch.softmax(logits, dim=1) if act == "softmax" \
+            else torch.sigmoid(logits)
         return probs.permute(0, 2, 3, 1)
 
 
@@ -364,10 +480,6 @@ def build_model(config: Dict, supervision: bool = False,
         _not_ported("the (2+1)D factorized U-Net", "4.4")
     if supervision:
         _not_ported("deep supervision", "3.8")
-    if C.get(config, "HEADS", ()):
-        _not_ported("multi-head HEADS", "3.4")
-    if not bool(C.get(config, "USE_UPSAMPLE", True)):
-        _not_ported("the transpose-conv decoder (USE_UPSAMPLE: false)", "3.8")
     if C.get(config, "QUANT_INT8", False):
         _not_ported("the int8 twin (QUANT_INT8)", "5.4")
     if C.get(config, "WEIGHT_STANDARDISATION", False):
@@ -395,5 +507,7 @@ def build_model(config: Dict, supervision: bool = False,
         group_norm=int(C.get(config, "GROUP_NORM", 0) or 0),
         head_bias_prior=C.get(config, "HEAD_BIAS_PRIOR", None),
         logit_softcap=C.get(config, "LOGIT_SOFTCAP", None),
+        use_upsample=bool(C.get(config, "USE_UPSAMPLE", True)),
+        heads=tuple(tuple(h) for h in C.get(config, "HEADS", ()) or ()),
         dtype=dtype,
     )

@@ -210,24 +210,38 @@ def _warp2d(img, ys, xs, nearest: bool, raw_ys, raw_xs, border_mode: int,
 
 
 def apply_params(params: Dict, imgs: torch.Tensor, msks: torch.Tensor):
-    """Augment a batch of 2D examples (images [B, H, W], masks [B, H, W],
-    the same warp for both) with drawn parameters: rot90 (square inputs
-    only), then one composed warp per axis."""
+    """Augment a batch of 2D examples (images [B, H, W], masks [B, H, W] or
+    [B, n_heads, H, W], the same warp for an example's image and all its
+    masks) with drawn parameters: rot90 (square inputs only), then one
+    composed warp per axis."""
     if imgs.dim() != 3:
         raise NotImplementedError(
             f"augmentation of {imgs.dim() - 1}D examples is not ported to "
             "cmrtpu_torch yet (ROADMAP slice 4); the port augments [B, H, W]")
     b, h, w = imgs.shape
+    heads = msks.shape[1] if msks.dim() == 4 else 0
+    if heads:  # the head axis shares its example's warp
+        msks = msks.reshape(b * heads, h, w)
+    per_mask = max(heads, 1)
     if h == w:  # RandomRotate90 (exact, square inputs only)
-        pick = torch.arange(b, device=imgs.device)
         k = params["rot_k"]
-        imgs = torch.stack([torch.rot90(imgs, r, dims=(-2, -1))
-                            for r in range(4)])[k, pick]
-        msks = torch.stack([torch.rot90(msks, r, dims=(-2, -1))
-                            for r in range(4)])[k, pick]
+        imgs = _rot90(imgs, k)
+        msks = _rot90(msks, k.repeat_interleave(per_mask))
     ys, raw_ys = _axis_coords(params, 0, h, b, imgs.device)
     xs, raw_xs = _axis_coords(params, 1, w, b, imgs.device)
     mode, fill = params["border_mode"], params["border_value"]
     img_out = _warp2d(imgs, ys, xs, False, raw_ys, raw_xs, mode, fill)
-    msk_out = _warp2d(msks, ys, xs, True, raw_ys, raw_xs, mode, fill)
+    msk_out = _warp2d(msks, *(t.repeat_interleave(per_mask, dim=0)
+                              for t in (ys, xs)), True,
+                      *(t.repeat_interleave(per_mask, dim=0)
+                        for t in (raw_ys, raw_xs)), mode, fill)
+    if heads:
+        msk_out = msk_out.reshape(b, heads, h, w)
     return img_out, msk_out
+
+
+def _rot90(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Rotate each [H, W] slice of x [N, H, W] by its own k quarter turns."""
+    pick = torch.arange(x.shape[0], device=x.device)
+    return torch.stack([torch.rot90(x, r, dims=(-2, -1))
+                        for r in range(4)])[k, pick]

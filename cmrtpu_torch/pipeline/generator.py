@@ -8,15 +8,20 @@ stochastic stage — counterpart of ``cmrtpu/pipeline/generator.py``.
      (ref: __fix_preprocessing__, src/data/Generators.py:283-344).
   2. ``finalize_batch`` is the tail of the stochastic stage on the card:
      per-example re-normalise, label -> binary channels and the Gaussian
-     heatmap targets (K1) (ref: __preprocess_one_image__, :371-395).
+     heatmap targets (K1) (ref: __preprocess_one_image__, :371-395), or per
+     HEADS entry binary channels (+ K1 heatmaps) or a one-hot.
 
 The batches themselves are assembled on the card by
-``cmrtpu_torch/train/device_cache.py``; host streaming is not ported
-(ROADMAP 6.3). HEADS (3.4) and histogram matching with AUGMENT (3.1) raise.
+``cmrtpu_torch/train/device_cache.py``, which also does the histogram
+matching of HIST_MATCHING with AUGMENT; host streaming is not ported
+(ROADMAP 6.3). A HEADS config reads one label map per head (the first from
+the y file list, the others by HEAD_MASK_RULES on the file name) and caches
+them stacked as [N, n_heads, *DIM].
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -77,14 +82,32 @@ def finalize_batch(imgs: torch.Tensor, msks: torch.Tensor, config: Dict,
     [B, H, W] and label maps [B, H, W] -> (x [B, H, W, 1], y [B, H, W, C]),
     JAX's channels-last layout. ``y`` holds one binary channel per
     MASK_VALUES entry, blurred into heatmaps by K1 when GAUS is on, or the
-    normalised image again when there are no masks."""
-    if C.get(config, "HEADS", ()):
-        raise NotImplementedError(
-            "multi-head targets (HEADS) are not ported to cmrtpu_torch yet "
-            "(ROADMAP 3.4)")
+    normalised image again when there are no masks.
+
+    With HEADS the label maps are [B, n_heads, H, W], one per head, and
+    ``y`` concatenates per head in HEADS order: a one-hot of labels
+    0..C-1 for a softmax head, binary channels for labels 1..C for a
+    sigmoid head (K1 heatmaps when GAUS is on, one launch per such head)."""
     scaler = C.get(config, "SCALER", "MinMax")
+    heads = tuple(tuple(h) for h in C.get(config, "HEADS", ()) or ())
     x = normalise_batch(imgs, scaler)
-    if masks:
+    if masks and heads:
+        parts = []
+        for i, (_, channels, act) in enumerate(heads):
+            m = msks[:, i]
+            if str(act) == "softmax":
+                part = torch.stack([m == v for v in range(int(channels))],
+                                   dim=-1).float()
+            else:
+                part = torch.stack([m == v for v in
+                                    range(1, int(channels) + 1)],
+                                   dim=-1).float()
+                if C.get(config, "GAUS", False):
+                    part = smooth_heatmap_targets(
+                        part, float(C.get(config, "SIGMA", 1)))
+            parts.append(part)
+        y = torch.cat(parts, dim=-1)
+    elif masks:
         mask_values = tuple(C.get(config, "MASK_VALUES", [0, 1, 2, 3]))
         y = torch.stack([msks == v for v in mask_values], dim=-1).float()
         if C.get(config, "GAUS", False):
@@ -97,7 +120,8 @@ def finalize_batch(imgs: torch.Tensor, msks: torch.Tensor, config: Dict,
 class DataGenerator:
     """The deterministic stage of cmrtpu's DataGenerator with its in-memory
     padded cache: ``_cache_x`` [N, *DIM] float32 images and ``_cache_y``
-    [N, *DIM] float32 label maps (or the images again, without masks)."""
+    [N, *DIM] float32 label maps ([N, n_heads, *DIM] with HEADS; the images
+    again without masks)."""
 
     def __init__(self, x: Sequence[str], y: Optional[Sequence[str]] = None,
                  config: Optional[Dict] = None,
@@ -105,15 +129,6 @@ class DataGenerator:
         config = config or {}
         if y is not None:
             assert len(x) == len(y), "len(X) != len(Y)"
-        if C.get(config, "HEADS", ()):
-            raise NotImplementedError(
-                "multi-head targets (HEADS) are not ported to cmrtpu_torch "
-                "yet (ROADMAP 3.4)")
-        if C.get(config, "HIST_MATCHING", False) and \
-                C.get(config, "AUGMENT", False):
-            raise NotImplementedError(
-                "histogram matching (HIST_MATCHING with AUGMENT) is not "
-                "ported to cmrtpu_torch yet (ROADMAP 3.1)")
         self.in_memory = C.get(config, "CACHE_IN_MEMORY", True) \
             if in_memory is None else in_memory
         if not self.in_memory:
@@ -138,6 +153,16 @@ class DataGenerator:
         # img->msk path rule (ref: Generators.py:254-263)
         self.replace_wildcard = ((".nii.gz", "_gt.nii.gz")
                                  if x and "ACDC" in x[0] else ("img", "msk"))
+        # multi-head sources: head 0 reads the y file itself, each further
+        # head the y path rewritten by a [find, replace] rule on the file
+        # name (default 'msk' -> the head's name)
+        self.heads = tuple(tuple(h) for h in C.get(config, "HEADS", ()) or ())
+        if self.heads:
+            rules = C.get(config, "HEAD_MASK_RULES", None)
+            self.head_mask_rules = [tuple(r) for r in rules] if rules else \
+                [None] + [("msk", str(name)) for name, _, _ in self.heads[1:]]
+            assert len(self.head_mask_rules) == len(self.heads), (
+                "HEAD_MASK_RULES must have one [find, replace] entry per head")
 
         self._cache_x = self._cache_y = None
         if self.images:
@@ -146,15 +171,29 @@ class DataGenerator:
                                             range(len(self.images))))
             self._cache_x = np.stack([T.pad_and_crop(img, self.dim)
                                       for img, _ in cache])
-            self._cache_y = np.stack([T.pad_and_crop(msk, self.dim)
-                                      for _, msk in cache])
+            self._cache_y = np.stack([self._pad_y(msk) for _, msk in cache])
+
+    def _pad_y(self, msk: np.ndarray) -> np.ndarray:
+        """pad/crop a target to DIM; a head stack pads per head."""
+        if self.masks and self.heads:
+            return np.stack([T.pad_and_crop(m, self.dim) for m in msk])
+        return T.pad_and_crop(msk, self.dim)
 
     def _fix_preprocessing(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """load -> resample -> clip -> normalise one example (float32)."""
         img = load_masked_img(self.images[idx], mask=self.masking_image,
                               masking_values=self.masking_values,
                               replace=self.replace_wildcard)
-        msk = read_image(self.labels[idx]) if self.masks else img
+        if self.masks and self.heads:
+            msks = []
+            for rule in self.head_mask_rules:
+                # the rule rewrites the file name only, never a directory
+                head, base = os.path.split(self.labels[idx])
+                path = self.labels[idx] if rule is None \
+                    else os.path.join(head, base.replace(rule[0], rule[1]))
+                msks.append(read_image(path))
+        else:
+            msks = [read_image(self.labels[idx]) if self.masks else img]
 
         if self.resample and img.ndim in (2, 3):
             target_spacing = list(reversed(self.spacing))  # numpy -> sitk order
@@ -163,14 +202,16 @@ class DataGenerator:
                                              target_spacing)
             img = R.resample_image(img, new_size, target_spacing,
                                    self.img_interpolation)
-            msk = R.resample_image(msk, new_size, target_spacing,
-                                   self.msk_interpolation)
+            msks = [R.resample_image(m, new_size, target_spacing,
+                                     self.msk_interpolation) for m in msks]
 
         img_nda = T.normalise_image(T.clip_quantile(img.array, 0.999),
                                     self.scaler)
-        if self.masks:
-            msk_nda = msk.array
-        else:  # autoencoder mode: image twice
-            msk_nda = T.normalise_image(T.clip_quantile(msk.array, 0.999),
+        if not self.masks:  # autoencoder mode: image twice
+            msk_nda = T.normalise_image(T.clip_quantile(msks[0].array, 0.999),
                                         self.scaler)
+        elif self.heads:
+            msk_nda = np.stack([m.array for m in msks])  # [n_heads, *spatial]
+        else:
+            msk_nda = msks[0].array
         return img_nda.astype(np.float32), msk_nda.astype(np.float32)

@@ -84,19 +84,29 @@ class Predictor:
         self.model.to(self.device).eval()
 
     @torch.inference_mode()
-    def _forward(self, x: np.ndarray) -> torch.Tensor:
-        """[N, H, W, C] float32 -> [N, H, W, classes] probabilities, left on
-        the device (the call returns before the device finishes)."""
+    def _forward(self, x: np.ndarray):
+        """[N, H, W, C] float32 -> [N, H, W, classes] probabilities (a dict
+        of them per head for a HEADS model), left on the device (the call
+        returns before the device finishes)."""
         return self.model(torch.as_tensor(x, device=self.device))
 
-    def predict(self, x: np.ndarray) -> np.ndarray:
+    def predict(self, x: np.ndarray):
         """Batched forward, padded to a multiple of ``_BUCKET`` and trimmed
-        back to the input's batch size."""
+        back to the input's batch size: a numpy array, or a dict of them
+        per head."""
         n = x.shape[0]
         padded = -(-n // _BUCKET) * _BUCKET
         if padded != n:
             x = np.concatenate([x, np.zeros((padded - n, *x.shape[1:]), x.dtype)])
-        return self._forward(x)[:n].cpu().numpy()
+        return to_numpy(self._forward(x), n)
+
+
+def to_numpy(out, n: int):
+    """The first ``n`` rows of a forward's output (a tensor, or a dict of
+    tensors per head) on the host."""
+    if isinstance(out, dict):
+        return {k: v[:n].cpu().numpy() for k, v in out.items()}
+    return out[:n].cpu().numpy()
 
 
 def filter_by_patient_id(p_id: str, f_names: List[str]) -> List[str]:
@@ -121,17 +131,44 @@ def flatten_head(channels: np.ndarray, activation: str) -> np.ndarray:
 
 
 def _head_outputs(cfg: Dict, preds, gts: Optional[np.ndarray]):
-    """[(file_suffix, pred_flat, gt_flat, label_values)] of the single
-    sigmoid head, which owns the ``msk`` suffix; ``gts=None`` at serve time.
-    Multi-head HEADS is not ported yet."""
-    if C.get(cfg, "HEADS", ()):
-        raise NotImplementedError(
-            "multi-head HEADS is not ported to cmrtpu_torch yet (ROADMAP 3.4)")
-    n_channels = np.asarray(preds).shape[-1] if gts is None else gts.shape[-1]
-    label_values = tuple(range(1, n_channels + 1))
-    return [("msk", threshold_and_flatten(preds),
-             None if gts is None else threshold_and_flatten(gts),
-             label_values)]
+    """Per-head flat label volumes, [(file_suffix, pred_flat, gt_flat,
+    label_values)] in HEADS order. The first sigmoid head (or the single
+    head) owns the ``msk`` suffix, so the landmark evaluation holds
+    unchanged; every other head writes ``_<name>.nrrd``. A softmax head's
+    labels are 1..C-1 (0 is background), a sigmoid head's 1..C.
+    ``gts=None`` (serve time): gt_flat is None."""
+    heads = tuple(tuple(h) for h in C.get(cfg, "HEADS", ()) or ())
+    if not heads:
+        n_channels = np.asarray(preds).shape[-1] if gts is None \
+            else gts.shape[-1]
+        label_values = tuple(range(1, n_channels + 1))
+        return [("msk", threshold_and_flatten(preds),
+                 None if gts is None else threshold_and_flatten(gts),
+                 label_values)]
+    outputs = []
+    offset = 0
+    msk_taken = False
+    for name, channels, act in heads:
+        channels = int(channels)
+        gt_h = None if gts is None else gts[..., offset:offset + channels]
+        offset += channels
+        softmax = str(act) == "softmax"
+        label_values = tuple(range(1, channels)) if softmax \
+            else tuple(range(1, channels + 1))
+        suffix = str(name)
+        if not softmax and not msk_taken:
+            suffix, msk_taken = "msk", True
+        outputs.append((suffix, flatten_head(preds[name], act),
+                        None if gt_h is None else flatten_head(gt_h, act),
+                        label_values))
+    if not msk_taken:
+        logging.warning(
+            "HEADS=%s has no sigmoid head: no _msk.nrrd is written, so the "
+            "landmark evaluation (which globs *msk.nrrd) will find no "
+            "predictions — add a sigmoid landmark head or evaluate the "
+            "per-head _<name>.nrrd families directly",
+            [h[0] for h in heads])
+    return outputs
 
 
 def preprocess_model_input(slices: np.ndarray, slice_spacing,
@@ -171,7 +208,8 @@ def pred_fold(config: Dict, device="cuda") -> bool:
     inferior}, keep the biggest component per label and slice (CC_FILTER,
     K2, both labels in one launch), map back to the original CMR geometry
     and write ``gt/`` and ``pred/<patient>_<ED|ES>_msk.nrrd`` and
-    ``pred/<patient>_<ED|ES>_cmr.nrrd``."""
+    ``pred/<patient>_<ED|ES>_cmr.nrrd``. A HEADS model writes each head
+    (``_head_outputs``), with one K2 launch per head."""
     start = time.perf_counter()
     TIMING_LOG.debug("pred_fold start", extra={"timing": {"event": "start"}})
     cfg = C.normalise_config(config)
@@ -223,7 +261,7 @@ def pred_fold(config: Dict, device="cuda") -> bool:
             x, gts = x.cpu().numpy(), y.cpu().numpy()
             gts_cmr = x[..., 0]                                  # [z, H, W]
             t2 = time.perf_counter()
-            preds = predictor.predict(x)                         # [z, H, W, C]
+            preds = predictor.predict(x)        # [z, H, W, C] or head dict
             t3 = time.perf_counter()
 
             orig = None

@@ -28,7 +28,16 @@ from cmrtpu_torch.utils.io_utils import ensure_dir
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.predict.predictor import (Predictor, _head_outputs,
                                             cc_clean_fn,
-                                            preprocess_model_input)
+                                            preprocess_model_input, to_numpy)
+
+
+def _flat_pred_heads(cfg: Dict, preds):
+    """[(suffix, pred_flat, label_values)] of serve-time predictions: the
+    predict path's head contract (``_head_outputs``) without ground
+    truth."""
+    return [(suffix, pred_flat, label_values)
+            for suffix, pred_flat, _gt, label_values
+            in _head_outputs(cfg, preds, None)]
 
 _IMAGE_EXTS = (".nii.gz", ".nii", ".nrrd")
 
@@ -77,7 +86,7 @@ class ServingEngine:
             x = np.zeros((self.batch, *self._dim,
                           int(C.get(self.config, "IMG_CHANNELS", 1))),
                          np.float32)
-            self._forward(x).cpu()
+            to_numpy(self._forward(x), self.batch)
             if self._cc is not None:  # builds and loads the CUDA kernel
                 self._cc(np.zeros((1, *self._dim)), (1,),
                          device=self.device).cpu()
@@ -87,10 +96,11 @@ class ServingEngine:
                      "source=%s)", self.init_s, self.batch, self.device,
                      model_path or "config")
 
-    def predict_slices(self, x: np.ndarray) -> np.ndarray:
+    def predict_slices(self, x: np.ndarray):
         """Forward a [N, H, W, C] batch in ``self.batch``-row chunks (last
         chunk zero-padded). Chunk outputs stay on the device until the last
-        one is queued; one copy brings them back."""
+        one is queued; one copy brings them back (one per head for a HEADS
+        model, which returns a dict)."""
         n = x.shape[0]
         outs: List[torch.Tensor] = []
         for start in range(0, n, self.batch):
@@ -100,12 +110,16 @@ class ServingEngine:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad, *x.shape[1:]), x.dtype)])
             outs.append(self._forward(chunk))
-        return torch.cat(outs)[:n].cpu().numpy()
+        if isinstance(outs[0], dict):
+            return to_numpy({k: torch.cat([o[k] for o in outs])
+                             for k in outs[0]}, n)
+        return to_numpy(torch.cat(outs), n)
 
     def process_study(self, path: str, out_dir: str) -> Dict:
         """One study end-to-end: read -> preprocess -> forward -> threshold
         (+ optional CC filter) -> inverse-preprocess -> write
-        ``<stem>_msk_pred.nrrd``. Returns the latency record."""
+        ``<stem>_msk_pred.nrrd`` (and ``<stem>_<name>_pred.nrrd`` per
+        further head). Returns the latency record."""
         stats: Dict = {"file": os.path.basename(path)}
         t0 = time.perf_counter()
         img = read_image(path)
@@ -141,8 +155,8 @@ class ServingEngine:
             orig = MedicalImage(array=nda, spacing=img.spacing,
                                 origin=img.origin, direction=img.direction,
                                 metadata=dict(img.metadata))
-        for suffix, flat, _gt, label_values in _head_outputs(self.config,
-                                                             preds, None):
+        for suffix, flat, label_values in _flat_pred_heads(self.config,
+                                                           preds):
             if self._cc is not None:
                 flat = self._cc(flat, label_values,
                                 device=self.device).cpu().numpy()

@@ -22,9 +22,13 @@ power limit; ``<exp>/summary.json`` keeps them.
         --epochs 150
 
 ``--patients 8 --epochs 2 --dim 64 --folds 0 --device cpu`` is a CPU-sized
-smoke run. The decoder is the flagship's upsample + conv
-(``USE_UPSAMPLE: true``): cmrtpu's demo trains the transpose-conv decoder,
-which is not ported (ROADMAP 3.8). Flags for what is not ported raise.
+smoke run. The decoder is the transpose-conv one (``USE_UPSAMPLE: false``),
+as cmrtpu's demo trains it; ``--upsample`` selects the flagship's upsample
++ conv decoder. The published arms: Base (``--no-gaus``), Var.1
+(``--hist-matching``), Var.2 (σ=2, the default) and Var.3 (``--sigma 4``);
+``--bn`` trains BatchNorm instead of GroupNorm 16 and ``--multihead`` adds
+a softmax LV/MYO/RV head beside the RVIP head. Flags for what is not ported
+raise.
 """
 
 import argparse
@@ -141,6 +145,36 @@ def generate_cohort(root, n_patients=100, hw=200, n_slices=8,
     print(f"cohort: {n_patients} patients written under {root}/original")
 
 
+def _write_seg_slices(root):
+    """Per-slice ventricle-mask targets for the softmax head: every 2D
+    ``_msk.nrrd`` (RVIP) slice gets a ``_seg.nrrd`` sibling cut from the
+    patient's ``*_gt.nii.gz`` volume, so the generator's default
+    HEAD_MASK_RULES ('msk' -> head name) resolves them directly."""
+    import glob
+    import re
+
+    from cmrtpu_torch.io import read_image
+
+    two_d = os.path.join(root, "2D")
+    pattern = re.compile(r"(patient\d+)__t(\d+)_z(\d+)_msk\.nrrd$")
+    vols = {}
+    written = 0
+    for msk_f in sorted(glob.glob(os.path.join(two_d, "*_msk.nrrd"))):
+        m = pattern.search(os.path.basename(msk_f))
+        if not m:
+            continue
+        pid, frame, z = m.group(1), m.group(2), int(m.group(3))
+        gt_f = os.path.join(root, "original", pid,
+                            f"{pid}_frame{frame}_gt.nii.gz")
+        if gt_f not in vols:
+            vols[gt_f] = read_image(gt_f)
+        gt = vols[gt_f]
+        write_image(MedicalImage(array=gt.array[z], spacing=gt.spacing[:2]),
+                    msk_f.replace("_msk.nrrd", "_seg.nrrd"))
+        written += 1
+    print(f"multihead: {written} per-slice _seg targets written")
+
+
 def _card():
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -172,6 +206,18 @@ def main(argv=None):
                         help="binary GT targets (the published Base arm)")
     parser.add_argument("--group-norm", type=int, default=16,
                         help="GroupNorm group count")
+    parser.add_argument("--bn", action="store_true",
+                        help="BatchNorm instead of the GROUP_NORM=16 "
+                             "default (the reference-parity arm)")
+    parser.add_argument("--upsample", action="store_true",
+                        help="the flagship's upsample + conv decoder "
+                             "(USE_UPSAMPLE) instead of the transpose conv")
+    parser.add_argument("--hist-matching", action="store_true",
+                        help="the Var.1 histogram-matching arm")
+    parser.add_argument("--multihead", action="store_true",
+                        help="RVIP sigmoid head + LV/MYO/RV softmax head "
+                             "(per-slice _seg targets are cut from the "
+                             "cohort's ventricle gt volumes)")
     parser.add_argument("--head-prior", type=float, default=None,
                         help="initialise sigmoid-head biases to this "
                              "foreground prior's logit (HEAD_BIAS_PRIOR)")
@@ -187,27 +233,19 @@ def main(argv=None):
                              "plus its slowest fold would pass this many "
                              "seconds (fold 0 always runs)")
     # cmrtpu's arms that the port does not run yet
-    parser.add_argument("--hist-matching", action="store_true",
-                        help="not ported (ROADMAP 3.1)")
     parser.add_argument("--cache-dtype", default="float32",
                         help="only float32 is ported (ROADMAP 3.5)")
     parser.add_argument("--cache-sharded", action="store_true",
                         help="not ported (ROADMAP 6.2)")
-    parser.add_argument("--bn", action="store_true",
-                        help="BatchNorm training is not ported (ROADMAP 2.6)")
     parser.add_argument("--ws", action="store_true",
                         help="not ported (ROADMAP skip list)")
     parser.add_argument("--agc", type=float, default=None,
                         help="not ported (ROADMAP 3.9)")
-    parser.add_argument("--multihead", action="store_true",
-                        help="not ported (ROADMAP 3.4)")
     args = parser.parse_args(argv)
 
-    unported = {"--hist-matching": args.hist_matching,
-                "--cache-dtype": args.cache_dtype.lower() != "float32",
-                "--cache-sharded": args.cache_sharded, "--bn": args.bn,
-                "--ws": args.ws, "--agc": args.agc is not None,
-                "--multihead": args.multihead}
+    unported = {"--cache-dtype": args.cache_dtype.lower() != "float32",
+                "--cache-sharded": args.cache_sharded, "--ws": args.ws,
+                "--agc": args.agc is not None}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(
@@ -230,6 +268,8 @@ def main(argv=None):
         generate_cohort(args.root, n_patients=args.patients, hw=hw)
     if not os.path.isdir(os.path.join(args.root, "2D")):
         make_dataset_main(args.root, os.path.join(args.root, "original"))
+    if args.multihead:
+        _write_seg_slices(args.root)
     data_s = time.perf_counter() - t0
 
     config = {
@@ -240,20 +280,31 @@ def main(argv=None):
         "DEPTH": 4, "FILTERS": 32, "M_POOL": [2, 2], "F_SIZE": [3, 3],
         "MASK_VALUES": [1, 2], "MASK_CLASSES": 2, "OPTIMIZER": "adam",
         "LEARNING_RATE": 1e-3, "LOSS_FUNCTION": "BceDiceLoss",
-        "MIXED_PRECISION": True, "USE_UPSAMPLE": True,
+        "MIXED_PRECISION": True, "USE_UPSAMPLE": args.upsample,
         "AUGMENT": True, "AUGMENT_PROB": 0.8, "RANDOMROTATE": True,
         "SHIFTSCALEROTATE": True, "GRIDDISTORTION": True,
         "GAUS": not args.no_gaus, "SIGMA": args.sigma,
-        "HIST_MATCHING": False, "SCALER": "MinMax", "CC_FILTER": True,
+        "HIST_MATCHING": args.hist_matching, "SCALER": "MinMax",
+        "CC_FILTER": True,
         "EARLY_STOPPING_PATIENCE": args.epochs,
         # checkpoints selected on the mean landmark error in mm
         "MONITOR_LOCALISATION": True,
         "MONITOR_FUNCTION": "val_loss",
         "SAVE_MODEL_FUNCTION": "val_loc_mm", "SAVE_MODEL_MODE": "min",
-        "BATCH_NORMALISATION": True, "GROUP_NORM": args.group_norm,
+        "BATCH_NORMALISATION": True,
+        "GROUP_NORM": 0 if args.bn else args.group_norm,
         "HEAD_BIAS_PRIOR": args.head_prior,
     }
     config.update(C.parse_override_pairs(args.set))
+    if args.multihead:
+        # the first sigmoid head keeps the _msk landmark contract; the
+        # softmax head (labels RV=1 MYO=2 LV=3 and background) adds the
+        # per-structure seg dice columns
+        config["HEADS"] = [["rvip", 2, "sigmoid"], ["seg", 4, "softmax"]]
+        # the live loc_mm metric covers single-head models only (the
+        # Trainer raises otherwise, in cmrtpu too): select on val_loss
+        config.update(MONITOR_LOCALISATION=False,
+                      SAVE_MODEL_FUNCTION="val_loss")
     exp_path = C.timestamped_exp_path(config)
     fold_s = {}
     for fold in args.folds:
@@ -280,12 +331,14 @@ def main(argv=None):
     summary = {"rows": len(df["patient"]), "columns": len(df),
                "folds": list(fold_s), "fold_wall_s": fold_s,
                "data_s": data_s, "evaluate_s": eval_s, "device": args.device,
+               "decoder": "upsample" if args.upsample else "transpose",
                "card": _card() if args.device.startswith("cuda") else None}
     for c in ("mdists_ant_gtpred", "mdists_inf_gtpred",
               "mdists_ant_gtio", "mdists_inf_gtio",
               "mdists_ant_gtorig", "mdists_inf_gtorig",
               "tpr_ant_point_th15", "ppv_ant_point_th15",
-              "tpr_inf_point_th15", "ppv_inf_point_th15"):
+              "tpr_inf_point_th15", "ppv_inf_point_th15",
+              "seg_dice_rv", "seg_dice_myo", "seg_dice_lv"):
         if c in df:
             vals = _floats(df[c])
             mean = float(np.nanmean(vals))

@@ -6,12 +6,19 @@ flat ``params/<flax path>`` and ``batch_stats/<flax path>`` keys, e.g.
 ``params/DownBlock_0/ConvBlock_1/Conv_0/kernel``. The torch modules of
 ``cmrtpu_torch.models.unet`` carry the same names, so the bridge is:
 
-  flax leaf                    torch state_dict entry
-  ``.../Conv_0/kernel`` HWIO   ``....Conv_0.weight`` OIHW
-  ``.../GroupNorm_0/scale``    ``....GroupNorm_0.weight`` (BatchNorm_0 alike)
-  ``.../bias``                 ``....bias``
-  batch_stats ``.../mean``     ``....running_mean``
-  batch_stats ``.../var``      ``....running_var``
+  flax leaf                           torch state_dict entry
+  ``.../Conv_0/kernel`` HWIO          ``....Conv_0.weight`` OIHW
+  ``.../ConvTranspose_0/kernel`` HWIO ``....ConvTranspose_0.weight``
+                                      [in, out, kh, kw], flipped in H, W
+  ``.../GroupNorm_0/scale``           ``....GroupNorm_0.weight`` (BatchNorm_0
+                                      alike)
+  ``.../bias``                        ``....bias``
+  batch_stats ``.../mean``            ``....running_mean``
+  batch_stats ``.../var``             ``....running_var``
+
+flax's ``ConvTranspose`` does not flip its kernel (``transpose_kernel``
+False) and torch's transposed convolution, the gradient of a convolution,
+does; the flip in the bridge makes the two compute the same function.
 
 A model trained by either package serves from the other.
 """
@@ -65,13 +72,17 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
             raise ValueError(
                 f"{'/'.join(path)} {arr.shape}: not a leaf of the 2D U-Net "
                 "that cmrtpu_torch ports")
-        if leaf == "kernel":
+        if leaf == "kernel" and _transposed(path[-2]):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [I, O, kh, kw]
+        elif leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         module = ".".join(path[:-1])
-        out[f"{module}.{_TO_TORCH[leaf]}"] = torch.tensor(arr)  # a copy
-        if leaf == "mean":
-            out[f"{module}.num_batches_tracked"] = torch.tensor(0)
+        out[f"{module}.{_TO_TORCH[leaf]}"] = torch.tensor(arr.copy())
     return out
+
+
+def _transposed(module: str) -> bool:
+    return module.startswith("ConvTranspose")
 
 
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
@@ -80,10 +91,11 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
     params, stats = {}, {}
     for name, tensor in state_dict.items():
         *module, leaf = name.split(".")
-        if leaf == "num_batches_tracked":
-            continue  # torch-only counter; flax keeps no such statistic
         arr = tensor.detach().cpu().numpy()
-        if leaf == "weight" and arr.ndim == 4:
+        if leaf == "weight" and arr.ndim == 4 and _transposed(module[-1]):
+            params[(*module, "kernel")] = np.ascontiguousarray(
+                arr.transpose(2, 3, 0, 1)[::-1, ::-1])  # -> HWIO, unflipped
+        elif leaf == "weight" and arr.ndim == 4:
             params[(*module, "kernel")] = arr.transpose(2, 3, 1, 0)  # -> HWIO
         elif leaf == "weight":
             params[(*module, "scale")] = arr

@@ -3,14 +3,17 @@ step gathers, augments, builds its targets and trains there — counterpart of
 ``cmrtpu/train/device_cache.py`` (the replicated single-device path).
 
     upload once -> per epoch: one [steps, B] index matrix -> per step:
-        gather -> augment -> normalise -> mask channels / heatmaps (K1)
-        -> forward -> loss -> backward -> Adam
+        gather -> histogram matching (HIST_MATCHING with AUGMENT) -> augment
+        -> normalise -> mask channels / heatmaps (K1) -> forward -> loss
+        -> backward -> Adam
 
 Epoch shuffling stays on the host with ``np.random.default_rng(SEED)``, as
-in cmrtpu, so both packages visit the examples in the same order. Only the
-epoch's mean logs leave the card, in one transfer. Not ported: the sharded
-and per-host caches and the explicit-collectives step (ROADMAP 6.1, 6.2),
-and cache dtypes other than float32 (ROADMAP 3.5), which raise.
+in cmrtpu, so both packages visit the examples in the same order. The
+matcher's and the augmentation's draws come from the loop's explicit
+generator on the card. Only the epoch's mean logs leave the card, in one
+transfer. Not ported: the sharded and per-host caches and the
+explicit-collectives step (ROADMAP 6.1, 6.2), and cache dtypes other than
+float32 (ROADMAP 3.5), which raise.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch
 from cmrtpu_torch import config as C
 from cmrtpu_torch.pipeline.augment import apply_params, draw_params
 from cmrtpu_torch.pipeline.generator import finalize_batch
+from cmrtpu_torch.pipeline.histmatch import (draw_match, gated_match,
+                                             hist_match_setup, hist_quota)
 
 
 def _uint8_packable(y: np.ndarray) -> bool:
@@ -83,7 +88,8 @@ class DeviceCachedLoop:
             raise ValueError(f"BATCHSIZE must be positive, got {self.batch}")
         seed = int(C.get(cfg, "SEED", 42))
         self.rng = np.random.default_rng(seed)
-        # augmentation draws, on the card; dropout has the trainer's own
+        # matcher and augmentation draws, on the card; dropout has the
+        # trainer's own
         self.aug_generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.shuffle = bool(C.get(cfg, "SHUFFLE", True))
         if train_gen._cache_x is None:
@@ -102,6 +108,9 @@ class DeviceCachedLoop:
         self.n_train = int(train_gen._cache_x.shape[0])
         self._augment = bool(C.get(cfg, "AUGMENT", False))
         self._masks = bool(train_gen.masks)
+        self._match_fn, prob = hist_match_setup(cfg, self._augment)
+        self._quota, self._gate_p = hist_quota(prob, self.batch) \
+            if self._match_fn is not None else (0, 1.0)
 
         self.val = None
         if val_gen is not None and val_gen._cache_x is not None:
@@ -118,9 +127,25 @@ class DeviceCachedLoop:
         return (data_x.index_select(0, idxs).float(),
                 data_y.index_select(0, idxs).float())
 
+    def hist_match(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Var.1: ceil(prob * B) candidates of the gathered batch, picked by
+        a random permutation, each matched against a random cached row and
+        kept with probability prob * B / ceil(prob * B) (``hist_quota``),
+        so prob * B examples a step are matched in expectation."""
+        if self._quota == 0:
+            return imgs
+        sel, ref_idx, gate = draw_match(self.aug_generator, imgs.shape[0],
+                                        self.n_train, self._quota,
+                                        self._gate_p)
+        return gated_match(self._match_fn, imgs, self.x_train, sel, ref_idx,
+                           gate)
+
     def train_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """gather -> augment -> finalize (K1) -> one optimizer step."""
+        """gather -> histogram matching -> augment -> finalize (K1) -> one
+        optimizer step."""
         imgs, msks = self._gather(self.x_train, self.y_train, idxs)
+        if self._match_fn is not None:
+            imgs = self.hist_match(imgs)
         if self._augment:
             params = draw_params(self.aug_generator, self.config,
                                  imgs.shape[0])

@@ -4,8 +4,10 @@
 cmrtpu compiles forward, loss, backward, optimizer update and metrics into
 one XLA program; here the same step runs eagerly on the card. Logs are 0-d
 tensors left on the device, so an epoch syncs the host once. Dropout masks
-come from the state's explicit ``torch.Generator``. Not ported: EMA (ROADMAP
-3.3) and BatchNorm in train mode (ROADMAP 2.6), which both raise.
+come from the state's explicit ``torch.Generator``. BatchNorm normalises
+with the batch statistics and moves its running averages in
+``train_step``, and reads the running averages in ``eval_step``, as flax's
+``batch_stats`` do. Not ported: EMA (ROADMAP 3.3), which raises.
 """
 
 from __future__ import annotations
@@ -30,13 +32,6 @@ class TrainState:
             raise NotImplementedError(
                 "the EMA shadow of the parameters (EMA) is not ported to "
                 "cmrtpu_torch yet (ROADMAP 3.3)")
-        if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
-               for m in model.modules()):
-            raise NotImplementedError(
-                "BatchNorm in train mode (GROUP_NORM: 0) is not ported to "
-                "cmrtpu_torch yet (ROADMAP 2.6: flax's running averages use "
-                "momentum 0.99 and the biased batch variance, torch's the "
-                "unbiased one); train with GROUP_NORM")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -55,8 +50,8 @@ class TrainState:
                    y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One optimizer step on (x [B, H, W, 1], y [B, H, W, C]). The loss
         and the metrics are computed in float32 on the pre-update
-        predictions; the gradients stay in ``param.grad`` until the next
-        step."""
+        predictions (a dict of them for a multi-head model); the gradients
+        stay in ``param.grad`` until the next step."""
         self.model.train()
         preds = self.model(x, generator=self.generator)
         loss = self.loss_fn(y, preds)
@@ -65,13 +60,13 @@ class TrainState:
         self.optimizer.step()
         self.step += 1
         with torch.no_grad():
-            return self._logs(loss, y, preds.detach())
+            return self._logs(loss, y, preds)
 
     @torch.no_grad()
     def eval_step(self, x: torch.Tensor,
                   y: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Loss and metrics of the eval-mode forward (no dropout, no
-        update)."""
+        """Loss and metrics of the eval-mode forward (no dropout, BatchNorm
+        from its running averages, no update)."""
         self.model.eval()
         preds = self.model(x)
         return self._logs(self.loss_fn(y, preds), y, preds)

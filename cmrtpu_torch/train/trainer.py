@@ -81,6 +81,12 @@ class Trainer:
             from cmrtpu_torch.eval.detection import localisation_metrics
             self.metrics = dict(self.metrics,
                                 **localisation_metrics(self.config))
+        heads = C.get(self.config, "HEADS", ()) or ()
+        if heads and metrics is None:
+            # tensor metrics run on the channel-concatenated head outputs
+            concat = L.concat_heads(heads)
+            self.metrics = {name: (lambda yt, yp, f=fn: f(yt, concat(yp)))
+                            for name, fn in self.metrics.items()}
         self.optimizer = get_optimizer(self.model.parameters(), self.config)
         self.generator = torch.Generator(self.device).manual_seed(
             int(C.get(self.config, "SEED", 42)))

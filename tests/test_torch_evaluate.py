@@ -5,8 +5,9 @@ for the rows without an inter-observer source), and the ACDC-like original/
 tree with ventricle masks. Slices hold both labels, one label only, or
 none. Cases: the timestamped layout with a complete ACDC tree; the flat
 fold layout of a tree without ``*4d.nii.gz``, where both packages' pathology
-join fails and leaves the column empty; and extra head families, which the
-port refuses."""
+join fails and leaves the column empty; and extra head families (a HEADS
+model's ``_seg`` files), scored with one dice column per label: the ACDC
+labels, other labels, a missing pair and a missing gt family."""
 
 import glob
 import os
@@ -115,10 +116,34 @@ def test_df_eval_equals_cmrtpu(layout, with_4d, tmp_path):
     assert pathology == ({"DCM", "HCM", "NOR"} if with_4d else {None})
 
 
-def test_extra_head_families_raise(tmp_path):
-    exp = _write_tree(str(tmp_path), (), True)
-    pred = glob.glob(os.path.join(exp, "f0", "pred", "*_ED_msk.nrrd"))[0]
-    write_image(MedicalImage(array=np.zeros(SHAPE, np.uint8)),
-                pred.replace("_msk.nrrd", "_seg.nrrd"))
-    with pytest.raises(NotImplementedError, match="ROADMAP 3.4"):
-        evaluate_cv(exp, str(tmp_path))
+@pytest.mark.parametrize("case", ["acdc", "two-labels", "pair-missing",
+                                  "gt-missing"])
+def test_extra_head_families_scored_like_cmrtpu(case, tmp_path):
+    exp = _write_tree(str(tmp_path), ("2026-01-01_00_00",), True)
+    rng = np.random.default_rng(13)
+    labels = 3 if case != "two-labels" else 2
+    preds = sorted(glob.glob(os.path.join(exp, "*", "*", "pred",
+                                          "*_msk.nrrd")))
+    for i, pred in enumerate(preds):
+        gt = pred.replace(os.sep + "pred" + os.sep, os.sep + "gt" + os.sep)
+        vol = rng.integers(0, labels + 1, SHAPE).astype(np.uint8)
+        noisy = np.where(rng.random(SHAPE) < 0.2, 0, vol).astype(np.uint8)
+        if case == "pair-missing" and i == 1:
+            continue
+        write_image(MedicalImage(array=noisy, spacing=SPACING),
+                    pred.replace("_msk.nrrd", "_seg.nrrd"))
+        if case != "gt-missing":
+            write_image(MedicalImage(array=vol, spacing=SPACING),
+                        gt.replace("_msk.nrrd", "_seg.nrrd"))
+    ref, out = str(tmp_path / "ref.csv"), str(tmp_path / "port.csv")
+    df = jax_evaluate_cv(exp, str(tmp_path), out_csv=ref)
+    cols = evaluate_cv(exp, str(tmp_path), out_csv=out)
+    assert list(cols) == list(df.columns)
+    assert _read(out) == _read(ref)
+    names = [c for c in cols if c.startswith("seg_dice_")]
+    # without a gt file no pair is scored, and no dice column is written
+    assert names == ({"two-labels": ["seg_dice_l1", "seg_dice_l2"],
+                      "gt-missing": []}
+                     .get(case, ["seg_dice_rv", "seg_dice_myo",
+                                 "seg_dice_lv"]))
+    assert "files_seg_gt" in cols

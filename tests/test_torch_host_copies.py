@@ -7,7 +7,9 @@ copies run the same numpy code), with the native codec and with its
 pure-Python path. The evaluation's copies (contours, landmarks) give equal
 results; the dataset functions write the same 2D slices and, without pandas
 or scikit-learn, the same df_kfold.csv bytes; the phantom cohort of the
-port's full_cv_demo tool is the same as examples/full_cv_demo.py's."""
+port's full_cv_demo tool and its per-slice ``_seg`` targets are the same as
+examples/full_cv_demo.py's; the evaluation's ``dice_numpy`` gives equal
+scores."""
 
 import glob
 import importlib.util
@@ -367,3 +369,45 @@ def test_demo_cohort_matches_example(tmp_path):
             assert open(a).read() == open(b).read()
         else:
             assert _same_file(a, b), name
+
+
+def test_dice_numpy_matches_cmrtpu():
+    from cmrtpu.train.losses import dice_numpy as jax_dice
+    from cmrtpu_torch.train.losses import dice_numpy
+
+    rng = np.random.default_rng(11)
+    for density in (0.0, 0.1, 0.5):
+        a = rng.random((3, 9, 7)) < density
+        b = rng.random((3, 9, 7)) < 0.3
+        for pair in ((a, b), (a, a), (a.astype(np.uint8) * 2, b)):
+            assert dice_numpy(*pair) == jax_dice(*pair)
+    assert dice_numpy(np.zeros(4), np.zeros(4), empty_score=0.5) == 0.5
+    with pytest.raises(ValueError):
+        dice_numpy(np.zeros(3), np.zeros(4))
+
+
+def test_seg_slices_match_example(tmp_path):
+    spec = importlib.util.spec_from_file_location(
+        "full_cv_demo_example", os.path.join(REPO, "examples",
+                                             "full_cv_demo.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for name in ("ref", "port"):
+        root = tmp_path / name
+        tdemo.generate_cohort(str(root), n_patients=2, hw=48, n_slices=3,
+                              seed=4)
+        td.create_2d_slices_from_3d_volume_files(
+            str(root / "original" / "patient001" /
+                "patient001_frame01.nii.gz"),
+            str(root / "io" / "patient001_frame01_rvip.nrrd"),
+            str(root / "2D"))
+        (example._write_seg_slices if name == "ref"
+         else tdemo._write_seg_slices)(str(root))
+    segs = sorted(os.path.basename(f) for f in glob.glob(
+        str(tmp_path / "ref" / "2D" / "*_seg.nrrd")))
+    assert len(segs) == 3
+    assert segs == sorted(os.path.basename(f) for f in glob.glob(
+        str(tmp_path / "port" / "2D" / "*_seg.nrrd")))
+    for name in segs:
+        assert _same_file(str(tmp_path / "port" / "2D" / name),
+                          str(tmp_path / "ref" / "2D" / name)), name

@@ -54,7 +54,7 @@ def fold_dir(tmp_path_factory):
     scaled x50 so thresholded labels have a wide margin at 0.5."""
     d = tmp_path_factory.mktemp("fold")
     variables = dict(init_variables(jax_build_model(CFG), CFG,
-                                    jax.random.PRNGKey(11)))
+                                    jax.random.key(11, impl="threefry2x32")))
     params = jax.tree_util.tree_map(np.asarray, dict(variables["params"]))
     params["head"] = {"kernel": params["head"]["kernel"] * 50.0,
                       "bias": params["head"]["bias"]}
@@ -120,7 +120,7 @@ def test_predictor_pads_to_bucket_and_matches_cmrtpu(tmp_path):
     # unscaled init weights: the x50 head of ``fold_dir`` scales f32
     # rounding differences by 50 as well
     variables = init_variables(jax_build_model(CFG), CFG,
-                               jax.random.PRNGKey(12))
+                               jax.random.key(12, impl="threefry2x32"))
     model = str(tmp_path / "model")
     jax_ckpt.save_weights(model, variables["params"])
     x = np.random.default_rng(9).random((3, 32, 32, 1)).astype(np.float32)
