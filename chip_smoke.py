@@ -69,21 +69,46 @@ Run from the root of a checkout. Phases, one line each:
                  patient-phase, evaluate_cv s and the seg-dice columns;
  15. serve-multihead — the multihead fold serves 3 studies through
                  cli.serve: _msk and _seg per study, K2 twice per study and
-                 once for the warm-up.
+                 once for the warm-up;
+ 16. resume    — on a new phantom cohort, the flagship through cli.train
+                 with EPOCHS 2, then cli.train -resume <run> with EPOCHS 4:
+                 the restored state bit-equal to the one saved at the best
+                 epoch, history.csv's earlier rows byte-equal, epochs 0-3,
+                 fold_complete.json targeting 4, K1 once per train and eval
+                 step retrained and per patient-phase, K2 4; a third call
+                 skips the fold (no launch, no file changed); the ms of a
+                 full-state save, synchronous and as the async submit;
+ 17. resume-exact — float32, SHUFFLE false, augmentation and dropout on:
+                 3 epochs straight against 2 then resumed to 3, within a
+                 bound measured on the card, which a control resumed
+                 without its generators' states must fail;
+ 18. ema       — a 2-epoch fold with EMA true: model.npz holds the shadow,
+                 the chained pred_fold runs from it (K1 and K2 once per
+                 patient-phase); the step with and without EMA;
+ 19. cache-dtype — the loop from float32, bfloat16 and uint8 image caches:
+                 the bytes on the card, one epoch's loss within a bound of
+                 float32's, the step;
+ 20. optimizers — the 7 rules and adam with AGC 0.08: 3 f32 steps at
+                 batch 2 on the card and the CPU (the card's rule on the
+                 CPU's gradients, and whole steps), each within a stated
+                 bound relative to the change; the bf16 step at batch 16.
 Then one JSON line of kernel figures (launches by path: serve, train,
-pred_fold, predict_cli and the variants' and multihead serving's paths),
+pred_fold, predict_cli, the variants' and multihead serving's paths, and
+the resume, resume-exact and ema phases' runs),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
 Imports nothing of JAX and nothing of cmrtpu.
 """
 
+import contextlib
 import copy
 import csv
 import types
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -112,7 +137,9 @@ from cmrtpu_torch.pipeline.histmatch import _binned_cdf, \
 from cmrtpu_torch.predict.predictor import TIMING_LOG, Predictor
 from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
 from cmrtpu_torch.train.checkpoint import save_weights
+from cmrtpu_torch.train import device_cache
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
+from cmrtpu_torch.train.optimizers import get_optimizer
 from cmrtpu_torch.train.steps import TrainState
 from cmrtpu_torch.train.trainer import Trainer, init_model
 
@@ -814,9 +841,11 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
             **match}
 
 
-def _train_cli(cfg, data_root, work, name):
+def _train_cli(cfg, data_root, work, name, args=(), spans=True):
     """Train ``cfg`` through cli.train (chained pred_fold) on the sliced
-    cohort; returns the fold, the kernels' launches and pred_fold's span."""
+    cohort, with ``args`` added to the command line; returns the run dir,
+    the kernels' launches, pred_fold's span (None with ``spans`` False: a
+    skipped fold runs none) and the wall seconds."""
     cfg_path = os.path.join(work, f"{name}.json")
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
@@ -826,16 +855,16 @@ def _train_cli(cfg, data_root, work, name):
         kernels.gaussian_blur_2d_cuda.launches = 0
         kernels.converge_labels_cuda.launches = 0
         t0 = time.perf_counter()
-        with _Spans() as spans:
+        with _Spans() as logged:
             exp = os.path.abspath(train_main(
-                ["-cfg", cfg_path, "-data", data_root]))
+                ["-cfg", cfg_path, "-data", data_root, *args]))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         k1 = kernels.gaussian_blur_2d_cuda.launches
         k2 = kernels.converge_labels_cuda.launches
     finally:
         os.chdir(cwd)
-    return exp, k1, k2, spans.pred_fold(), wall_s
+    return exp, k1, k2, logged.pred_fold() if spans else None, wall_s
 
 
 def phase_train(cfg):
@@ -1206,6 +1235,602 @@ def phase_variants(flagship_timing):
     return by_path
 
 
+# -- the one-card trainer's remaining features ------------------------------
+
+# optimizers: the rules on the card against the CPU from the same weights
+# and batch, f32 and TF32 off, ELU (PERF.md: with ReLU at a random init the
+# f32 gradient lies 1-16% of max |g| from float64 on any device). SAME_GRAD:
+# the card's update from the CPU's weights and gradients, per parameter, x
+# max |update|: the same float32 arithmetic in another order and with
+# CUDA's rsqrt (the weights' own change is no yardstick here: a 1e-4 step
+# of a weight near 1 is a few hundred float32 ulps, and one ulp of rounding
+# then reads as 1e-2; measured on an H100 (700 W) so: up to 7.8e-3).
+# FULL_STEP: 3 whole steps, each device with its own gradients, the
+# relative L2 norm of the difference of the changes over all parameters:
+# measured on an H100 (700 W) 1.3e-4 (rmsprop) to 7.6e-4 (nadam)
+OPT_CASES = {"adam": {}, "nadam": {}, "sgd": {}, "adagrad": {},
+             "rmsprop": {}, "adadelta": {}, "radam": {},
+             "adam+agc": {"OPTIMIZER": "adam", "AGC": 0.08}}
+OPT_SAME_GRAD_ATOL = 1e-5
+OPT_FULL_STEP_RTOL = 5e-3
+# resume-exact: B's rows after its restore point against A's, relative, on
+# the train loss, which reads the restored random streams at once (the
+# eval columns see them only through the weights). cuDNN's backward is not
+# bit-deterministic: measured on an H100 (700 W) the resumed run lay 4.1e-5
+# from the straight one (2.7e-6 in the epoch before the restore, which
+# both computed alike), and a control resumed without its generators'
+# states 3.6e-3 (PERF.md)
+RESUME_EXACT_RTOL = 5e-4
+RESUME_EXACT_KEYS = ("loss",)
+# cache-dtype. DECODE: each image value gathered from the card's cache
+# against the float32 image, over half a step of its storage (half a
+# bf16 ulp; half a level of the example's uint8 range): round to nearest
+# reads at most 1 (uint8 up to 1 + 2e-4 from float32 arithmetic), a
+# truncating bf16 cache up to 2, 4-bit image levels 17. LOSS: one epoch's
+# mean loss against the float32 cache's, relative, computed in float32
+# with TF32 off: in bf16 the model's own rounding lifts every cache's
+# reading to ~1e-4 (a CPU rehearsal at 64², depth 3: sound 4.8e-5-8.6e-5,
+# the 4-bit control 4.6e-4). Measured in float32 on an H100 (700 W): bf16
+# 2.2e-5, uint8 3.9e-5, the truncating bf16 cache 3.5e-5 (caught by DECODE
+# alone), the 4-bit control 4.9e-3 (PERF.md)
+CACHE_DECODE_MAX = 1.001
+CACHE_LOSS_RTOL = 3e-4
+
+
+class _patched:
+    """Replace ``owner.name`` by ``fn(original)`` inside a with-block."""
+
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name, self.wrap = owner, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.wrap(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _files(root):
+    """Every file under ``root``: (mtime, bytes)."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(d, name)
+            with open(path, "rb") as fh:
+                out[path] = (os.path.getmtime(path), fh.read())
+    return out
+
+
+def _rows(fold):
+    with open(os.path.join(fold, "history.csv")) as fh:
+        return list(csv.DictReader(fh))
+
+
+def _lines(fold):
+    with open(os.path.join(fold, "history.csv")) as fh:
+        return fh.read().splitlines()
+
+
+def _on_host(tree):
+    """A host copy of every tensor of ``tree`` (a copy on the CPU too: the
+    next step updates the live tensors in place)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _on_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_host(v) for v in tree)
+    return tree
+
+
+def _diff_paths(a, b, path=""):
+    """Paths where two host trees differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [p for k in a for p in _diff_paths(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in _diff_paths(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _epoch_launches(cfg):
+    """K1 launches of one epoch of the cohort's fold 0: one per train step
+    and one per eval step (the remainder batch included)."""
+    batch = int(cfg["BATCHSIZE"])
+    return 6 * 2 * Z // batch + -(-(2 * 2 * Z) // batch)
+
+
+def _steps_per_epoch(cfg):
+    return 6 * 2 * Z // int(cfg["BATCHSIZE"])
+
+
+def _save_ms(cfg, model_dir, reps=5):
+    """A full-state ModelCheckpoint save of the flagship trainer after one
+    step: synchronous (host clock, the files on disk), and the async
+    submit's cost to the loop (host clock of the call, and CUDA events
+    around the on-card snapshot it queues); then the flush."""
+    from cmrtpu_torch.train.callbacks import ModelCheckpoint
+    trainer = Trainer(cfg, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    x, y = finalize_batch(torch.from_numpy(_phantom(rng, 16, H, W)),
+                          torch.zeros(16, H, W), cfg)
+    trainer.state.train_step(x.cuda(), y.cuda())
+    out = {}
+    for mode in ("sync", "async"):
+        cb = ModelCheckpoint(os.path.join(model_dir, mode),
+                             async_write=mode == "async")
+        host, device, flush = [], [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            cb._save(trainer)
+            end.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            cb.on_train_end(trainer)
+            flush.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = {"host_ms_median": float(np.median(host)),
+                     "device_ms_median": float(np.median(device)),
+                     "flush_ms_median": float(np.median(flush))}
+    out["state_bytes"] = os.path.getsize(os.path.join(
+        model_dir, "sync", "state.pt"))
+    return out
+
+
+def phase_resume(cfg, data_root, work):
+    """cli.train with EPOCHS 2, then cli.train -resume with EPOCHS 4: the
+    restored state equals the one saved at the best epoch bit for bit, the
+    history keeps the first run's rows before the restore point byte for
+    byte and holds epochs 0-3, fold_complete.json targets 4, and the
+    kernels launch exactly once per train and eval step retrained and per
+    patient-phase; a third call with the same EPOCHS skips the fold: no
+    launch, no file changed. Then the ms of a full-state save."""
+    cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
+    exp, k1, k2, chained, _ = _train_cli(cfg, data_root, work, "resume")
+    fold = os.path.join(exp, "f0")
+    per_epoch = _epoch_launches(cfg)
+    check(k1 == 2 * per_epoch + 4 and k2 == 4,
+          f"resume: first run K1 {k1}, K2 {k2}")
+    model_dir = os.path.join(fold, "model")
+    saved = torch.load(os.path.join(model_dir, "state.pt"),
+                       map_location="cpu", weights_only=True)
+    first = _lines(fold)
+    restored = []
+
+    def capture(orig):
+        def restore(self, ckpt_dir):
+            step = orig(self, ckpt_dir)
+            restored.append(_on_host(self.train_state()))
+            return step
+        return restore
+
+    with _patched(Trainer, "restore", capture):
+        _, r_k1, r_k2, r_chained, wall_s = _train_cli(
+            dict(cfg, EPOCHS=4), data_root, work, "resume4",
+            ["-resume", exp])
+    check(len(restored) == 1, f"resume: {len(restored)} restores")
+    diff = _diff_paths(restored[0], saved)
+    check(not diff, f"resume: the restored state differs from the saved "
+          f"one at {diff[:8]}")
+    restore_epoch = saved["step"] // _steps_per_epoch(cfg)
+    retrained = 4 - restore_epoch
+    check(1 <= restore_epoch <= 2, f"resume: restore epoch {restore_epoch}")
+    rows = _rows(fold)
+    check([int(r["epoch"]) for r in rows] == [0, 1, 2, 3],
+          f"resume: history epochs {[r['epoch'] for r in rows]}")
+    check(_lines(fold)[:1 + restore_epoch] == first[:1 + restore_epoch],
+          "resume: the rows before the restore point changed")
+    with open(os.path.join(fold, "fold_complete.json")) as fh:
+        marker = json.load(fh)
+    check(marker["epochs_target"] == 4, f"resume: marker {marker}")
+    check(r_k1 == per_epoch * retrained + 4 and r_k2 == 4
+          and r_chained["k1"] == r_chained["k2"] == 4,
+          f"resume: K1 {r_k1} (want {per_epoch * retrained + 4}), K2 {r_k2}")
+    before = _files(exp)
+    _, s_k1, s_k2, _, _ = _train_cli(dict(cfg, EPOCHS=4), data_root, work,
+                                     "resume-skip", ["-resume", exp],
+                                     spans=False)
+    check(s_k1 == s_k2 == 0, f"resume: the skipped fold launched K1 {s_k1}, "
+          f"K2 {s_k2}")
+    check(_files(exp) == before, "resume: the skipped call changed a file")
+    save = _save_ms(cfg, os.path.join(work, "save_timing"))
+    log("resume", restored_step=saved["step"], restore_epoch=restore_epoch,
+        epochs_retrained=retrained, resumed_wall_s=wall_s,
+        launches={"first": [k1, k2], "resumed": [r_k1, r_k2],
+                  "skipped": [s_k1, s_k2]},
+        history=[{k: float(r[k]) for k in ("loss", "val_loss", "lr")}
+                 for r in rows], full_state_save=save)
+    return {"resume:first": {"k1": k1, "k2": k2},
+            "resume:resumed": {"k1": r_k1, "k2": r_k2},
+            "resume:skipped": {"k1": s_k1, "k2": s_k2}}
+
+
+def _max_rel(rows_a, rows_b, keys):
+    worst = 0.0
+    for a, b in zip(rows_a, rows_b):
+        for k in keys:
+            x, y = float(a[k]), float(b[k])
+            worst = max(worst, abs(x - y) / max(abs(y), 1e-12))
+    return worst
+
+
+def phase_resume_exact(cfg, data_root, work):
+    """float32, SHUFFLE false, augmentation and dropout on: run A trains 3
+    epochs straight; run B trains 2, then resumes to 3; run C is B's
+    2-epoch run resumed without its generators' states (reseeded). B's
+    rows from its restore point on lie within RESUME_EXACT_RTOL of A's; C's
+    must not."""
+    # an EXPERIMENT each: run dirs are stamped to the minute
+    cfg = dict(cfg, MIXED_PRECISION=False, SHUFFLE=False, FOLDS=[0])
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        exp_a, a_k1, a_k2, _, _ = _train_cli(
+            dict(cfg, EPOCHS=3, EXPERIMENT="exact_a"), data_root, work,
+            "exact_a")
+        cfg = dict(cfg, EXPERIMENT="exact_b")
+        exp_b, _, _, _, _ = _train_cli(dict(cfg, EPOCHS=2), data_root, work,
+                                       "exact_b")
+        exp_c = exp_b + "_control"
+        shutil.copytree(exp_b, exp_c)
+        step = torch.load(os.path.join(exp_b, "f0", "model", "state.pt"),
+                          map_location="cpu", weights_only=True)["step"]
+        restore_epoch = step // _steps_per_epoch(cfg)
+        _, b_k1, b_k2, _, _ = _train_cli(dict(cfg, EPOCHS=3), data_root, work,
+                                         "exact_b3", ["-resume", exp_b])
+
+        def forget(orig):
+            def restore(self, ckpt_dir):
+                out = orig(self, ckpt_dir)
+                seed = int(self.config.get("SEED", 42))
+                self.generator.manual_seed(seed)
+                self.loop_generator.manual_seed(seed + 1)
+                return out
+            return restore
+
+        with _patched(Trainer, "restore", forget):
+            _train_cli(dict(cfg, EPOCHS=3), data_root, work, "exact_c3",
+                       ["-resume", exp_c])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    rows = {name: _rows(os.path.join(exp, "f0")) for name, exp in
+            (("a", exp_a), ("b", exp_b), ("c", exp_c))}
+    check(all(len(r) == 3 for r in rows.values()),
+          f"resume-exact: history lengths {[len(r) for r in rows.values()]}")
+    b_err = _max_rel(rows["b"][restore_epoch:], rows["a"][restore_epoch:],
+                     RESUME_EXACT_KEYS)
+    b_before = _max_rel(rows["b"][:restore_epoch], rows["a"][:restore_epoch],
+                        RESUME_EXACT_KEYS)
+    c_err = _max_rel(rows["c"][restore_epoch:], rows["a"][restore_epoch:],
+                     RESUME_EXACT_KEYS)
+    per_epoch = _epoch_launches(cfg)
+    log("resume-exact", restore_epoch=restore_epoch, rtol=RESUME_EXACT_RTOL,
+        resumed_vs_straight_max_rel=b_err,
+        before_restore_vs_straight_max_rel=b_before,
+        control_no_generators_max_rel=c_err, keys=RESUME_EXACT_KEYS,
+        val_loss_resumed_vs_straight_max_rel=_max_rel(
+            rows["b"][restore_epoch:], rows["a"][restore_epoch:],
+            ("val_loss",)),
+        loss={k: [float(r["loss"]) for r in v] for k, v in rows.items()},
+        val_loss={k: [float(r["val_loss"]) for r in v]
+                  for k, v in rows.items()})
+    check(a_k1 == 3 * per_epoch + 4 and a_k2 == 4 and
+          b_k1 == (3 - restore_epoch) * per_epoch + 4 and b_k2 == 4,
+          f"resume-exact: K1 {a_k1} straight, {b_k1} resumed; K2 {a_k2} "
+          f"straight, {b_k2} resumed")
+    check(b_err <= RESUME_EXACT_RTOL,
+          f"resume-exact: the resumed rows lie {b_err} from the straight "
+          f"run's (bound {RESUME_EXACT_RTOL})")
+    check(c_err > RESUME_EXACT_RTOL,
+          f"resume-exact: the control without generator states lies only "
+          f"{c_err} from the straight run: the bound cannot tell")
+    return {"resume_exact:straight": {"k1": a_k1, "k2": a_k2},
+            "resume_exact:resumed": {"k1": b_k1, "k2": b_k2}}
+
+
+def _warm_step_ms(step, reps=12, warm=3):
+    """Median ms of ``step()`` by CUDA events, after warm calls."""
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _loop(cfg, gen):
+    trainer = Trainer(cfg, device="cuda")
+    loop = DeviceCachedLoop(trainer, gen)
+    idx = torch.from_numpy(loop._epoch_indices(loop.n_train, False)).cuda()
+    return loop, idx
+
+
+def phase_ema(cfg, data_root, work, gen):
+    """A 2-epoch flagship fold with EMA true through cli.train: model.npz
+    holds the shadow of the state saved beside it bit for bit (and not the
+    live weights), the chained pred_fold runs from it with one launch of
+    each kernel per patient-phase; then the warm step with and without
+    EMA."""
+    from cmrtpu_torch.train.checkpoint import flax_to_state_dict, load_weights
+    ema_cfg = dict(cfg, EMA=True, EPOCHS=2, FOLDS=[0], EXPERIMENT="ema")
+    exp, k1, k2, chained, wall_s = _train_cli(ema_cfg, data_root, work, "ema")
+    model_dir = os.path.join(exp, "f0", "model")
+    state = torch.load(os.path.join(model_dir, "state.pt"),
+                       map_location="cpu", weights_only=True)
+    npz = flax_to_state_dict(*load_weights(model_dir))
+    check(state["ema"] is not None and set(state["ema"]) <= set(npz),
+          "ema: no shadow in the saved state")
+    bad = [n for n, t in state["ema"].items() if not torch.equal(npz[n], t)]
+    check(not bad, f"ema: model.npz differs from the shadow at {bad[:5]}")
+    check(any(not torch.equal(state["model"][n], t)
+              for n, t in state["ema"].items()),
+          "ema: the shadow equals the live weights")
+    check(chained["k1"] == chained["k2"] == 4
+          and k1 == 2 * _epoch_launches(cfg) + 4 and k2 == 4,
+          f"ema: K1 {k1}, K2 {k2}, pred_fold {chained}")
+    times = {}
+    for name, c in (("ema", ema_cfg), ("no_ema", cfg)):
+        loop, idx = _loop(c, gen)
+        i = iter(range(10 ** 6))
+        times[name] = _warm_step_ms(
+            lambda: loop.train_step(idx[next(i) % len(idx)]))
+    log("ema", wall_s=wall_s, k1_launches=k1, k2_launches=k2,
+        pred_fold_launches=[chained["k1"], chained["k2"]],
+        shadow_tensors=len(state["ema"]), step_ms_median=times,
+        history=[{k: float(r[k]) for k in ("loss", "val_loss")}
+                 for r in _rows(os.path.join(exp, "f0"))])
+    return {"ema:train": {"k1": chained["k1_before"],
+                          "k2": chained["k2_before"]},
+            "ema:pred_fold": {"k1": chained["k1"], "k2": chained["k2"]}}
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _truncating_bf16(pack):
+    """Control: a bf16 cache that drops the low 16 bits (no rounding)."""
+    def truncated(x, y, config):
+        xt, yt = pack(x, y, config)
+        bits = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+        bits = bits.view(torch.int32) & -65536
+        return bits.view(torch.float32).to(torch.bfloat16), yt
+    return truncated
+
+
+def _four_bit(quantize):
+    """Control: uint8 images on 16 levels (0, 17, ..., 255)."""
+    return lambda imgs: (np.rint(quantize(imgs) / 17.0) * 17).astype(
+        np.uint8)
+
+
+def _decode_error(loop, x_ref, y_ref):
+    """The cache gathered on the card against the float32 images, over
+    half a step of its storage (CACHE_DECODE_MAX); masks must be exact."""
+    idx = torch.arange(loop.n_train, device=loop.x_train.device)
+    imgs, msks = loop._gather(loop.x_train, loop.y_train, idx)
+    if loop.x_train.dtype == torch.uint8:
+        flat = x_ref.reshape(x_ref.shape[0], -1).double()
+        lo = flat.min(1, keepdim=True).values
+        span = (flat.max(1, keepdim=True).values - lo).clamp(
+            min=float(np.finfo(np.float32).tiny))
+        err = (imgs.reshape(flat.shape).double()
+               - (flat - lo) / span * 255.0).abs() / 0.5
+    elif loop.x_train.dtype == torch.bfloat16:
+        _, e = torch.frexp(x_ref)  # |x| in [2**(e-1), 2**e): ulp 2**(e-8)
+        half = torch.ldexp(torch.ones_like(x_ref), e - 9)
+        err = (imgs - x_ref).abs() / half
+    else:
+        err = (imgs - x_ref).abs()
+    return float(err.max()), bool(torch.equal(msks, y_ref))
+
+
+def phase_cache_dtype(cfg, gen):
+    """The flagship's device-resident loop from a float32, a bfloat16 and a
+    uint8 image cache (masks uint8 in all three), the same weights and
+    random streams: the cache's bytes on the card, the cache gathered on
+    the card against the float32 images (within CACHE_DECODE_MAX), one
+    epoch's mean loss in float32 (within CACHE_LOSS_RTOL of the float32
+    cache's) and the flagship's warm bf16 step. Controls: a truncating
+    bf16 cache must fail the decode bound, a 4-bit uint8 cache both
+    bounds."""
+    x_ref = torch.from_numpy(gen._cache_x).cuda()
+    y_ref = torch.from_numpy(gen._cache_y).cuda()
+    f32_cfg = dict(cfg, MIXED_PRECISION=False)
+    out = {}
+    cases = (("float32", "float32", None), ("bfloat16", "bfloat16", None),
+             ("uint8", "uint8", None),
+             ("control_bf16_truncated", "bfloat16",
+              ("pack_arrays", _truncating_bf16)),
+             ("control_uint8_4bit", "uint8",
+              ("quantize_images_uint8", _four_bit)))
+    for name, dtype, fault in cases:
+        with _patched(device_cache, *fault) if fault else \
+                contextlib.nullcontext():
+            loop, idx = _loop(dict(f32_cfg, CACHE_DTYPE=dtype), gen)
+        nbytes = {key: t.numel() * t.element_size() for key, t in
+                  (("images", loop.x_train), ("masks", loop.y_train))}
+        check(loop.y_train.dtype == torch.uint8,
+              f"cache-dtype: masks stored as {loop.y_train.dtype}")
+        decode, masks_exact = _decode_error(loop, x_ref, y_ref)
+        with _tf32_off():
+            loss = loop.run_train_epoch()["loss"]
+        r = out[name] = {"bytes": nbytes,
+                         "images_dtype": str(loop.x_train.dtype),
+                         "decode_over_half_step": decode,
+                         "masks_exact": masks_exact, "epoch_loss": loss}
+        if fault is None:
+            loop, idx = _loop(dict(cfg, CACHE_DTYPE=dtype), gen)
+            i = iter(range(10 ** 6))
+            r["bf16_step_ms_median"] = _warm_step_ms(
+                lambda: loop.train_step(idx[next(i) % len(idx)]))
+        del loop, idx
+    f32 = out["float32"]
+    for r in out.values():
+        r["loss_rel_to_float32"] = abs(r["epoch_loss"] - f32["epoch_loss"]) \
+            / abs(f32["epoch_loss"])
+    log("cache-dtype", decode_max=CACHE_DECODE_MAX,
+        loss_rtol=CACHE_LOSS_RTOL, **out)
+    n = f32["bytes"]["images"]
+    check(out["bfloat16"]["bytes"]["images"] * 2 == n
+          and out["uint8"]["bytes"]["images"] * 4 == n,
+          f"cache-dtype: bytes {[r['bytes'] for r in out.values()]}")
+    check(all(r["masks_exact"] for r in out.values()),
+          "cache-dtype: a mask cache does not read back exactly")
+    check(f32["decode_over_half_step"] == 0.0,
+          "cache-dtype: the float32 cache does not read back exactly")
+    for name in ("bfloat16", "uint8"):
+        r = out[name]
+        check(r["decode_over_half_step"] <= CACHE_DECODE_MAX,
+              f"cache-dtype: {name} reads back {r['decode_over_half_step']} "
+              f"half steps from the float32 images")
+        check(r["loss_rel_to_float32"] <= CACHE_LOSS_RTOL,
+              f"cache-dtype: {name} epoch loss {r['epoch_loss']} "
+              f"vs float32 {f32['epoch_loss']}")
+    for name in ("control_bf16_truncated", "control_uint8_4bit"):
+        check(out[name]["decode_over_half_step"] > CACHE_DECODE_MAX,
+              f"cache-dtype: {name} reads back within the decode bound")
+    check(out["control_uint8_4bit"]["loss_rel_to_float32"] > CACHE_LOSS_RTOL,
+          "cache-dtype: the 4-bit control's epoch loss lies within "
+          f"{CACHE_LOSS_RTOL} of the float32 cache's: the bound cannot tell")
+
+
+def _changes(trainer, start):
+    return {n: (p.detach().double().cpu() - start[n].double())
+            for n, p in trainer.model.named_parameters()}
+
+
+def phase_optimizers(cfg):
+    """Each rule (and adam with AGC 0.08) for 3 f32 steps of the flagship
+    net (ELU) at batch 2 on the card and on the CPU from the same weights
+    and batch. Same gradients: at each step a rule on the card and one on
+    the CPU, fed the CPU trainer's weights and gradients, give updates
+    within OPT_SAME_GRAD_ATOL x max |update| per parameter. Whole steps:
+    each device with its own gradients, the changes within
+    OPT_FULL_STEP_RTOL (relative L2 over all parameters). Then the warm
+    bf16 step at batch 16 of each, beside adam's."""
+    base = dict(cfg, MIXED_PRECISION=False, DROPOUT_MIN=0.0, DROPOUT_MAX=0.0,
+                AUGMENT=False, ACTIVATION="elu", BATCHSIZE=2)
+    rng = np.random.default_rng(SEED + 4)
+    msks = np.zeros((2, H, W), np.float32)
+    msks[0, 60:64, 120:124], msks[0, 100:104, 116:120] = 1, 2
+    x, y = finalize_batch(torch.from_numpy(_phantom(rng, 2, H, W)),
+                          torch.from_numpy(msks), base)
+    weights = init_model(base).state_dict()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    try:
+        for name, extra in OPT_CASES.items():
+            c = dict(base, **({"OPTIMIZER": name} if not extra else extra))
+            cpu, card = Trainer(c, device="cpu"), Trainer(c, device="cuda")
+            for t in (cpu, card):
+                t.model.load_state_dict(weights)
+            names = [n for n, _ in cpu.model.named_parameters()]
+            mirrors = {"cpu": [torch.nn.Parameter(p.detach().clone())
+                               for p in cpu.model.parameters()]}
+            mirrors["cuda"] = [torch.nn.Parameter(p.detach().clone().cuda())
+                               for p in mirrors["cpu"]]
+            rules = {d: get_optimizer(list(zip(names, mirrors[d])), c)
+                     for d in mirrors}
+            same = 0.0
+            for _ in range(3):
+                with torch.no_grad():
+                    for d, ps in mirrors.items():
+                        for p, q in zip(ps, cpu.model.parameters()):
+                            p.copy_(q)
+                cpu.state.train_step(x, y)
+                card.state.train_step(x.cuda(), y.cuda())
+                grads = [q.grad for q in cpu.model.parameters()]
+                u_cpu = rules["cpu"].updates(mirrors["cpu"], grads)
+                u_card = rules["cuda"].updates(mirrors["cuda"],
+                                               [g.cuda() for g in grads])
+                same = max(same, max(
+                    float((b.cpu() - a).abs().max())
+                    / (float(a.abs().max()) or 1.0)
+                    for a, b in zip(u_cpu, u_card)))
+            d_cpu, d_card = (_changes(t, weights) for t in (cpu, card))
+            num = sum(float(((d_card[n] - d) ** 2).sum())
+                      for n, d in d_cpu.items())
+            den = sum(float((d ** 2).sum()) for d in d_cpu.values())
+            results[name] = {"same_grad_max": same,
+                             "full_step_rel_l2": (num / den) ** 0.5,
+                             "rule": card.optimizer_name}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    x16, y16 = finalize_batch(
+        torch.from_numpy(_phantom(rng, 16, H, W)),
+        torch.from_numpy(np.repeat(msks[:1], 16, 0)), cfg)
+    x16, y16 = x16.cuda(), y16.cuda()
+    for name, extra in OPT_CASES.items():
+        trainer = Trainer(dict(cfg, **({"OPTIMIZER": name} if not extra
+                                       else extra)), device="cuda")
+        results[name]["bf16_step_ms_batch16"] = _warm_step_ms(
+            lambda: trainer.state.train_step(x16, y16))
+    adam_ms = results["adam"]["bf16_step_ms_batch16"]
+    for r in results.values():
+        r["step_vs_adam"] = r["bf16_step_ms_batch16"] / adam_ms
+    log("optimizers", same_grad_atol=OPT_SAME_GRAD_ATOL,
+        full_step_rtol=OPT_FULL_STEP_RTOL, **results)
+    for name, r in results.items():
+        check(r["same_grad_max"] <= OPT_SAME_GRAD_ATOL,
+              f"optimizers {name}: the card's update from the CPU's weights "
+              f"and gradients lies {r['same_grad_max']} x max |update| "
+              "from the CPU's")
+        check(r["full_step_rel_l2"] <= OPT_FULL_STEP_RTOL,
+              f"optimizers {name}: 3 steps on the card lie "
+              f"{r['full_step_rel_l2']} (relative L2) from the CPU's")
+
+
+def phase_trainer_features(cfg):
+    """resume, resume-exact, ema and cache-dtype on one phantom cohort at
+    the flagship's widths. Returns the kernels' launches by path."""
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as work:
+        data_root = os.path.join(work, "data")
+        _make_dataset(data_root)
+        by_path.update(phase_resume(cfg, data_root, work))
+        by_path.update(phase_resume_exact(cfg, data_root, work))
+        x_tr, y_tr, _, _ = get_trainings_files(
+            os.path.join(data_root, "2D"), 0,
+            os.path.join(data_root, "df_kfold.csv"))
+        gen = DataGenerator(x_tr, y_tr, config=cfg)
+        by_path.update(phase_ema(cfg, data_root, work, gen))
+        phase_cache_dtype(cfg, gen)
+    check(not _loaded_foreign(), f"trainer: loaded {_loaded_foreign()}")
+    return by_path
+
+
 def _ms(us):
     return None if us is None else us / 1e3
 
@@ -1253,6 +1878,8 @@ def main():
     phase_forward(dict(cfg, USE_UPSAMPLE=False), phase="forward-transpose",
                   bf16_max=BF16_T_MAX_ATOL, bf16_mean=BF16_T_MEAN_ATOL)
     by_path.update(phase_variants(flagship_timing))
+    by_path.update(phase_trainer_features(cfg))
+    phase_optimizers(cfg)
 
     h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
     stacked = k2["landmark-like"]

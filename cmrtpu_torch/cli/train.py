@@ -1,14 +1,16 @@
 """CLI: train a RVIP detection model on a CUDA device.
 
 ``python -m cmrtpu_torch.cli.train -cfg <config.json> -data <root>
-[-inmemory true] [--device cuda]``
+[-inmemory true] [-resume <run_dir>] [--device cuda]``
 
 Counterpart of ``cmrtpu/cli/train.py`` (flag parity with
 ``python src/models/train_model.py -cfg <json> -data <root>``). ``-data``
 holds ``2D/`` and ``df_kfold.csv``; every fold of FOLDS trains in turn into
 ``EXPERIMENTS_ROOT/EXPERIMENT/<timestamp>/f<k>/``. The device defaults to
 cuda and a missing card raises unless ``--device cpu`` is given.
-``-resume`` is not ported yet (ROADMAP 3.6).
+``-resume <run_dir>`` re-enters an existing timestamped run: each fold
+restores its full train state and continues its epoch count, and a
+completed fold is skipped.
 """
 
 import argparse
@@ -27,7 +29,10 @@ def main(argv=None):
                         help="cache the deterministic preprocessing in RAM "
                              "(the only path ported; false raises)")
     parser.add_argument("-resume", action="store", default=None,
-                        help="resume a crashed run (not ported yet)")
+                        help="path to an existing timestamped run "
+                             "(exp/<EXP>/<ts>) to resume after a crash: "
+                             "each fold restores its full train state and "
+                             "continues its epoch count")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu only when "
                              "asked for)")
@@ -37,17 +42,17 @@ def main(argv=None):
         parser.error("no config given (-cfg)")
     if args.data is None:
         parser.error("no data given (-data)")
-    if args.resume:
-        parser.error("-resume: full-state resume is not ported to "
-                     "cmrtpu_torch yet (ROADMAP 3.6)")
     in_memory = args.inmemory is None or \
         args.inmemory.strip().lower() not in ("0", "false", "no", "off")
 
     with open(args.cfg, encoding="utf-8") as fh:
         config = json.load(fh)
+    if args.resume:
+        config["RESUME"] = True
 
     from cmrtpu_torch.train.fold import run_experiment
-    return run_experiment(config, data_path=args.data, in_memory=in_memory,
+    return run_experiment(config, data_path=args.data,
+                          exp_path=args.resume, in_memory=in_memory,
                           device=args.device)
 
 

@@ -232,20 +232,20 @@ def main(argv=None):
                         help="start no further fold once the run so far "
                              "plus its slowest fold would pass this many "
                              "seconds (fold 0 always runs)")
-    # cmrtpu's arms that the port does not run yet
     parser.add_argument("--cache-dtype", default="float32",
-                        help="only float32 is ported (ROADMAP 3.5)")
+                        help="device-cache storage dtype: float32 | bfloat16 "
+                             "| uint8 (per-example affine quantization)")
+    parser.add_argument("--agc", type=float, default=None,
+                        help="adaptive gradient clipping factor (AGC, e.g. "
+                             "0.08)")
+    # cmrtpu's arms that the port does not run
     parser.add_argument("--cache-sharded", action="store_true",
                         help="not ported (ROADMAP 6.2)")
     parser.add_argument("--ws", action="store_true",
                         help="not ported (ROADMAP skip list)")
-    parser.add_argument("--agc", type=float, default=None,
-                        help="not ported (ROADMAP 3.9)")
     args = parser.parse_args(argv)
 
-    unported = {"--cache-dtype": args.cache_dtype.lower() != "float32",
-                "--cache-sharded": args.cache_sharded, "--ws": args.ws,
-                "--agc": args.agc is not None}
+    unported = {"--cache-sharded": args.cache_sharded, "--ws": args.ws}
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(
@@ -294,6 +294,7 @@ def main(argv=None):
         "BATCH_NORMALISATION": True,
         "GROUP_NORM": 0 if args.bn else args.group_norm,
         "HEAD_BIAS_PRIOR": args.head_prior,
+        "CACHE_DTYPE": args.cache_dtype, "AGC": args.agc,
     }
     config.update(C.parse_override_pairs(args.set))
     if args.multihead:

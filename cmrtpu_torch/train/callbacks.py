@@ -1,17 +1,24 @@
 """Training callbacks — counterpart of ``cmrtpu/train/callbacks.py``
 (equivalents of src/utils/KerasCallbacks.py), against the same trainer
 protocol (``trainer.get_lr/set_lr``, ``trainer.stop_training``,
-``trainer.model``):
+``trainer.train_state()``, ``trainer.serving_params``,
+``trainer.switch_optimizer``):
 
-  * ModelCheckpoint     best-only weights-only model.npz  (ref: :54-61)
+  * ModelCheckpoint     best-only model.npz (the serving weights) and the
+                        full train state, written in the background (ref:
+                        :54-61)
   * ReduceLROnPlateau   factor/patience/cooldown/min_lr   (ref: :63-70)
   * EarlyStopping       patience on monitor               (ref: :105-111)
+  * OptimizerChanger    early-stop -> switch to SGD, keep training (ref: :245-306)
+  * PolynomialDecaySchedule, StepDecaySchedule, SGDRScheduler (ref: :80-87,
+                        :154-164, :230-243, :308-384)
   * TensorBoardLogger   scalars incl. learning rate       (ref LRTensorBoard :167-174)
   * HistoryCSV          epoch metrics to history.csv
+  * WeightsSaver        weights every n epochs            (ref: :804-840)
+  * TimeBudget          stop after a wall-clock budget
 
-Checkpoints are written synchronously. Not ported yet (ROADMAP 3.6): the
-learning-progress ImageWriter (it needs matplotlib), the LR schedules,
-OptimizerChanger, WeightsSaver, TimeBudget and full-state checkpoints.
+Not ported: the learning-progress ImageWriter, which needs matplotlib
+(ROADMAP 3.11); asking for it warns.
 """
 
 from __future__ import annotations
@@ -20,10 +27,12 @@ import csv
 import logging
 import math
 import os
+import time
 from typing import Dict, List, Optional
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.train import checkpoint as ckpt
+from cmrtpu_torch.train.optimizers import polynomial_decay, sgdr_schedule
 from cmrtpu_torch.utils.io_utils import ensure_dir
 
 
@@ -48,23 +57,44 @@ def _improved(current: float, best: float, mode: str) -> bool:
 
 
 class ModelCheckpoint(Callback):
-    """Best-only weights-only checkpoint: ``model_path/model.npz`` in the
-    cmrtpu layout, so cmrtpu and the port's Predictor both load it. If no
-    epoch ever improved the monitor, the final weights are saved at train
+    """Best-only checkpoint: ``model_path/model.npz`` in the cmrtpu layout
+    holding the serving weights (the EMA shadow when EMA is on), so cmrtpu
+    and the port's Predictor both load it, and with ``save_full_state`` the
+    whole train state in ``model_path/state.pt`` for a resume. With
+    ``async_write`` the callback copies the state on the card and a
+    background writer moves it to the host and writes it, overlapping the
+    next epochs; ``on_train_end`` flushes before anyone reads the files. If
+    no epoch ever improved the monitor, the final state is saved at train
     end so downstream consumers have weights to load."""
 
     def __init__(self, model_path: str, monitor: str = "loss",
-                 mode: str = "min"):
+                 mode: str = "min", save_full_state: bool = True,
+                 async_write: bool = True):
         self.model_path = model_path
         self.monitor = monitor
         self.mode = mode
         self.best = math.inf if mode == "min" else -math.inf
+        self.save_full_state = save_full_state
+        self._writer = ckpt.AsyncCheckpointWriter() if async_write else None
         self._saved = False
         self._warned_missing = False
 
+    def _write(self, state):
+        ckpt.save_weights(self.model_path, serving_weights(state))
+        if self.save_full_state:
+            ckpt.save_train_state(self.model_path, state)
+
     def _save(self, trainer):
         self._saved = True
-        ckpt.save_weights(self.model_path, trainer.model)
+        if self.save_full_state:
+            state = trainer.train_state()
+        else:
+            # weights only: the optimizer's moments would never be read
+            state = {"model": trainer.serving_params, "ema": None}
+        if self._writer is not None:
+            self._writer.submit(self._write, ckpt.device_snapshot(state))
+        else:
+            self._write(state)
 
     def on_epoch_end(self, trainer, epoch, logs):
         current = logs.get(self.monitor)
@@ -88,6 +118,14 @@ class ModelCheckpoint(Callback):
                 "ModelCheckpoint: no epoch ever improved monitor '%s'; "
                 "saving the final training state as a fallback", self.monitor)
             self._save(trainer)
+        if self._writer is not None:
+            self._writer.flush()
+
+
+def serving_weights(state: Dict) -> Dict:
+    """The state_dict that model.npz holds from a train state: the model's
+    with the EMA shadow in place of the parameters when EMA is on."""
+    return {**state["model"], **(state.get("ema") or {})}
 
 
 class ReduceLROnPlateau(Callback):
@@ -153,6 +191,68 @@ class EarlyStopping(Callback):
                 trainer.stop_training = True
 
 
+class OptimizerChanger(EarlyStopping):
+    """When the optimizer stops improving, switch to SGD and continue
+    (ref: KerasCallbacks.py:245-306, idea arXiv:1712.07628)."""
+
+    def __init__(self, monitor: str = "loss", patience: int = 15,
+                 mode: str = "min"):
+        super().__init__(monitor=monitor, patience=patience, mode=mode)
+        self.changed = False
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        if self.changed:
+            return
+        super().on_epoch_end(trainer, epoch, logs)
+        if trainer.stop_training:
+            trainer.stop_training = False
+            self.changed = True
+            logging.info("Epoch %d: switching optimizer to SGD for "
+                         "fine-tuning", epoch + 1)
+            trainer.switch_optimizer("sgd")
+
+
+class PolynomialDecaySchedule(Callback):
+    """lr = init * (1 - epoch/max)^power (ref: :80-87, :230-243)."""
+
+    def __init__(self, max_epochs: int, init_alpha: float,
+                 power: float = 2.0):
+        self.max_epochs, self.init_alpha, self.power = \
+            max_epochs, init_alpha, power
+
+    def on_epoch_begin(self, trainer, epoch):
+        trainer.set_lr(polynomial_decay(epoch, self.max_epochs,
+                                        self.init_alpha, self.power))
+
+
+class StepDecaySchedule(Callback):
+    """lr = init * factor^floor((1+epoch)/drop_every)
+    (ref: StepDecay, KerasCallbacks.py:154-164)."""
+
+    def __init__(self, init_alpha: float = 0.01, factor: float = 0.25,
+                 drop_every: int = 10):
+        self.init_alpha, self.factor, self.drop_every = \
+            init_alpha, factor, drop_every
+
+    def on_epoch_begin(self, trainer, epoch):
+        exponent = math.floor((1 + epoch) / self.drop_every)
+        trainer.set_lr(float(self.init_alpha * (self.factor ** exponent)))
+
+
+class SGDRScheduler(Callback):
+    """Cosine annealing with warm restarts, stepped per epoch
+    (ref: :308-384)."""
+
+    def __init__(self, lr_min: float, lr_max: float, cycle_length: int = 10,
+                 mult_factor: float = 2.0):
+        self.lr_min, self.lr_max = lr_min, lr_max
+        self.cycle_length, self.mult_factor = cycle_length, mult_factor
+
+    def on_epoch_begin(self, trainer, epoch):
+        trainer.set_lr(sgdr_schedule(epoch, self.lr_min, self.lr_max,
+                                     self.cycle_length, self.mult_factor))
+
+
 class TensorBoardLogger(Callback):
     """Scalars + learning rate into tfevents (ref LRTensorBoard :167-174)."""
 
@@ -179,56 +279,148 @@ class TensorBoardLogger(Callback):
 
 class HistoryCSV(Callback):
     """One row per epoch: ``epoch`` then the sorted log keys and ``lr``,
-    each value printed with 6 significant digits (cmrtpu's format)."""
+    each value printed with 6 significant digits (cmrtpu's format). With
+    ``append`` an existing file keeps its rows and its header's columns (a
+    resumed fold, whose file ``train_fold`` truncated first)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, append: bool = False):
         self.path = path
         self.keys: Optional[List[str]] = None
+        self.append = append
 
     def on_epoch_end(self, trainer, epoch, logs):
         ensure_dir(os.path.dirname(os.path.abspath(self.path)))
         row = dict(logs, lr=trainer.get_lr())
         if self.keys is None:
-            self.keys = ["epoch"] + sorted(row)
-            with open(self.path, "w", newline="") as fh:
-                csv.writer(fh, lineterminator="\n").writerow(self.keys)
+            if self.append and os.path.isfile(self.path):
+                with open(self.path, newline="") as fh:
+                    self.keys = next(csv.reader(fh))
+            else:
+                self.keys = ["epoch"] + sorted(row)
+                with open(self.path, "w", newline="") as fh:
+                    csv.writer(fh, lineterminator="\n").writerow(self.keys)
         with open(self.path, "a", newline="") as fh:
             csv.writer(fh, lineterminator="\n").writerow(
                 [str(epoch)] + [f"{row.get(k, float('nan')):.6g}"
                                 for k in self.keys[1:]])
 
 
-def get_callbacks(config: Dict) -> List[Callback]:
+class WeightsSaver(Callback):
+    """The serving weights every n epochs (ref: WeightsSaver,
+    src/utils/KerasCallbacks.py:804-840), in the background by default;
+    per-epoch paths each get their own write (latest-wins collapses only
+    writes to one path)."""
+
+    def __init__(self, model_path: str, every_n_epochs: int = 5,
+                 keep_per_epoch: bool = False, async_write: bool = True):
+        self.model_path = model_path
+        self.every_n_epochs = max(1, every_n_epochs)
+        self.keep_per_epoch = keep_per_epoch
+        self._writer = ckpt.AsyncCheckpointWriter() if async_write else None
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        if (epoch + 1) % self.every_n_epochs:
+            return
+        path = (os.path.join(self.model_path, f"epoch_{epoch:04d}")
+                if self.keep_per_epoch else self.model_path)
+        if self._writer is not None:
+            if self.keep_per_epoch:
+                self._writer.flush()  # don't drop distinct per-epoch dumps
+            self._writer.submit(ckpt.save_weights, path,
+                                ckpt.device_snapshot(trainer.serving_params))
+        else:
+            ckpt.save_weights(path, trainer.serving_params)
+        logging.info("Epoch %d: weights saved to %s", epoch + 1, path)
+
+    def on_train_end(self, trainer):
+        if self._writer is not None:
+            self._writer.flush()
+
+
+class TimeBudget(Callback):
+    """Stop training once the wall clock since on_train_begin reaches
+    ``budget_s`` seconds (the set-up of the first epoch counts)."""
+
+    def __init__(self, budget_s: float):
+        self.budget_s = float(budget_s)
+        self._t0 = None
+
+    def on_train_begin(self, trainer):
+        self._t0 = time.time()
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        elapsed = time.time() - self._t0
+        if elapsed >= self.budget_s:
+            logging.info("TimeBudget: %.1fs >= %.1fs after epoch %d — "
+                         "stopping", elapsed, self.budget_s, epoch + 1)
+            trainer.stop_training = True
+
+
+def get_callbacks(config: Dict,
+                  use_optimizer_changer: bool = False) -> List[Callback]:
     """The reference callback set from config (ref: get_callbacks,
     src/utils/KerasCallbacks.py:20-115), in cmrtpu's order."""
-    if C.get(config, "POLY_LR_DECAY", False):
-        raise NotImplementedError(
-            "the polynomial LR schedule (POLY_LR_DECAY) is not ported to "
-            "cmrtpu_torch yet (ROADMAP 3.6)")
     model_path = C.get(config, "MODEL_PATH", "temp/models")
     tb_path = C.get(config, "TENSORBOARD_PATH", "temp/tf_log")
+    monitor = C.get(config, "MONITOR_FUNCTION", "loss")
+    mode = C.get(config, "MONITOR_MODE", "min")
     cbs: List[Callback] = [
         ModelCheckpoint(model_path,
                         monitor=C.get(config, "SAVE_MODEL_FUNCTION", "loss"),
                         mode=C.get(config, "SAVE_MODEL_MODE", "min")),
         ReduceLROnPlateau(
-            monitor=C.get(config, "MONITOR_FUNCTION", "loss"),
-            factor=C.get(config, "DECAY_FACTOR", 0.5),
+            monitor=monitor, factor=C.get(config, "DECAY_FACTOR", 0.5),
             patience=C.get(config, "REDUCE_LR_ON_PLATEAU_PATIENCE", 5),
-            cooldown=2,
-            mode=C.get(config, "MONITOR_MODE", "min"),
-            min_lr=C.get(config, "MIN_LR", 1e-12)),
+            cooldown=2, mode=mode, min_lr=C.get(config, "MIN_LR", 1e-12)),
         TensorBoardLogger(tb_path),
         HistoryCSV(os.path.join(C.get(config, "EXP_PATH", "tmp"),
                                 "history.csv")),
-        EarlyStopping(monitor=C.get(config, "MONITOR_FUNCTION", "loss"),
-                      patience=C.get(config, "EARLY_STOPPING_PATIENCE", 25),
-                      mode=C.get(config, "MONITOR_MODE", "min")),
     ]
+    if C.get(config, "POLY_LR_DECAY", False):
+        cbs.append(PolynomialDecaySchedule(
+            C.get(config, "EPOCHS", 100), C.get(config, "LEARNING_RATE",
+                                                1e-4)))
+    if use_optimizer_changer:
+        cbs.append(OptimizerChanger(monitor=monitor, patience=15, mode=mode))
+    else:
+        cbs.append(EarlyStopping(
+            monitor=monitor,
+            patience=C.get(config, "EARLY_STOPPING_PATIENCE", 25), mode=mode))
     if (C.get(config, "SAVE_LEARNING_PROGRESS_AS_PNG", False)
             or C.get(config, "SAVE_LEARNING_PROGRESS_AS_TF", False)):
         logging.warning(
             "SAVE_LEARNING_PROGRESS_AS_PNG/_AS_TF: the learning-progress "
-            "ImageWriter is not ported to cmrtpu_torch yet (ROADMAP 3.6); "
-            "no progress images are written")
+            "ImageWriter is not ported to cmrtpu_torch (it needs matplotlib, "
+            "ROADMAP 3.11); no progress images are written")
     return cbs
+
+
+def seed_best_from_history(cb: ModelCheckpoint, history) -> None:
+    """Seed a fresh ModelCheckpoint's ``best`` from prior epoch rows (dicts
+    of monitor -> value), so the first epoch of a continued fit cannot
+    "improve" on ±inf and overwrite a better earlier checkpoint. NaN epochs
+    are skipped: min()/max() would propagate a NaN, and every later
+    comparison with it is False, which would switch checkpointing off."""
+    vals = [float(r[cb.monitor]) for r in history if cb.monitor in r]
+    vals = [v for v in vals if not math.isnan(v)]
+    if vals:
+        cb.best = min(vals) if cb.mode == "min" else max(vals)
+
+
+def finetune_with_sgd(trainer, train_data, val_data=None,
+                      initial_epoch: int = 0, epochs: Optional[int] = None):
+    """Fine-tune a trained model with plain SGD: switch the optimizer (fresh
+    state) and continue fitting from ``initial_epoch`` with the standard
+    callback set (ref: finetune_with_SGD, src/utils/KerasCallbacks.py:
+    280-306). The new ModelCheckpoint starts from the best of
+    ``trainer.history``, and an existing model.npz is not replaced by the
+    never-improved fallback."""
+    trainer.switch_optimizer("sgd")
+    cbs = get_callbacks(trainer.config)
+    for cb in cbs:
+        if isinstance(cb, ModelCheckpoint):
+            seed_best_from_history(cb, trainer.history)
+            if os.path.exists(os.path.join(cb.model_path, ckpt.WEIGHTS_NAME)):
+                cb._saved = True
+    return trainer.fit(train_data, val_data, epochs=epochs,
+                       initial_epoch=initial_epoch, callbacks=cbs)

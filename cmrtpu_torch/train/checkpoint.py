@@ -21,13 +21,25 @@ False) and torch's transposed convolution, the gradient of a convolution,
 does; the flip in the bridge makes the two compute the same function.
 
 A model trained by either package serves from the other.
+
+The full train state for a resume (cmrtpu keeps it with Orbax under
+``MODEL_PATH/state``) is one ``torch.save`` file, ``MODEL_PATH/state.pt``:
+the model's state_dict, the optimizer's rule name and state_dict (its
+moments, step count and learning rate), the step, the learning rate, the
+EMA shadow and the states of the trainer's dropout generator and the
+loop's augmentation and matcher generator. ``AsyncCheckpointWriter``
+writes in the background, latest-wins per path; ``device_snapshot`` copies
+a state on the card first, since the next optimizer step updates the
+parameters and moments in place.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import tempfile
-from typing import Dict, Tuple
+import threading
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +48,7 @@ from torch import nn
 from cmrtpu_torch.utils.io_utils import ensure_dir
 
 WEIGHTS_NAME = "model.npz"
+STATE_NAME = "state.pt"
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
@@ -110,19 +123,17 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
     return _unflatten(params), _unflatten(stats)
 
 
-def save_weights(model_path: str, model: nn.Module) -> str:
-    """Write ``model_path/model.npz`` in the cmrtpu layout, atomically
-    (unique temp file, then rename)."""
-    ensure_dir(model_path)
-    params, stats = state_dict_to_flax(model.state_dict())
-    blobs = {f"params/{'/'.join(k)}": v for k, v in _flatten(params).items()}
-    blobs.update({f"batch_stats/{'/'.join(k)}": v
-                  for k, v in _flatten(stats).items()})
-    path = os.path.join(model_path, WEIGHTS_NAME)
-    fd, tmp = tempfile.mkstemp(prefix=".tmp.", suffix=".npz", dir=model_path)
+def _atomic_write(path: str, write) -> str:
+    """``write(file)`` into a unique temp file beside ``path``, then rename,
+    so a crash mid-write never leaves a truncated file and two writers of
+    one path never truncate each other's temp file."""
+    directory = os.path.dirname(path)
+    ensure_dir(directory)
+    fd, tmp = tempfile.mkstemp(prefix=".tmp.", suffix=os.path.splitext(
+        path)[1], dir=directory)
     try:
         with os.fdopen(fd, "wb") as fh:
-            np.savez(fh, **blobs)
+            write(fh)
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -131,6 +142,117 @@ def save_weights(model_path: str, model: nn.Module) -> str:
             pass
         raise
     return path
+
+
+def save_weights(model_path: str,
+                 weights: Union[nn.Module, Mapping[str, torch.Tensor]]) -> str:
+    """Write ``model_path/model.npz`` in the cmrtpu layout from a model or
+    a state_dict (the serving weights: the EMA shadow with EMA on)."""
+    state = weights.state_dict() if isinstance(weights, nn.Module) \
+        else weights
+    params, stats = state_dict_to_flax(state)
+    blobs = {f"params/{'/'.join(k)}": v for k, v in _flatten(params).items()}
+    blobs.update({f"batch_stats/{'/'.join(k)}": v
+                  for k, v in _flatten(stats).items()})
+    return _atomic_write(os.path.join(model_path, WEIGHTS_NAME),
+                         lambda fh: np.savez(fh, **blobs))
+
+
+def save_train_state(ckpt_dir: str, state: Dict) -> str:
+    """Write a full train state (``Trainer.train_state``, or a snapshot of
+    it) to ``ckpt_dir/state.pt``; tensors go to the host first, so the file
+    loads on any device."""
+    def to_host(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu()
+        if isinstance(tree, dict):
+            return {k: to_host(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to_host(v) for v in tree)
+        return tree
+
+    host = to_host(state)
+    return _atomic_write(os.path.join(ckpt_dir, STATE_NAME),
+                         lambda fh: torch.save(host, fh))
+
+
+def restore_train_state(ckpt_dir: str) -> Dict:
+    """The full train state written by ``save_train_state`` (tensors on
+    the host). FileNotFoundError when there is none."""
+    path = os.path.join(ckpt_dir, STATE_NAME)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def device_snapshot(tree):
+    """A copy of every tensor of ``tree`` on its own device. The optimizer
+    step updates parameters and moments in place, so a state handed to a
+    background write must be copied before the loop steps again."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: device_snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(device_snapshot(v) for v in tree)
+    return tree
+
+
+class AsyncCheckpointWriter:
+    """Latest-wins background checkpoint writer (cmrtpu's
+    ``AsyncCheckpointWriter``): the callback snapshots the state on the
+    card and returns; the transfer to the host and the file IO overlap the
+    next epochs. Only the newest pending write is kept. ``flush`` blocks
+    until the last submitted write is on disk and re-raises the last write
+    failure, so a fold whose checkpoint is missing or stale fails."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._pending = None
+        self._busy = False
+        self._thread = None
+        self._error = None
+
+    def submit(self, fn, *args) -> None:
+        with self._lock:
+            self._pending = (fn, args)
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._run, daemon=True)
+                self._thread.start()
+            self._wake.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._lock:
+                while self._pending is None:
+                    self._wake.wait()
+                fn, args = self._pending
+                self._pending = None
+                self._busy = True
+            try:
+                fn(*args)
+                with self._lock:
+                    self._error = None  # a later good write supersedes
+            except Exception as e:
+                logging.exception("async checkpoint write failed")
+                with self._lock:
+                    self._error = e
+            finally:
+                # drop the snapshot before parking: an idle writer must not
+                # hold a dead trainer's tensors on the card
+                fn = args = None
+                with self._lock:
+                    self._busy = False
+                    self._wake.notify_all()
+
+    def flush(self) -> None:
+        with self._lock:
+            while self._pending is not None or self._busy:
+                self._wake.wait(timeout=0.1)
+            if self._error is not None:
+                error, self._error = self._error, None
+                raise RuntimeError(
+                    "async checkpoint write failed; the checkpoint on disk "
+                    "is missing or stale") from error
 
 
 def load_weights(model_path: str) -> Tuple[Dict, Dict]:

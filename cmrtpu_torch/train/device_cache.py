@@ -8,18 +8,24 @@ step gathers, augments, builds its targets and trains there — counterpart of
         -> backward -> Adam
 
 Epoch shuffling stays on the host with ``np.random.default_rng(SEED)``, as
-in cmrtpu, so both packages visit the examples in the same order. The
-matcher's and the augmentation's draws come from the loop's explicit
-generator on the card. Only the epoch's mean logs leave the card, in one
-transfer. Not ported: the sharded and per-host caches and the
-explicit-collectives step (ROADMAP 6.1, 6.2), and cache dtypes other than
-float32 (ROADMAP 3.5), which raise.
+in cmrtpu, so both packages visit the examples in the same order (a new
+loop, a resumed one too, starts that rng again at SEED, as cmrtpu's does).
+The matcher's and the augmentation's draws come from the trainer's loop
+generator on the card, whose state a full-state checkpoint keeps. Only the
+epoch's mean logs leave the card, in one transfer.
+
+``CACHE_DTYPE`` sets the images' storage: float32, bfloat16 (half the
+bytes) or uint8 (a quarter, per-example affine quantization); masks of
+small non-negative integers are stored as uint8. Every gather casts to
+float32 right after the ``index_select``, the matcher's reference rows
+too. Not ported: the sharded and per-host caches and the
+explicit-collectives step (ROADMAP 6.1, 6.2), which raise.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,19 +47,93 @@ def _uint8_packable(y: np.ndarray) -> bool:
     return bool(np.array_equal(y.astype(np.uint8).astype(y.dtype), y))
 
 
+def _cache_dtype(config: Dict) -> str:
+    name = str(C.get(config or {}, "CACHE_DTYPE", "float32")).lower()
+    return {"f32": "float32", "bf16": "bfloat16", "u8": "uint8"}.get(name,
+                                                                    name)
+
+
+def quantize_images_uint8(imgs: np.ndarray) -> np.ndarray:
+    """Per-example affine quantization of float images to uint8:
+    round((x - min) / (max - min) * 255), chunked over examples into a
+    preallocated output (cmrtpu's ``quantize_images_uint8``). Every scaler
+    of ``finalize_batch`` is invariant under a per-example affine map, so
+    the training math changes only by the quantization noise."""
+    flat = imgs.reshape(imgs.shape[0], -1)
+    out = np.empty(flat.shape, np.uint8)
+    rows = max(1, (1 << 24) // max(flat.shape[1], 1))
+    tiny = np.finfo(np.float32).tiny
+    for start in range(0, flat.shape[0], rows):
+        c = flat[start:start + rows].astype(np.float32, copy=False)
+        lo = c.min(axis=1, keepdims=True)
+        span = np.maximum(c.max(axis=1, keepdims=True) - lo, tiny)
+        out[start:start + rows] = np.rint((c - lo) / span * 255.0)
+    return out.reshape(imgs.shape)
+
+
+def _warn_if_uint8_unsafe(config: Optional[Dict], knob: str) -> None:
+    """The two settings under which a uint8 image cache is not transparent
+    (cmrtpu's ``_warn_if_uint8_unsafe``)."""
+    cfg = config or {}
+    mode = C.get(cfg, "BORDER_MODE", 4)
+    mode = 4 if mode is None else int(mode)  # NOT `or 4`: 0 is the case
+    if mode == 0 and float(C.get(cfg, "BORDER_VALUE", 0) or 0) != 0.0:
+        logging.warning(
+            "%s='uint8' with a constant non-zero augmentation border "
+            "(BORDER_MODE=0, BORDER_VALUE=%s): the border constant is not "
+            "rescaled with the per-example quantization, so padded regions "
+            "shift intensity — use BORDER_VALUE=0 or a reflect border",
+            knob, C.get(cfg, "BORDER_VALUE"))
+    if (bool(C.get(cfg, "HIST_MATCHING", False))
+            and str(C.get(cfg, "SCALER", "MinMax")).lower() == "standard"):
+        logging.warning(
+            "%s='uint8' with HIST_MATCHING and SCALER='Standard': pad zeros "
+            "are not the per-example minimum under Standard scaling, so "
+            "quantization maps them to a mid-range bucket and the matcher's "
+            "zero-exclusion stops masking the padded borders — the match "
+            "histograms include border pixels (MinMax is unaffected)", knob)
+
+
+def _packed_nbytes(config: Optional[Dict], x: np.ndarray,
+                   y: np.ndarray) -> int:
+    """The cache's bytes on the card after ``pack_arrays``."""
+    x_bytes = {"bfloat16": 2 * x.size, "uint8": x.size}.get(
+        _cache_dtype(config), int(x.nbytes))
+    y_bytes = y.size if _uint8_packable(y) else int(y.nbytes)
+    return x_bytes + y_bytes
+
+
 def fits_device_cache(config: Dict, x: np.ndarray, y: np.ndarray) -> bool:
-    """DEVICE_CACHE_LIMIT_GB guard on the cache's bytes on the card."""
+    """DEVICE_CACHE_LIMIT_GB guard on the cache's packed bytes."""
     limit_gb = float(C.get(config, "DEVICE_CACHE_LIMIT_GB", 8.0) or 8.0)
-    y_bytes = y.size if _uint8_packable(y) else y.nbytes
-    return x.nbytes + y_bytes <= limit_gb * (1 << 30)
+    return _packed_nbytes(config, x, y) <= limit_gb * (1 << 30)
 
 
-def upload_cache(x: np.ndarray, y: np.ndarray, device: torch.device):
-    """The padded deterministic cache on ``device``: images float32, labels
-    uint8 when that is lossless (cast back to float32 after each gather)."""
+def pack_arrays(x: np.ndarray, y: np.ndarray, config: Optional[Dict]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host cache in its storage dtypes (cmrtpu's ``_pack_arrays``):
+    images float32, bfloat16 (round to nearest even, as ml_dtypes casts)
+    or per-example uint8; masks uint8 when that is lossless."""
+    x = np.ascontiguousarray(x)
+    dtype = _cache_dtype(config)
+    if dtype == "bfloat16":
+        xt = torch.from_numpy(x.astype(np.float32, copy=False)).to(
+            torch.bfloat16)
+    elif dtype == "uint8":
+        _warn_if_uint8_unsafe(config, "CACHE_DTYPE")
+        xt = torch.from_numpy(quantize_images_uint8(x))
+    else:  # float32, and any other name, as in cmrtpu
+        xt = torch.from_numpy(x)
     y = y.astype(np.uint8) if _uint8_packable(y) else y
-    return (torch.from_numpy(np.ascontiguousarray(x)).to(device),
-            torch.from_numpy(np.ascontiguousarray(y)).to(device))
+    return xt, torch.from_numpy(np.ascontiguousarray(y))
+
+
+def upload_cache(x: np.ndarray, y: np.ndarray, device: torch.device,
+                 config: Optional[Dict] = None):
+    """The padded deterministic cache on ``device`` in its storage dtypes
+    (cast back to float32 after each gather)."""
+    xt, yt = pack_arrays(x, y, config)
+    return xt.to(device), yt.to(device)
 
 
 def _check_config(cfg: Dict) -> None:
@@ -66,11 +146,6 @@ def _check_config(cfg: Dict) -> None:
             raise NotImplementedError(
                 f"{what} ({key}) is not ported to cmrtpu_torch yet (ROADMAP "
                 f"{item}); the port trains on one card")
-    cache_dtype = str(C.get(cfg, "CACHE_DTYPE", "float32")).lower()
-    if cache_dtype not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"CACHE_DTYPE={cache_dtype!r} is not ported to cmrtpu_torch yet "
-            "(ROADMAP 3.5); the port caches float32 images")
 
 
 class DeviceCachedLoop:
@@ -86,11 +161,10 @@ class DeviceCachedLoop:
         self.batch = int(C.get(cfg, "BATCHSIZE", 32) or 0)
         if self.batch <= 0:
             raise ValueError(f"BATCHSIZE must be positive, got {self.batch}")
-        seed = int(C.get(cfg, "SEED", 42))
-        self.rng = np.random.default_rng(seed)
+        self.rng = np.random.default_rng(int(C.get(cfg, "SEED", 42)))
         # matcher and augmentation draws, on the card; dropout has the
-        # trainer's own
-        self.aug_generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # trainer's other generator
+        self.aug_generator = trainer.loop_generator
         self.shuffle = bool(C.get(cfg, "SHUFFLE", True))
         if train_gen._cache_x is None:
             raise ValueError("device-cached training needs examples: the "
@@ -104,7 +178,7 @@ class DeviceCachedLoop:
                     "cmrtpu_torch yet (ROADMAP 6.3)")
 
         self.x_train, self.y_train = upload_cache(
-            train_gen._cache_x, train_gen._cache_y, self.device)
+            train_gen._cache_x, train_gen._cache_y, self.device, cfg)
         self.n_train = int(train_gen._cache_x.shape[0])
         self._augment = bool(C.get(cfg, "AUGMENT", False))
         self._masks = bool(train_gen.masks)
@@ -115,7 +189,7 @@ class DeviceCachedLoop:
         self.val = None
         if val_gen is not None and val_gen._cache_x is not None:
             self.x_val, self.y_val = upload_cache(
-                val_gen._cache_x, val_gen._cache_y, self.device)
+                val_gen._cache_x, val_gen._cache_y, self.device, cfg)
             self.n_val = int(val_gen._cache_x.shape[0])
             self._val_masks = bool(val_gen.masks)
             self.val = True

@@ -10,22 +10,30 @@ cannot hide behind a fold that reports success.
 ``run_experiment``: the timestamped EXP_PATH, data paths, one fold after
 another over FOLDS.
 
-Not ported yet: ``RESUME`` (ROADMAP 3.6, it raises).
+``RESUME``: ``run_experiment`` re-enters the run (the given exp_path, the
+config's EXP_PATH when it lies under this experiment's root, else the
+latest run dir); ``train_fold`` skips a fold whose ``fold_complete.json``
+targets at least EPOCHS, and otherwise restores the fold's full train state
+(``Trainer.restore``) and continues at epoch ``step // floor(n / B)`` with
+``history.csv`` cut to the epochs before it.
 """
 
 from __future__ import annotations
 
+import csv
+import glob
 import json
 import logging
 import os
 from time import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.data.dataset import get_trainings_files
 from cmrtpu_torch.models.unet import model_summary
 from cmrtpu_torch.pipeline.generator import DataGenerator
 from cmrtpu_torch.predict.predictor import pred_fold
+from cmrtpu_torch.train import callbacks as CB
 from cmrtpu_torch.train.callbacks import get_callbacks
 from cmrtpu_torch.train.trainer import Trainer
 from cmrtpu_torch.utils.io_utils import console_and_file_logger
@@ -33,20 +41,96 @@ from cmrtpu_torch.utils.io_utils import console_and_file_logger
 _FOLD_COMPLETE = "fold_complete.json"
 
 
-def _no_resume(cfg: Dict) -> None:
-    if C.get(cfg, "RESUME", False):
-        raise NotImplementedError(
-            "RESUME (full-state resume of a crashed fold) is not ported to "
-            "cmrtpu_torch yet (ROADMAP 3.6)")
+def _truncate_history(path: str, epochs: int) -> List[Dict[str, float]]:
+    """Keep the header and the rows of epochs < ``epochs`` of a history.csv,
+    byte for byte (the port's 6-significant-digit rows are not reformatted),
+    and return those rows without ``epoch`` as floats."""
+    with open(path, newline="") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    header = next(csv.reader(lines[:1]))
+    kept, rows = lines[:1], []
+    for line in lines[1:]:
+        values = next(csv.reader([line]))
+        if int(values[0]) < epochs:
+            kept.append(line)
+            rows.append({k: float(v) for k, v in zip(header[1:],
+                                                     values[1:])})
+    with open(path, "w", newline="") as fh:
+        fh.writelines(kept)
+    return rows
+
+
+def _resume_fold(trainer: Trainer, cfg: Dict, n_train: int,
+                 callbacks) -> int:
+    """Crash recovery (cmrtpu's ``_resume_fold``): restore the fold's full
+    train state from MODEL_PATH (the best-only checkpoint ModelCheckpoint
+    wrote) and continue at epoch ``restored_step // floor(n / B)``, the
+    steps a device-cached epoch takes on one card. history.csv is cut to
+    the epochs before it and reloaded into ``trainer.history``;
+    ModelCheckpoint's best is seeded from those rows, so a worse epoch
+    after the resume never overwrites the checkpoint. The epochs between
+    the best checkpoint and the crash are trained again; the plateau and
+    early-stop counters start afresh (a reduced learning rate is part of
+    the restored state). No state on disk: warn and train from scratch."""
+    model_path = C.get(cfg, "MODEL_PATH")
+    try:
+        restored_step = trainer.restore(model_path)
+    except FileNotFoundError as e:
+        logging.warning("RESUME requested but no restorable train state "
+                        "under %s (%s); training from scratch", model_path, e)
+        return 0
+    batch = max(1, int(C.get(cfg, "BATCHSIZE", 32) or 1))
+    initial_epoch = restored_step // max(1, n_train // batch)
+    hist_path = os.path.join(cfg["EXP_PATH"], "history.csv")
+    rows = []
+    if os.path.isfile(hist_path) and initial_epoch > 0:
+        rows = _truncate_history(hist_path, initial_epoch)
+    trainer.history = rows
+    for cb in callbacks:
+        if isinstance(cb, CB.HistoryCSV):
+            cb.append = True
+        if isinstance(cb, CB.ModelCheckpoint):
+            # a checkpoint exists on disk: the never-improved fallback at
+            # train end must not overwrite it with a worse final state
+            cb._saved = True
+            CB.seed_best_from_history(cb, rows)
+    logging.info("RESUME: restored step %d from %s -> continuing at epoch %d",
+                 restored_step, model_path, initial_epoch)
+    return initial_epoch
+
+
+def _fold_complete_path(cfg: Dict) -> str:
+    return os.path.join(cfg.get("FOLD_PATH", cfg["EXP_PATH"]), _FOLD_COMPLETE)
+
+
+def _fold_already_complete(cfg: Dict) -> bool:
+    """True when the fold's completion marker exists and EPOCHS does not
+    ask for more than the completed run targeted: a resumed CV retrains
+    only the fold that crashed, and raising EPOCHS is the explicit
+    train-longer request that re-enters a finished fold."""
+    path = _fold_complete_path(cfg)
+    if not os.path.isfile(path):
+        return False
+    try:
+        with open(path) as fh:
+            target = int(json.load(fh).get("epochs_target", 0))
+    except (ValueError, OSError):
+        return True  # unreadable marker: the fold did finish — stay safe
+    return int(C.get(cfg, "EPOCHS", 100) or 100) <= target
 
 
 def train_fold(config: Dict, in_memory: bool = True,
-               device="cuda") -> Trainer:
-    """Train one fold on ``device`` and return its Trainer."""
+               device="cuda") -> Optional[Trainer]:
+    """Train one fold on ``device`` and return its Trainer, or None when
+    RESUME finds the fold complete and skips it."""
     t0 = time()
     fold = C.get(config, "FOLD", 0)
     cfg = C.set_experiment_paths(C.normalise_config(config), fold=fold)
-    _no_resume(cfg)
+    resume = bool(C.get(cfg, "RESUME", False))
+    if resume and _fold_already_complete(cfg):
+        logging.info("RESUME: fold %s already complete (%s) — skipping",
+                     fold, _fold_complete_path(cfg))
+        return None
 
     console_and_file_logger(path=cfg["EXP_PATH"], log_lvl=logging.INFO)
     cfg = C.init_config(cfg, save=True)
@@ -76,18 +160,60 @@ def train_fold(config: Dict, in_memory: bool = True,
     fold_cfg = dict(cfg)
     fold_cfg["EXP_PATH"] = fold_root  # per-fold artifacts under f<k>/
     callbacks = get_callbacks(fold_cfg)
+    initial_epoch = 0
+    if resume:
+        initial_epoch = _resume_fold(trainer, fold_cfg, len(x_train),
+                                     callbacks)
     logging.info("start training")
     trainer.fit_cached(batch_generator, val_gen=validation_generator,
-                       epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks)
+                       epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks,
+                       initial_epoch=initial_epoch)
 
     pred_fold(dict(cfg, EXP_PATH=fold_root), device=trainer.device)
 
-    with open(os.path.join(fold_root, _FOLD_COMPLETE), "w") as fh:
+    with open(_fold_complete_path(cfg), "w") as fh:
         json.dump({"fold": fold, "epochs_run": len(trainer.history),
                    "epochs_target": int(C.get(cfg, "EPOCHS", 100) or 100),
                    "finished_at": time()}, fh)
     logging.info("Fold %s finished after %0.3f sec", fold, time() - t0)
     return trainer
+
+
+def _latest_run_dir(cfg: Dict) -> Optional[str]:
+    """The most recent timestamped run dir under EXPERIMENTS_ROOT/EXPERIMENT
+    (the exp/<EXP>/<YYYY-MM-DD_HH_MM>/ layout), or None."""
+    root = os.path.join(C.get(cfg, "EXPERIMENTS_ROOT", "exp/"),
+                        str(C.get(cfg, "EXPERIMENT", "")))
+    runs = sorted(d for d in glob.glob(os.path.join(root, "*"))
+                  if os.path.isdir(d))
+    return runs[-1] if runs else None
+
+
+def _resume_run_dir(cfg: Dict) -> Optional[str]:
+    """The run a RESUME without an explicit run dir re-enters: the config's
+    own EXP_PATH (a reloaded config/config.json carries it) when it lies
+    under this experiment's root — a config copied from another
+    experiment's run must not train into that run — else the latest run
+    dir of this experiment."""
+    root = os.path.realpath(os.path.join(
+        C.get(cfg, "EXPERIMENTS_ROOT", "exp/"),
+        str(C.get(cfg, "EXPERIMENT", ""))))
+    prior = C.get(cfg, "EXP_PATH")
+    if prior and os.path.isdir(prior) and \
+            not os.path.realpath(prior).startswith(root + os.sep):
+        logging.warning(
+            "RESUME: ignoring config EXP_PATH %s — it does not belong to "
+            "experiment %r (expected under %s); falling back to the latest "
+            "run dir", prior, C.get(cfg, "EXPERIMENT", ""), root)
+        prior = None
+    exp_path = prior if prior and os.path.isdir(prior) \
+        else _latest_run_dir(cfg)
+    if exp_path:
+        logging.info("RESUME: re-entering run dir %s", exp_path)
+    else:
+        logging.warning("RESUME requested but no prior run dir found under "
+                        "EXPERIMENTS_ROOT/EXPERIMENT; starting a fresh run")
+    return exp_path
 
 
 def run_experiment(config: Dict, data_path: Optional[str] = None,
@@ -96,7 +222,8 @@ def run_experiment(config: Dict, data_path: Optional[str] = None,
     """Loop FOLDS calling train_fold (ref: main, train_model.py:135-206).
     Returns the experiment path."""
     cfg = C.normalise_config(config)
-    _no_resume(cfg)
+    if exp_path is None and C.get(cfg, "RESUME", False):
+        exp_path = _resume_run_dir(cfg)
     cfg["EXP_PATH"] = exp_path or C.timestamped_exp_path(cfg)
     if data_path:
         cfg["DATA_PATH_SAX"] = os.path.join(data_path, "2D")

@@ -7,37 +7,82 @@ tensors left on the device, so an epoch syncs the host once. Dropout masks
 come from the state's explicit ``torch.Generator``. BatchNorm normalises
 with the batch statistics and moves its running averages in
 ``train_step``, and reads the running averages in ``eval_step``, as flax's
-``batch_stats`` do. Not ported: EMA (ROADMAP 3.3), which raises.
+``batch_stats`` do.
+
+EMA (config key ``EMA``): a float32 shadow of the parameters, moved after
+each update by ``ema_update`` (two multi-tensor passes), read by the eval
+step through ``torch.func.functional_call`` so the live module is never
+overwritten. BatchNorm's running averages are not shadowed.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from cmrtpu_torch import config as C
 
 
+def ema_decay_from_config(cfg) -> Optional[float]:
+    """Config key ``EMA``: False/absent -> off; True -> decay 0.999; a
+    number -> that decay."""
+    ema = C.get(cfg or {}, "EMA", False)
+    if not ema:
+        return None
+    return 0.999 if ema is True else float(ema)
+
+
+def ema_update(shadow: List[torch.Tensor], params: List[torch.Tensor],
+               decay: float, step: int) -> None:
+    """One EMA step in place: shadow <- d*shadow + (1-d)*params, with the
+    warm-up d = min(decay, (1+t)/(10+t)), t = ``step`` + 1 where ``step``
+    counts the updates before this one (cmrtpu's ``ema_update``). d is
+    formed in float32 as cmrtpu forms it."""
+    t = np.float32(step) + np.float32(1.0)
+    d = min(np.float32(decay),
+            (np.float32(1.0) + t) / (np.float32(10.0) + t))
+    torch._foreach_mul_(shadow, float(d))
+    torch._foreach_add_(shadow, torch._foreach_mul(
+        params, float(np.float32(1.0) - d)))
+
+
 class TrainState:
-    """Model, optimizer and step count, with the loss and metrics the steps
-    log. ``generator`` draws the dropout masks (on the model's device)."""
+    """Model, optimizer, step count and the EMA shadow, with the loss and
+    metrics the steps log. ``generator`` draws the dropout masks (on the
+    model's device)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable, metrics: Optional[Dict[str, Callable]],
                  generator: Optional[torch.Generator] = None,
                  config: Optional[Dict] = None):
-        if C.get(config or {}, "EMA", False):
-            raise NotImplementedError(
-                "the EMA shadow of the parameters (EMA) is not ported to "
-                "cmrtpu_torch yet (ROADMAP 3.3)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.metrics = metrics or {}
         self.generator = generator
         self.step = 0
+        self.ema_decay = ema_decay_from_config(config)
+        # name -> float32 shadow, independent of the live parameters
+        self.ema: Optional[Dict[str, torch.Tensor]] = None
+        if self.ema_decay is not None:
+            self.reset_ema()
+
+    def reset_ema(self) -> None:
+        """Seed the shadow from the live parameters (at init, and after
+        weights are loaded: an init-copy shadow would blend random weights
+        into early evaluations and checkpoints)."""
+        self.ema = {n: p.detach().clone()
+                    for n, p in self.model.named_parameters()}
+
+    def inference_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters inference-time consumers read: the shadow with
+        EMA on, the live ones otherwise."""
+        if self.ema is not None:
+            return self.ema
+        return {n: p.detach() for n, p in self.model.named_parameters()}
 
     def _logs(self, loss: torch.Tensor, y: torch.Tensor,
               preds: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -58,6 +103,11 @@ class TrainState:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                ema_update(list(self.ema.values()),
+                           [p.detach() for p in self.model.parameters()],
+                           self.ema_decay, self.step)
         self.step += 1
         with torch.no_grad():
             return self._logs(loss, y, preds)
@@ -66,7 +116,11 @@ class TrainState:
     def eval_step(self, x: torch.Tensor,
                   y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Loss and metrics of the eval-mode forward (no dropout, BatchNorm
-        from its running averages, no update)."""
+        from its running averages, no update), with the EMA shadow in place
+        of the parameters when EMA is on."""
         self.model.eval()
-        preds = self.model(x)
+        if self.ema is not None:
+            preds = torch.func.functional_call(self.model, self.ema, (x,))
+        else:
+            preds = self.model(x)
         return self._logs(self.loss_fn(y, preds), y, preds)

@@ -4,8 +4,12 @@ device-resident data loop.
 
 The model comes from ``get_model`` and is initialised from a seeded
 ``torch.Generator`` (SEED); dropout masks come from a second seeded
-generator on the card. Logs, callback order and the ``val_`` prefixing are
-cmrtpu's, so ``history.csv`` has the same columns.
+generator on the card (SEED), and the loop's augmentation and matcher
+draws from a third (SEED + 1), which the Trainer owns so that a full-state
+checkpoint holds both draw streams' positions: cmrtpu keys these draws on
+the step, which a restore brings back, and the port restores the
+generators' states instead. Logs, callback order and the ``val_``
+prefixing are cmrtpu's, so ``history.csv`` has the same columns.
 """
 
 from __future__ import annotations
@@ -13,13 +17,14 @@ from __future__ import annotations
 import logging
 import sys
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.models.hybrids import get_model
 from cmrtpu_torch.predict.predictor import resolve_device
+from cmrtpu_torch.train import checkpoint as ckpt
 from cmrtpu_torch.train import losses as L
 from cmrtpu_torch.train.callbacks import Callback
 from cmrtpu_torch.train.optimizers import (get_learning_rate, get_optimizer,
@@ -87,13 +92,21 @@ class Trainer:
             concat = L.concat_heads(heads)
             self.metrics = {name: (lambda yt, yp, f=fn: f(yt, concat(yp)))
                             for name, fn in self.metrics.items()}
-        self.optimizer = get_optimizer(self.model.parameters(), self.config)
-        self.generator = torch.Generator(self.device).manual_seed(
-            int(C.get(self.config, "SEED", 42)))
+        self.optimizer = get_optimizer(self.model.named_parameters(),
+                                       self.config)
+        seed = int(C.get(self.config, "SEED", 42))
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        # the device-resident loop's augmentation and matcher draws
+        self.loop_generator = torch.Generator(self.device).manual_seed(
+            seed + 1)
         self.state = TrainState(self.model, self.optimizer, self.loss_fn,
                                 self.metrics, self.generator, self.config)
         self.stop_training = False
         self.history: List[Dict[str, float]] = []
+
+    @property
+    def optimizer_name(self) -> str:
+        return self.optimizer.name
 
     def get_lr(self) -> float:
         return get_learning_rate(self.optimizer)
@@ -101,16 +114,70 @@ class Trainer:
     def set_lr(self, lr: float) -> None:
         set_learning_rate(self.optimizer, lr)
 
+    def switch_optimizer(self, name: str) -> None:
+        """A fresh optimizer of rule ``name`` over the same weights, at the
+        config's LEARNING_RATE (OptimizerChanger, ref:
+        src/utils/KerasCallbacks.py:245-306)."""
+        self.optimizer = get_optimizer(self.model.named_parameters(),
+                                       dict(self.config, OPTIMIZER=name))
+        self.state.optimizer = self.optimizer
+
     @property
     def serving_params(self) -> Dict[str, torch.Tensor]:
-        """Weights for inference-time consumers (the live ones; EMA is not
-        ported)."""
-        return self.model.state_dict()
+        """The state_dict inference-time consumers read (model.npz,
+        WeightsSaver): the EMA shadow in place of the parameters when EMA
+        is on, the live weights otherwise."""
+        return {**self.model.state_dict(), **self.state.inference_params()}
+
+    # -- checkpoint / resume ----------------------------------------------
+    def train_state(self) -> Dict:
+        """The full train state, by reference (``ckpt.device_snapshot``
+        copies it): weights and BatchNorm averages, the optimizer's rule and
+        state (moments, count, learning rate), the step, the EMA shadow and
+        the two draw generators' states."""
+        return {"model": self.model.state_dict(),
+                "optimizer_name": self.optimizer_name,
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.state.step, "lr": self.get_lr(),
+                "ema": self.state.ema,
+                "generators": {"dropout": self.generator.get_state(),
+                               "loop": self.loop_generator.get_state()}}
+
+    def restore(self, ckpt_dir: str) -> int:
+        """Full-state resume from ``ckpt_dir/state.pt``; returns the
+        restored step count. A state saved after OptimizerChanger switched
+        to sgd restores into sgd. FileNotFoundError when there is no state;
+        a state of another model, rule layout or device kind raises."""
+        saved = ckpt.restore_train_state(ckpt_dir)
+        if saved["optimizer_name"] != self.optimizer_name:
+            self.switch_optimizer(saved["optimizer_name"])
+        self.model.load_state_dict(saved["model"])
+        self.optimizer.load_state_dict(saved["optimizer"])  # lr, count too
+        self.state.step = int(saved["step"])
+        if (saved["ema"] is None) != (self.state.ema is None):
+            raise ValueError(f"{ckpt_dir}: the saved state has "
+                             f"{'no ' if saved['ema'] is None else ''}EMA "
+                             "shadow, the config says otherwise")
+        if saved["ema"] is not None:
+            self.state.ema = {n: t.to(self.device)
+                              for n, t in saved["ema"].items()}
+        self.generator.set_state(saved["generators"]["dropout"])
+        self.loop_generator.set_state(saved["generators"]["loop"])
+        return self.state.step
+
+    def restore_weights(self, model_path: str) -> None:
+        """Load a weights-only model.npz; with EMA on the shadow is seeded
+        from the loaded weights, not kept at the initial ones."""
+        ckpt.load_weights_for_model(model_path, self.model)
+        if self.state.ema is not None:
+            self.state.reset_ema()
 
     def _fit_loop(self, train_epoch: Callable[[], Dict[str, float]],
                   eval_epoch: Optional[Callable[[], Dict[str, float]]],
                   epochs: Optional[int], callbacks: Optional[List[Callback]],
-                  initial_epoch: int) -> List[Dict[str, float]]:
+                  initial_epoch: int,
+                  after_epoch: Optional[Callable[[], None]] = None
+                  ) -> List[Dict[str, float]]:
         """The epoch/callback/early-stop loop: callbacks in list order,
         eval logs merged under ``val_``, ``epoch_time``, and on_train_end
         even when an epoch raises."""
@@ -132,6 +199,8 @@ class Trainer:
                 self.history.append(logs)
                 for cb in callbacks:
                     cb.on_epoch_end(self, epoch, logs)
+                if after_epoch is not None:
+                    after_epoch()
                 logging.info("epoch %d/%d %s", epoch + 1, epochs,
                              " ".join(f"{k}={v:.4f}"
                                       for k, v in sorted(logs.items())))
@@ -157,6 +226,34 @@ class Trainer:
                     first_error = e
         if first_error is not None and not in_flight:
             raise first_error
+
+    def _run_epoch(self, data: Iterable, training: bool) -> Dict[str, float]:
+        """Mean logs over the (x, y) batches of ``data`` (numpy or tensors,
+        already finalized), moved to the card one at a time."""
+        step = self.state.train_step if training else self.state.eval_step
+        logs = []
+        for x, y in data:
+            logs.append(step(torch.as_tensor(x, device=self.device),
+                             torch.as_tensor(y, device=self.device)))
+        if not logs:
+            return {}
+        keys = list(logs[0])
+        means = torch.stack([torch.stack([s[k].float() for s in logs]).mean()
+                             for k in keys]).tolist()
+        return dict(zip(keys, means))
+
+    def fit(self, train_data, val_data=None, epochs: Optional[int] = None,
+            callbacks: Optional[List[Callback]] = None,
+            initial_epoch: int = 0) -> List[Dict[str, float]]:
+        """Train over host iterables of finalized (x, y) batches (cmrtpu's
+        ``fit``); ``train_data.on_epoch_end()`` runs after each epoch where
+        it exists, after the callbacks."""
+        return self._fit_loop(
+            lambda: self._run_epoch(train_data, training=True),
+            (lambda: self._run_epoch(val_data, training=False))
+            if val_data is not None else None,
+            epochs, callbacks, initial_epoch,
+            after_epoch=getattr(train_data, "on_epoch_end", None))
 
     def fit_cached(self, train_gen, val_gen=None, epochs: Optional[int] = None,
                    callbacks: Optional[List[Callback]] = None,

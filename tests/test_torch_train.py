@@ -17,7 +17,9 @@
   each package loads the other's model.npz.
 * Every config key the port does not train with raises (BatchNorm,
   HEADS and histogram matching train: tests/test_torch_{batchnorm,heads,
-  histmatch}.py).
+  histmatch}.py; the optimizers, AGC, EMA, cache dtypes, RESUME and the
+  LR schedules: tests/test_torch_{optimizers,ema,cache_dtype,resume,
+  callbacks}.py).
 """
 
 import csv
@@ -279,25 +281,22 @@ def test_device_default_is_cuda():
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"OPTIMIZER": "sgd"}, NotImplementedError),
-    ({"AGC": 0.08}, NotImplementedError),
-    ({"EMA": True}, NotImplementedError),
     ({"LOSS_FUNCTION": "focal"}, NotImplementedError),
     ({"DIM": [8, 32, 32]}, NotImplementedError),
     ({"PAD": "valid"}, NotImplementedError),
     ({"KERNEL_INIT": "glorot_uniform"}, NotImplementedError),
     ({"QUANT_INT8": True}, ValueError),
-], ids=["sgd", "agc", "ema", "loss", "3d", "pad", "kernel-init", "int8"])
+], ids=["loss", "3d", "pad", "kernel-init", "int8"])
 def test_unsupported_trainer_keys_raise(extra, error):
     with pytest.raises(error):
         Trainer({**CFG, **extra}, device="cpu")
 
 
 @pytest.mark.parametrize("extra", [
-    {"CACHE_DTYPE": "bfloat16"}, {"CACHE_SHARDED": True},
+    {"CACHE_SHARDED": True},
     {"CACHE_PER_HOST": True}, {"GRAD_ALLREDUCE_DTYPE": "bfloat16"},
     {"DEVICE_CACHE_LIMIT_GB": 1e-9},
-], ids=["cache-dtype", "sharded", "per-host", "allreduce", "cache-limit"])
+], ids=["sharded", "per-host", "allreduce", "cache-limit"])
 def test_unsupported_loop_keys_raise(extra):
     trainer = Trainer({**CFG, **extra}, device="cpu")
     gen = types.SimpleNamespace(_cache_x=np.zeros((4, 32, 32), np.float32),
@@ -312,12 +311,3 @@ def test_unsupported_loop_keys_raise(extra):
 def test_unsupported_generator_keys_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DataGenerator(["a_img.nrrd"], ["a_msk.nrrd"], config={**CFG, **extra})
-
-
-@pytest.mark.parametrize("extra", [{"RESUME": True}, {"POLY_LR_DECAY": True}],
-                         ids=["resume", "poly-lr"])
-def test_unsupported_fold_keys_raise(extra, tmp_path):
-    data = _write_dataset(str(tmp_path / "data"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_experiment({**CFG, **extra}, data_path=data,
-                       exp_path=str(tmp_path / "exp"), device="cpu")
