@@ -7,6 +7,16 @@ Run from the root of a checkout. Phases, one line each:
   1. device    — require CUDA; print the card's name and power limit;
   2. build     — one nvcc build of every kernel (csrc/*.cu, one process per
                  source), print ptxas's report for each;
+  2a. k1-3d    — K1 at the 3D path's [B * C * T, H, W] = [128, 224, 224]
+                 (sigma 2), as phase 4 checks and times it;
+  2b. cc3d     — the 3D CC kernel (csrc/cc_labels_3d.cu) against its plain
+                 version on the card and scipy's 26-connected labels,
+                 exactly, on stacks of [10, 224, 224] studies (landmark-like
+                 balls across slices, density 0.55, voxels that touch only
+                 across a corner, empty and full) and the longest geodesic
+                 at [5, 96, 96]; two launches bit-identical; timed by
+                 events, a CUDA graph and the profiler, beside the plain
+                 version and the bound;
   3. k2        — the CC-label kernel against its plain torch version on the
                  card and scipy's labels, exact, at [10, 224, 224] (random
                  0.3/0.55/0.7, serpentine, empty/full/single), at the serving
@@ -91,10 +101,28 @@ Run from the root of a checkout. Phases, one line each:
  20. optimizers — the 7 rules and adam with AGC 0.08: 3 f32 steps at
                  batch 2 on the card and the CPU (the card's rule on the
                  CPU's gradients, and whole steps), each within a stated
-                 bound relative to the change; the bf16 step at batch 16.
+                 bound relative to the change; the bf16 step at batch 16;
+ 21. forward-3d, forward-3d-transpose — cine_3d_config.json's U-Net at its
+                 published widths (DIM [8, 224, 224], depth 4, 32 filters,
+                 BatchNorm with running averages from one batch) at batch
+                 2, bf16 and f32 (TF32 off) on the card against float64 on
+                 the card, with both decoders; controls that skip a norm
+                 must fall outside the bf16 bounds;
+ 22. train-3d  — that template at its widths, EPOCHS 2, through
+                 DataGenerator + Trainer.fit_cached on 24 + 8 cine volumes
+                 of the ported cine demo: K1 exactly once per train and
+                 eval step; Trainer.predict on the validation volumes equal
+                 to the restored Predictor's; warm steps timed (median of
+                 12) and profiled, frames/s and the peak memory.
+Inside phase 7, after evaluate: cc3d-cli — a copy of the flagship fold
+with CC_FILTER '3d' through cli.predict and cli.serve: the 3D kernel once
+per patient-phase, study and warm-up, K2 never, each cleaned volume equal
+to scipy's 26-connected filter of the same thresholded predictions and each
+written label file that filter's output in the written geometry.
 Then one JSON line of kernel figures (launches by path: serve, train,
-pred_fold, predict_cli, the variants' and multihead serving's paths, and
-the resume, resume-exact and ema phases' runs),
+pred_fold, predict_cli, the variants' and multihead serving's paths, the
+resume, resume-exact and ema phases' runs, train_3d, and predict_cli_3d
+and serve_3d with CC_FILTER '3d'),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
@@ -104,6 +132,7 @@ Imports nothing of JAX and nothing of cmrtpu.
 import contextlib
 import copy
 import csv
+import glob
 import types
 import json
 import logging
@@ -120,6 +149,7 @@ import torch
 import torch.nn.functional as F
 
 from cmrtpu_torch.cli.evaluate_cv import main as evaluate_main
+from cmrtpu_torch.config import normalise_config
 from cmrtpu_torch.cli.make_dataset import cli as make_dataset_main
 from cmrtpu_torch.cli.predict import main as predict_main
 from cmrtpu_torch.cli.serve import main as serve_main
@@ -131,10 +161,16 @@ from cmrtpu_torch.ops import connected_components as cc
 from cmrtpu_torch.ops import cuda_kernels as kernels
 from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
                                        symmetric_index)
-from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
+from cmrtpu_torch.pipeline.generator import (DataGenerator, finalize_batch,
+                                             normalise_batch)
 from cmrtpu_torch.pipeline.histmatch import _binned_cdf, \
     match_histograms_binned
-from cmrtpu_torch.predict.predictor import TIMING_LOG, Predictor
+from cmrtpu_torch.ops.resample import NEAREST
+from cmrtpu_torch.predict import predictor as predictor_module
+from cmrtpu_torch.predict.postprocess import undo_generator_steps
+from cmrtpu_torch.predict.predictor import (TIMING_LOG, Predictor,
+                                            threshold_and_flatten)
+from cmrtpu_torch.tools.cine_quality_demo import generate_cine_cohort
 from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
 from cmrtpu_torch.train.checkpoint import save_weights
 from cmrtpu_torch.train import device_cache
@@ -210,6 +246,22 @@ def log(phase, **fields):
 def check(ok, msg):
     if not ok:
         raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """Full float32 in cuDNN's convolutions and in matmuls inside the
+    block (torch lets cuDNN use TF32 by default); the flags come back
+    after it, so later phases run at the port's defaults."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def cuda_ms(fn, reps):
@@ -294,15 +346,19 @@ def device_us(fn, reps, names):
     return sum(by_name.values()), by_name
 
 
-def scipy_min_index_labels(masks):
-    """scipy 4-connected labels, each component renamed to its min index."""
-    out = np.full(masks.shape, INF, np.int32)
-    for i, m in enumerate(masks):
-        lab, n = scipy.ndimage.label(m)
-        first = np.full(n + 1, INF, np.int64)
-        np.minimum.at(first, lab.ravel(), np.arange(lab.size))
-        out[i] = np.where(lab > 0, first[lab], INF)
-    return out
+def _min_index_labels(mask, structure=None):
+    """scipy's labels of one mask, each component renamed to its min
+    linear index (background INF)."""
+    lab, n = scipy.ndimage.label(mask, structure=structure)
+    first = np.full(n + 1, INF, np.int64)
+    np.minimum.at(first, lab.ravel(), np.arange(lab.size))
+    return np.where(lab > 0, first[lab], INF).astype(np.int32)
+
+
+def scipy_min_index_labels(masks, structure=None):
+    """scipy labels of each mask of a stack (4-connected slices by default;
+    26-connected volumes with ``structure=CUBE``), min-index ids."""
+    return np.stack([_min_index_labels(m, structure) for m in masks])
 
 
 def kept_reference(labels):
@@ -415,6 +471,8 @@ def phase_forward(cfg, phase="forward", bf16_max=BF16_MAX_ATOL,
                   bf16_mean=BF16_MEAN_ATOL):
     """Flagship forward: card bf16 and card f32 against the CPU, and
     control forwards that the bf16 bounds must reject."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(cfg).reset_parameters(
@@ -459,6 +517,8 @@ def phase_forward(cfg, phase="forward", bf16_max=BF16_MAX_ATOL,
         check(err["max"] > bf16_max or err["mean"] > bf16_mean,
               f"{phase}: control {name} {err} passes the bf16 bounds, which "
               "therefore cannot tell a wrong forward from bf16 rounding")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
     return model.cpu()
 
 
@@ -485,12 +545,14 @@ def phase_serve(cfg, model):
         return _serve_fold(fold, work, "serve", {"msk": {0, 1, 2}})
 
 
-def _serve_fold(fold, work, phase, outputs):
+def _serve_fold(fold, work, phase, outputs, kernel=None):
     """Serve 3 synthetic studies from ``fold`` through cli.serve. Each
     study writes one ``<stem>_<suffix>_pred.nrrd`` per entry of ``outputs``
-    (suffix -> allowed labels) in its own geometry; K2 launches once per
-    study and head, plus once for the engine's warm-up. Returns K2's
-    launches."""
+    (suffix -> allowed labels) in its own geometry; the CC kernel
+    (``kernel``, K2 by default; the 3D kernel for CC_FILTER '3d') launches
+    once per study and head, plus once for the engine's warm-up. Returns
+    its launches."""
+    kernel = kernel or kernels.converge_labels_cuda
     rng = np.random.default_rng(SEED)
     studies = {"study0.nrrd": (0.0, 0.0, 0.0),
                "study1.nii.gz": (-120.5, 80.25, 30.0),
@@ -504,12 +566,12 @@ def _serve_fold(fold, work, phase, outputs):
                                  origin=origin), path)
         os.utime(path, (0, 0))  # settled
 
-    kernels.converge_labels_cuda.launches = 0
+    kernel.launches = 0
     t0 = time.perf_counter()
     totals = serve_main(["-exp", fold, "-in", in_dir, "-out", out_dir,
                          "--max-studies", str(len(studies))])
     wall_s = time.perf_counter() - t0
-    launches = kernels.converge_labels_cuda.launches
+    launches = kernel.launches
 
     check(totals["studies"] == len(studies), f"{phase}: totals {totals}")
     latencies, labels = {}, {}
@@ -634,13 +696,14 @@ def k1_cases():
     return cases
 
 
-def phase_k1():
-    """K1 against its plain version on the card and scipy on the host."""
+def phase_k1(cases=None, phase="k1"):
+    """K1 against its plain version on the card and scipy on the host, on
+    ``cases`` (``k1_cases()`` by default); the main paths' shapes timed."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the yardstick in full f32
     results, max_err = {}, 0.0
     try:
-        for name, host, sigma in k1_cases():
+        for name, host, sigma in cases or k1_cases():
             dev = torch.from_numpy(host).cuda()
             got = kernels.gaussian_blur_2d_cuda(dev, sigma)
             plain = gaussian_blur_2d(dev, sigma)
@@ -664,11 +727,11 @@ def phase_k1():
                 total = float(out.sum())
                 check(abs(total - 1.0) <= 1e-4, f"k1 impulse sums to {total}")
                 fields["impulse_sum"] = total
-            if name.startswith(("main", "pred")):
+            if name.startswith(("main", "pred", "cine")):
                 fields.update(_k1_times(dev, sigma), **_blur_bound(
                     host.shape, sigma))
                 results[name] = fields
-            log("k1", **fields)
+            log(phase, **fields)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return results, max_err
@@ -762,14 +825,20 @@ def _loaded_foreign():
 
 
 def _time_steps(cfg, data_root, steps=12, warm=3):
-    """Median train-step time over warm steps of the cached loop (CUDA
-    events around each step), then a torch.profiler window of 4 steps:
-    device time by kernel and the card's idle share in that window."""
+    """``_time_loop`` of a fresh trainer's cached loop over fold 0's
+    training slices of the sliced cohort under ``data_root``."""
     x_tr, y_tr, _, _ = get_trainings_files(
         os.path.join(data_root, "2D"), 0,
         os.path.join(data_root, "df_kfold.csv"))
     trainer = Trainer(cfg, device="cuda")
     loop = DeviceCachedLoop(trainer, DataGenerator(x_tr, y_tr, config=cfg))
+    return _time_loop(loop, steps, warm)
+
+
+def _time_loop(loop, steps=12, warm=3):
+    """Median train-step time over warm steps of the cached loop (CUDA
+    events around each step), then a torch.profiler window of 4 steps:
+    device time by kernel and the card's idle share in that window."""
     idx = torch.from_numpy(loop._epoch_indices(loop.n_train, True)).cuda()
     for s in range(warm):
         loop.train_step(idx[s % len(idx)])
@@ -929,6 +998,11 @@ def phase_train(cfg):
             history=history, **timing)
         predicted = phase_predict(fold, data_root, test, mtimes)
         evaluate_s = phase_evaluate(exp, data_root, phases)
+        # main resets the 3D kernel's count after its own phase: the 2D
+        # serving, training and prediction paths never launch it
+        check(kernels.converge_labels_3d_cuda.launches == 0,
+              "train: the 3D CC kernel launched on a 2D path")
+        cc3d_paths = phase_cc3d_cli(fold, data_root, test, work)
     log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
         chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
         chained_patient_phases=chained["phases"],
@@ -937,8 +1011,8 @@ def phase_train(cfg):
         evaluate_cv_wall_s=evaluate_s)
     return {"train": {"k1": chained["k1_before"], "k2": chained["k2_before"]},
             "pred_fold": {"k1": chained["k1"], "k2": chained["k2"]},
-            "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]}}, \
-        timing
+            "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]},
+            **cc3d_paths}, timing
 
 
 def phase_predict(fold, data_root, test_patients, mtimes):
@@ -1605,16 +1679,6 @@ def phase_ema(cfg, data_root, work, gen):
             "ema:pred_fold": {"k1": chained["k1"], "k2": chained["k2"]}}
 
 
-@contextlib.contextmanager
-def _tf32_off():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _truncating_bf16(pack):
     """Control: a bf16 cache that drops the low 16 bits (no rounding)."""
     def truncated(x, y, config):
@@ -1831,6 +1895,386 @@ def phase_trainer_features(cfg):
     return by_path
 
 
+# -- slice 4: the 3D cine U-Net and CC_FILTER '3d' --------------------------
+
+CINE = os.path.join(TEMPLATES, "cine_3d_config.json")
+# train-3d: the ported cine demo's cohort at the template's 8 frames, 224^2
+# at 1.4 mm (RESAMPLE to the template's 1.2 mm, then cropped to DIM)
+CINE_T, CINE_HW, CINE_TRAIN, CINE_VAL = 8, 224, 24, 8
+# forward-3d: the template's U-Net at its widths, card bf16 and card f32
+# (TF32 off) against float64 on the card, at this batch. Measured on an H100
+# (700 W), bf16 against float64: upsample decoder max 0.0668, mean 0.00723;
+# transpose-conv decoder max 0.0172, mean 0.00186 (PERF.md). Each bound
+# keeps ~2x over its decoder's error; the controls (a constant 0.5, and the
+# net with one norm skipped) lay at max 0.29-0.81 / mean 0.028-0.22, except
+# the transpose net without its bottleneck norm: max 0.0226, mean 0.00231,
+# within 1.3x of bf16 rounding, since every later norm re-normalises what
+# the bottleneck's skipped scale changes. That control is logged but not
+# held to the bounds
+FWD3D_BATCH = 2
+BF16_3D_MAX_ATOL, BF16_3D_MEAN_ATOL = 0.15, 0.015
+BF16_3D_T_MAX_ATOL, BF16_3D_T_MEAN_ATOL = 0.04, 0.004
+F32_3D_ATOL = 1e-3
+# the 3D CC kernel's three passes, as the profiler names them
+CC3D_KERNELS = ("cc3d_init_kernel", "cc3d_union_kernel",
+                "cc3d_flatten_kernel")
+CUBE = np.ones((3, 3, 3), bool)
+
+
+def k1_3d_cases():
+    """K1 on the 3D path: one train step's [B * C * T, H, W] = [8 * 2 * 8,
+    224, 224] binary landmark planes, sigma 2 (radius 8)."""
+    planes = _discs(np.random.default_rng(SEED), 8 * CINE_T, H, W, (1, 2))
+    return [("cine-s2", np.concatenate([planes == 1, planes == 2])
+             .astype(np.float32), 2.0)]
+
+
+def _calibrate_bn(model, x):
+    """Running averages from one train-mode pass with momentum 0, so an
+    eval-mode BatchNorm normalises as a trained net's does (a fresh net's
+    zero mean and unit variance leave its activations unscaled)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(x, generator=torch.Generator(x.device).manual_seed(
+            SEED))
+    for m in norms:
+        m.momentum = 0.99
+    return model.eval()
+
+
+def phase_forward_3d(cfg, phase, bf16_max, bf16_mean, unheld=()):
+    """The 3D template's U-Net at its published widths on the card in bf16
+    and in f32 (TF32 off) against a float64 run of the same weights on the
+    card; controls that skip a norm must fall outside the bf16 bounds, but
+    those named in ``unheld``, which are only logged."""
+    with _tf32_off():
+        f32_cfg = dict(cfg, MIXED_PRECISION=False)
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (FWD3D_BATCH, *cfg["DIM"], 1)).astype(np.float32)).cuda()
+        card_f32 = _calibrate_bn(build_model(f32_cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED)).cuda(), x)
+        model = build_model(cfg).cuda().eval()
+        model.load_state_dict(card_f32.state_dict())
+        ref = build_model(f32_cfg).cuda().eval()
+        ref.load_state_dict(card_f32.state_dict())
+        ref.double()
+        for mod in ref.modules():
+            if hasattr(mod, "dtype"):
+                mod.dtype = torch.float64
+        with torch.inference_mode():
+            want = ref(x.double()).float().cpu().numpy()
+            bf16 = model(x).cpu().numpy()
+            f32 = card_f32(x).cpu().numpy()
+            ms = cuda_ms(lambda: model(x), 5)
+            ms_f32 = cuda_ms(lambda: card_f32(x), 5)
+            ms_f64 = cuda_ms(lambda: ref(x.double()), 1)
+            controls = {"constant_0.5": _errors(np.full_like(want, 0.5),
+                                                want)}
+            for block in ("DownBlock_0.ConvBlock_0", "ConvBlock_1",
+                          f"UpBlock_{model.depth - 1}.ConvBlock_1"):
+                out = _without_norm(model, block)(x).cpu().numpy()
+                controls[f"no_norm_{block}"] = _errors(out, want)
+    shape = (FWD3D_BATCH, *cfg["DIM"], 2)
+    check(bf16.shape == shape and np.isfinite(bf16).all(),
+          f"{phase}: bad output {bf16.shape}")
+    f32_err, bf16_err = _errors(f32, want), _errors(bf16, want)
+    bounds = {"f32_max": F32_3D_ATOL, "bf16_max": bf16_max,
+              "bf16_mean": bf16_mean}
+    log(phase, batch=FWD3D_BATCH, dim=cfg["DIM"],
+        use_upsample=bool(cfg.get("USE_UPSAMPLE", True)), ms=ms,
+        f32_ms=ms_f32, f64_ms=ms_f64, f32_vs_f64=f32_err,
+        bf16_vs_f64=bf16_err, controls_vs_f64=controls, bounds=bounds,
+        controls_not_held=list(unheld))
+    check(f32_err["max"] <= F32_3D_ATOL,
+          f"{phase}: card f32 max {f32_err['max']} > {F32_3D_ATOL}")
+    check(bf16_err["max"] <= bf16_max and bf16_err["mean"] <= bf16_mean,
+          f"{phase}: card bf16 {bf16_err} outside the bounds {bounds}")
+    for name, err in controls.items():
+        check(name in unheld or err["max"] > bf16_max
+              or err["mean"] > bf16_mean,
+              f"{phase}: control {name} {err} passes the bf16 bounds, which "
+              "therefore cannot tell a wrong forward from bf16 rounding")
+
+
+def phase_train_3d():
+    """The 3D template at its published widths, EPOCHS 2, through
+    DataGenerator + Trainer.fit_cached on a cine cohort of the ported demo
+    (24 train and 8 validation volumes): K1 exactly once per train and eval
+    step, then Trainer.predict on the validation volumes, equal to the
+    model.npz it saves restored through Predictor; then warm steps timed
+    and profiled, with the peak memory. Returns the launches by path."""
+    with open(CINE, encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), EPOCHS=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cine_") as work:
+        t0 = time.perf_counter()
+        xs, ys, _ = generate_cine_cohort(work, CINE_TRAIN + CINE_VAL, CINE_T,
+                                         CINE_HW)
+        cohort_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = DataGenerator(xs[:CINE_TRAIN], ys[:CINE_TRAIN], config=cfg)
+        val = DataGenerator(xs[CINE_TRAIN:], ys[CINE_TRAIN:], config=cfg)
+        host_s = time.perf_counter() - t0
+        check(train._cache_x.shape == (CINE_TRAIN, *cfg["DIM"])
+              and val._cache_y.shape == (CINE_VAL, *cfg["DIM"]),
+              f"train-3d: caches {train._cache_x.shape}, "
+              f"{val._cache_y.shape}")
+        batch = int(cfg["BATCHSIZE"])
+        steps, eval_steps = CINE_TRAIN // batch, -(-CINE_VAL // batch)
+        trainer = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.gaussian_blur_2d_cuda.launches = 0
+        kernels.converge_labels_cuda.launches = 0
+        kernels.converge_labels_3d_cuda.launches = 0
+        t0 = time.perf_counter()
+        hist = trainer.fit_cached(train, val)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {"k1": kernels.gaussian_blur_2d_cuda.launches,
+                    "k2": kernels.converge_labels_cuda.launches,
+                    "cc3d": kernels.converge_labels_3d_cuda.launches}
+        fit_peak = torch.cuda.max_memory_allocated()
+        want = 2 * (steps + eval_steps)
+        check(launches == {"k1": want, "k2": 0, "cc3d": 0},
+              f"train-3d: launches {launches} for 2 x ({steps} train + "
+              f"{eval_steps} eval) steps, want K1 {want} and no CC")
+        keys = ("loss", "val_loss", "dice_coef_labels", "val_dice_coef_labels")
+        check(len(hist) == 2 and all(np.isfinite(h[k]) for h in hist
+                                     for k in keys),
+              f"train-3d: history {hist}")
+
+        x = normalise_batch(torch.from_numpy(val._cache_x),
+                            str(cfg.get("SCALER", "MinMax")))[..., None].numpy()
+        probs = trainer.predict(x)
+        check(probs.shape == (CINE_VAL, *cfg["DIM"], 2)
+              and np.isfinite(probs).all(),
+              f"train-3d: Trainer.predict gave {probs.shape}")
+        model_dir = os.path.join(work, "model")
+        save_weights(model_dir, trainer.serving_params)
+        served = Predictor(cfg, model_dir, device="cuda").predict(x)
+        check(np.array_equal(served, probs),
+              "train-3d: the restored Predictor differs from Trainer.predict "
+              f"by {float(np.abs(served - probs).max())}")
+
+        loop = DeviceCachedLoop(trainer, train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timing = _time_loop(loop)
+        step_peak = torch.cuda.max_memory_allocated()
+    frames_per_s = batch * CINE_T / (timing["step_ms_median"] / 1e3)
+    log("train-3d", dim=cfg["DIM"], batch=batch,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        train_steps=2 * steps,
+        eval_steps=2 * eval_steps, launches=launches, cohort_s=cohort_s,
+        host_stage_s=host_s, fit_s=fit_s, peak_memory_bytes_fit=fit_peak,
+        peak_memory_bytes_steps=step_peak, frames_per_s=frames_per_s,
+        history=[{k: h[k] for k in keys + ("epoch_time",)} for h in hist],
+        predict_equal_restored=True, **timing)
+    return {"train_3d": launches}
+
+
+def scipy_clean_3d(pred, values):
+    """Per label value the biggest 26-connected volume component (scipy;
+    a tie keeps the smaller id, an empty label nothing); a later value
+    overwrites an earlier one."""
+    out = np.zeros_like(pred)
+    for val in values:
+        lab, n = scipy.ndimage.label(pred == val, structure=CUBE)
+        if n:
+            sizes = np.bincount(lab.ravel())[1:]
+            out[lab == 1 + int(np.argmax(sizes))] = val
+    return out
+
+
+def _balls(rng, z, h, w, n, radius=3.0):
+    """Landmark-like: ``n`` balls of ``radius`` px (2 px across slices)
+    that span several slices, and stray voxels."""
+    zz, yy, xx = np.mgrid[0:z, 0:h, 0:w]
+    m = np.zeros((z, h, w), bool)
+    for c in rng.integers(0, (z, h, w), (n, 3)):
+        m |= ((zz - c[0]) / 0.7) ** 2 + ((yy - c[1]) ** 2 + (
+            xx - c[2]) ** 2) / radius ** 2 <= 1.0
+    return m | (rng.random(m.shape) < 1e-4)
+
+
+def _serpentine_3d(h, w, layers):
+    """The longest geodesic: a boustrophedon corridor in every other slice,
+    joined by one voxel in the slice between at the end of one corridor and
+    the start of the next."""
+    serp = np.zeros((h, w), bool)
+    for r in range(0, h, 2):
+        serp[r, :] = True
+        if r + 1 < h:
+            serp[r + 1, -1 if (r // 2) % 2 == 0 else 0] = True
+    ends = np.argwhere(serp)
+    m = np.zeros((2 * layers - 1, h, w), bool)
+    for j in range(layers):
+        m[2 * j] = serp
+        if j + 1 < layers:
+            m[(2 * j + 1, *ends[-1 if j % 2 == 0 else 0])] = True
+    return m
+
+
+def cc3d_cases():
+    """[N, Z, H, W] stacks: what CC_FILTER '3d' gives the kernel on a study
+    (label 1's and label 2's masks), density 0.55, the longest geodesic,
+    voxels that touch only across a cube's corner between slices, and an
+    empty and a full volume."""
+    rng = np.random.default_rng(SEED)
+    diagonal = np.zeros((Z, H, W), bool)
+    for k in range(Z):
+        diagonal[k, 20 + k, 30 + k] = True          # a corner-linked chain
+    for y, x in rng.integers(1, (H - 2, W - 3), (200, 2)):
+        z = int(rng.integers(0, Z - 1))
+        diagonal[z, y, x] = diagonal[z + 1, y + 1, x + 1] = True
+        diagonal[z, y, x + 3] = True               # dx=3 from it: apart
+    return {"landmark-like": np.stack([_balls(rng, Z, H, W, 6),
+                                       _balls(rng, Z, H, W, 6)]),
+            "random-0.55": (rng.random((1, Z, H, W)) < 0.55),
+            "serpentine": _serpentine_3d(96, 96, 3)[None],
+            "diagonal-singles": diagonal[None],
+            "empty-full": np.stack([np.zeros((Z, H, W), bool),
+                                    np.ones((Z, H, W), bool)])}
+
+
+def phase_cc3d():
+    """The 3D CC kernel against its plain version on the card and scipy's
+    26-connected labels, exactly, and two launches against each other; the
+    kept volumes on the card against scipy's; timed by events, a CUDA graph
+    and the profiler beside the plain version and the bound."""
+    results, max_err = {}, 0
+    for name, masks in cc3d_cases().items():
+        dev = torch.from_numpy(masks).cuda()
+        got = kernels.converge_labels_3d_cuda(dev)
+        again = kernels.converge_labels_3d_cuda(dev)
+        plain = cc.label_components_3d(dev)
+        torch.cuda.synchronize()
+        err = int((got.long() - plain.long()).abs().max())
+        max_err = max(max_err, err)
+        check(err == 0, f"cc3d {name}: kernel != plain (max abs {err})")
+        check(torch.equal(got, again), f"cc3d {name}: two launches differ")
+        want = scipy_min_index_labels(masks, CUBE)
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"cc3d {name}: kernel != scipy")
+        kept = cc.largest_component_3d_batch(dev).cpu().numpy()
+        check(np.array_equal(kept, np.stack([
+            scipy_clean_3d(m.astype(np.uint8), (1,)) > 0 for m in masks])),
+            f"cc3d {name}: kept volumes on the card != scipy's")
+        slow = name in ("serpentine", "empty-full")
+        ms = cuda_ms(lambda: kernels.converge_labels_3d_cuda(dev), 20)
+        g_ms = graph_ms(lambda: kernels.converge_labels_3d_cuda(dev), 10)
+        dev_us, by_kernel = device_us(
+            lambda: kernels.converge_labels_3d_cuda(dev), 10, CC3D_KERNELS)
+        plain_ms = cuda_ms(lambda: cc.label_components_3d(dev),
+                           1 if slow else 3)
+        results[name] = {"shape": list(masks.shape), "ms": ms,
+                         "graph_ms": g_ms, "device_us": dev_us,
+                         "plain_ms": plain_ms,
+                         "bound_ms": _k2_bound_ms(masks.shape)}
+        log("cc3d", case=name, shape=list(masks.shape),
+            foreground=float(masks.mean()), exact=True, repeatable=True,
+            ms=ms, graph_ms=g_ms, device_us=dev_us,
+            device_us_by_kernel=by_kernel, plain_ms=plain_ms,
+            bound_us=_k2_bound_ms(masks.shape) * 1e3)
+    return results, max_err
+
+
+class _Recorded:
+    """Wraps the 3D cleaner: each call's input label volume, label values
+    and output, on the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, cleaner):
+        def wrapped(pred_flat, label_values=(1, 2), device=None):
+            out = cleaner(pred_flat, label_values, device=device)
+            self.calls.append((np.asarray(pred_flat).copy(),
+                               tuple(label_values), out.cpu().numpy()))
+            return out
+        return wrapped
+
+
+def phase_cc3d_cli(fold, data_root, test_patients, work):
+    """CC_FILTER '3d' on the trained flagship fold: cli.predict and
+    cli.serve launch the 3D kernel once per patient-phase or study (and
+    once for the engine's warm-up), K2 never; each cleaned volume equals
+    scipy's 26-connected filter of the same thresholded predictions, and
+    each written label volume that filter's output in the written
+    geometry. Returns the launches by path."""
+    fold3d = os.path.join(work, "f0_cc3d")
+    shutil.copytree(fold, fold3d, ignore=shutil.ignore_patterns(
+        "pred", "gt", "tensorboard_logs"))
+    cfg_path = os.path.join(fold3d, "config", "config.json")
+    with open(cfg_path, encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), CC_FILTER="3d")
+    with open(cfg_path, "w", encoding="utf-8") as fh:
+        json.dump(cfg, fh)
+    phases = 2 * len(test_patients)
+    by_path = {}
+
+    recorded = _Recorded()
+    for k in (kernels.gaussian_blur_2d_cuda, kernels.converge_labels_cuda,
+              kernels.converge_labels_3d_cuda):
+        k.launches = 0
+    with _patched(predictor_module, "clean_prediction_3d_cc", recorded), \
+            _Spans() as spans:
+        predict_main(["-exp", fold3d, "-data", data_root])
+    by_path["predict_cli_3d"] = {
+        "k1": kernels.gaussian_blur_2d_cuda.launches,
+        "k2": kernels.converge_labels_cuda.launches,
+        "cc3d": kernels.converge_labels_3d_cuda.launches}
+    check(by_path["predict_cli_3d"] == {"k1": phases, "k2": 0,
+                                        "cc3d": phases},
+          f"cc3d predict: launches {by_path['predict_cli_3d']} for {phases} "
+          "patient-phases")
+    logged = spans.pred_fold()["phases"]
+    check(len(recorded.calls) == len(logged) == phases,
+          f"cc3d predict: {len(recorded.calls)} cleaner calls")
+    orig_files = sorted(glob.glob(os.path.join(
+        data_root, "original", "*/*frame[0-9][0-9].nii.gz")))
+    norm_cfg = normalise_config(cfg)
+    removed = 0
+    for span, (flat, values, out) in zip(logged, recorded.calls):
+        want = scipy_clean_3d(flat, values)
+        check(np.array_equal(out, want),
+              f"cc3d predict {span['patient']} {span['phase']}: the cleaned "
+              "volume != scipy's 26-connected filter")
+        removed += int((flat != want).sum())
+        orig = read_image(next(f for f in orig_files
+                               if span["patient"] in f))
+        written = read_image(os.path.join(
+            fold3d, "pred", f"{span['patient']}_{span['phase']}_msk.nrrd"))
+        check(np.array_equal(written.array, undo_generator_steps(
+            want.astype(np.uint8), norm_cfg, NEAREST, orig).array),
+            f"cc3d predict {span['patient']} {span['phase']}: written labels "
+            "!= scipy's filter in the written geometry")
+
+    recorded = _Recorded()
+    kernels.gaussian_blur_2d_cuda.launches = 0
+    kernels.converge_labels_cuda.launches = 0
+    with _patched(predictor_module, "clean_prediction_3d_cc", recorded):
+        c3 = _serve_fold(fold3d, os.path.join(work, "serve_3d"), "serve-3d",
+                         {"msk": {0, 1, 2}},
+                         kernel=kernels.converge_labels_3d_cuda)
+    by_path["serve_3d"] = {"k1": kernels.gaussian_blur_2d_cuda.launches,
+                           "k2": kernels.converge_labels_cuda.launches,
+                           "cc3d": c3}
+    check(by_path["serve_3d"]["k1"] == by_path["serve_3d"]["k2"] == 0,
+          f"serve-3d: launches {by_path['serve_3d']}")
+    for flat, values, out in recorded.calls:
+        check(np.array_equal(out, scipy_clean_3d(flat, values)),
+              "serve-3d: a cleaned volume != scipy's 26-connected filter")
+    log("cc3d-cli", predict_launches=by_path["predict_cli_3d"],
+        serve_launches=by_path["serve_3d"], patient_phases=phases,
+        voxels_removed_by_the_filter=removed,
+        predict_ms_per_patient_phase=_ms_per_phase(logged),
+        serve_cleaned_volumes=len(recorded.calls))
+    return by_path
+
+
 def _ms(us):
     return None if us is None else us / 1e3
 
@@ -1855,6 +2299,10 @@ def main():
     phase_build()
     k2, k2_err = phase_k2()
     k1, k1_err = phase_k1()
+    k1_3d, k1_3d_err = phase_k1(k1_3d_cases(), phase="k1-3d")
+    cc3d, cc3d_err = phase_cc3d()
+    # from here on the 3D kernel counts the launches of the paths
+    kernels.converge_labels_3d_cuda.launches = 0
 
     with open(FLAGSHIP, encoding="utf-8") as fh:
         cfg = json.load(fh)
@@ -1866,6 +2314,7 @@ def main():
           "serve: K1 launched on the serving path")
     train_paths, flagship_timing = phase_train(cfg)
     by_path.update(train_paths)
+    kernels.converge_labels_3d_cuda.launches = 0
     phase_train_f32(cfg)
     with open(os.path.join(TEMPLATES, "example_config.json"),
               encoding="utf-8") as fh:
@@ -1880,13 +2329,27 @@ def main():
     by_path.update(phase_variants(flagship_timing))
     by_path.update(phase_trainer_features(cfg))
     phase_optimizers(cfg)
+    with open(CINE, encoding="utf-8") as fh:
+        cine = json.load(fh)
+    phase_forward_3d(cine, "forward-3d", BF16_3D_MAX_ATOL, BF16_3D_MEAN_ATOL)
+    phase_forward_3d(dict(cine, USE_UPSAMPLE=False), "forward-3d-transpose",
+                     BF16_3D_T_MAX_ATOL, BF16_3D_T_MEAN_ATOL,
+                     unheld=("no_norm_ConvBlock_1",))
+    by_path.update(phase_train_3d())
+    # every path but cli.predict and cli.serve with CC_FILTER '3d' (counted
+    # by their own entries) ran without the 3D kernel
+    check(kernels.converge_labels_3d_cuda.launches == 0,
+          "the 3D CC kernel launched on a path without CC_FILTER '3d'")
 
     h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
-    stacked = k2["landmark-like"]
+    stacked, c1 = k2["landmark-like"], k1_3d["cine-s2"]
+    h3, dense3 = cc3d["landmark-like"], cc3d["random-0.55"]
 
     def launches(kernel):
-        return {"launches": sum(n[kernel] for n in by_path.values()),
-                "launches_by_path": {path: n[kernel]
+        # a path without an entry for the 3D kernel was checked to launch
+        # it no time
+        return {"launches": sum(n.get(kernel, 0) for n in by_path.values()),
+                "launches_by_path": {path: n.get(kernel, 0)
                                      for path, n in by_path.items()}}
     print(json.dumps({"kernels": [
         {"name": "converge_labels_cuda", "route": "cuda",
@@ -1905,7 +2368,7 @@ def main():
         {"name": "gaussian_blur_2d_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/gaussian_blur.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:87",
-         **launches("k1"), "max_abs_err": k1_err,
+         **launches("k1"), "max_abs_err": max(k1_err, k1_3d_err),
          "case": f"main-s2 {h1['shape']} sigma 2, L2 warm",
          "ms": h1["ms"], "graph_ms": h1["graph_ms"],
          "cold_graph_ms": h1["cold_graph_ms"],
@@ -1915,7 +2378,28 @@ def main():
          "pred_ms": p1["ms"], "pred_graph_ms": p1["graph_ms"],
          "pred_plain_ms": p1["plain_ms"],
          "pred_bound_ms": p1["bound_us"] / 1e3,
-         "pred_library_ms": p1["library_ms"]}]}),
+         "pred_library_ms": p1["library_ms"],
+         "cine_case": f"cine-s2 {c1['shape']} sigma 2, L2 warm",
+         "cine_ms": c1["ms"], "cine_graph_ms": c1["graph_ms"],
+         "cine_cold_graph_ms": c1["cold_graph_ms"],
+         "cine_plain_ms": c1["plain_ms"],
+         "cine_bound_ms": c1["bound_us"] / 1e3,
+         "cine_library_ms": c1["library_ms"]},
+        {"name": "converge_labels_3d_cuda", "route": "cuda",
+         "source": "cmrtpu_torch/csrc/cc_labels_3d.cu",
+         "replaces": "cmrtpu/ops/connected_components.py:133 (an XLA "
+                     "while_loop, not Pallas)",
+         **launches("cc3d"), "max_abs_err": cc3d_err,
+         "case": f"landmark-like {h3['shape']}",
+         "ms": h3["ms"], "graph_ms": h3["graph_ms"],
+         "device_ms": _ms(h3["device_us"]),
+         "plain_ms": h3["plain_ms"], "bound_ms": h3["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "dense_case": f"random-0.55 {dense3['shape']}",
+         "dense_ms": dense3["ms"], "dense_graph_ms": dense3["graph_ms"],
+         "dense_device_ms": _ms(dense3["device_us"]),
+         "dense_plain_ms": dense3["plain_ms"],
+         "dense_bound_ms": dense3["bound_ms"]}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,14 +18,9 @@
 //   2. merge: across each tile's top row and left column, one union in
 //      device memory per run of pixel pairs that are both foreground;
 //   3. flatten: every foreground pixel writes the root of its tree.
-// Linking is by min root: the larger root's parent becomes the smaller root
-// through atomicMin, retried from the old parent when the root had moved.
-// The finds of the unions split paths (each visited node is pointed at its
-// grandparent by atomicMin) and phase 3 writes roots. So a parent never
-// rises and is never larger than its child, the root of every tree is its
-// least index, and the final labels are the components' minimum indices
-// whatever order the atomics run in. During the merge, reads of parents
-// that other blocks write go through volatile loads (no L1 copy).
+// Linking is by min root through atomicMin, and the finds of the unions
+// split paths (union_find.cuh); phase 3 writes roots. So the final labels
+// are the components' minimum indices whatever order the atomics run in.
 // Tile-local indices ly * 32 + lx order a tile's pixels as their
 // slice-linear indices do, so a tile root is its component's least index
 // inside the tile.
@@ -48,6 +43,8 @@
 
 #include <cuda_runtime.h>
 
+#include "union_find.cuh"
+
 namespace {
 
 constexpr int32_t kInf = 1 << 30;
@@ -55,42 +52,6 @@ constexpr int kTile = 32;          // tile side; shifts below assume 32
 constexpr int kRows = 16;          // thread rows per block: kTile x kRows
 constexpr int kPerThread = kTile / kRows;
 constexpr int kMaxGridZ = 65535;
-
-// root of a's tree; a parent is never larger than its child, so the walk
-// ends. kSplit: point each visited node at its grandparent on the way
-// (path splitting, by atomicMin, so a parent still only decreases), which
-// keeps the chains short that min-root linking builds across many tiles
-template <bool kSplit>
-__device__ __forceinline__ int32_t find_root(int32_t* parent, int32_t a) {
-  const volatile int32_t* vparent = parent;
-  int32_t p = vparent[a];
-  while (p != a) {
-    const int32_t gp = vparent[p];
-    if (kSplit && gp != p) atomicMin(parent + a, gp);
-    a = p;
-    p = gp;
-  }
-  return a;
-}
-
-// union of a's and b's trees: the larger root is linked under the smaller
-__device__ __forceinline__ void unite(int32_t* parent, int32_t a, int32_t b) {
-  while (true) {
-    a = find_root<true>(parent, a);
-    b = find_root<true>(parent, b);
-    if (a == b) return;
-    if (a > b) {
-      const int32_t t = a;
-      a = b;
-      b = t;
-    }
-    // b is the larger root: point it at a, unless it already moved under
-    // some old parent, which then has to be joined with a instead
-    const int32_t old = atomicMin(parent + b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
 
 __global__ void __launch_bounds__(kTile * kRows)
 cc_local_kernel(const uint8_t* __restrict__ masks, int32_t* __restrict__ labels,

@@ -1,4 +1,5 @@
-"""2D U-Net as torch ``nn.Module``s — counterpart of ``cmrtpu/models/unet.py``.
+"""2D and 3D U-Net as torch ``nn.Module``s — counterpart of
+``cmrtpu/models/unet.py``.
 
 Same blocks, same order, same parameter tree:
 
@@ -13,20 +14,25 @@ Same blocks, same order, same parameter tree:
 Submodules carry the flax auto-names (``DownBlock_0/ConvBlock_1/Conv_0`` and
 so on), so a ``state_dict`` key is the flax path with ``/`` -> ``.`` and the
 weights bridge (``cmrtpu_torch/train/checkpoint.py``) is a rename plus an
-HWIO -> OIHW transpose (and a spatial flip for the transpose convolution).
+HWIO -> OIHW (DHWIO -> OIDHW) transpose, and a spatial flip for the
+transpose convolution.
 
-Public layout follows the JAX package: ``UNet.forward`` takes ``[N, H, W, C]``
-and returns ``[N, H, W, classes]`` probabilities; inside, tensors are NCHW.
-Under ``MIXED_PRECISION`` the convs run in bf16 on f32 parameters, the norms
-and the head in f32, as in the reference.
+The rank follows the kernel size, as in the reference: ``len(DIM)`` selects
+2D (``F_SIZE``/``M_POOL`` right-sliced to 2) or 3D (sliced to 3, a [T, H, W]
+cine volume). Public layout follows the JAX package: ``UNet.forward`` takes
+``[N, *spatial, C]`` and returns ``[N, *spatial, classes]`` probabilities;
+inside, tensors are NCHW or NCDHW. Under ``MIXED_PRECISION`` the convs run
+in bf16 on f32 parameters, the norms and the head in f32, as in the
+reference.
 
-Ported: the plain 2D U-Net with GroupNorm, BatchNorm (flax's, train and
-eval mode) or no norm, the upsample and the transpose-conv decoders, and
-single- or multi-head outputs. In train mode dropout draws its masks from
-an explicit ``torch.Generator`` passed to ``forward`` (flax draws them from
-the step's dropout key). Every other configuration (deep supervision, 3D,
-the hybrids, int8, weight standardisation) raises ``NotImplementedError``
-naming its ROADMAP item.
+Ported: the plain 2D and 3D U-Net with GroupNorm, BatchNorm (flax's, train
+and eval mode) or no norm, per-level pools clamped where an axis runs out,
+the upsample and the transpose-conv decoders, and single- or multi-head
+outputs. In train mode dropout draws its masks from an explicit
+``torch.Generator`` passed to ``forward`` (flax draws them from the step's
+dropout key). Every other configuration (deep supervision, the hybrids, the
+(2+1)D blocks, int8, weight standardisation) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -104,17 +110,32 @@ def wide_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+# by the number of spatial axes: convolution, transposed convolution and
+# max-pool of NCHW (2) and NCDHW (3), and the module classes holding them
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_CONV_MODULE = {2: nn.Conv2d, 3: nn.Conv3d}
+_CONV_T_MODULE = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+
+
+def _channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector [C] shaped to broadcast over x [N, C, ...]."""
+    return v.reshape(-1, *[1] * (x.dim() - 2))
+
+
+def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Conv(dtype=...)`` on f32 params: input, kernel and bias are
     cast to the compute dtype; 'SAME' padding. The bias is added after the
     convolution's output is rounded to ``dtype``, where flax adds it: folding
     it into the bf16 convolution rounds once instead of twice, and the
     difference grows to 0.1 in probability through a depth-3 GroupNorm net."""
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding="same")
-    return y + conv.bias.to(dtype)[:, None, None]
+    y = _CONV[x.dim() - 2](x.to(dtype), conv.weight.to(dtype),
+                           padding="same")
+    return y + _channel(conv.bias.to(dtype), y)
 
 
-def _conv_transpose(conv: nn.ConvTranspose2d, x: torch.Tensor,
+def _conv_transpose(conv: nn.Module, x: torch.Tensor,
                     strides: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.ConvTranspose(strides, padding='SAME')`` on f32 params, which
     is ``lax.conv_transpose`` without kernel flip. The bridge stores the
@@ -123,8 +144,8 @@ def _conv_transpose(conv: nn.ConvTranspose2d, x: torch.Tensor,
     ``n * s`` of it per axis, from ``k - 1 - pad_a`` on, with lax's
     ``pad_a`` (zeros past the full output when s > k). The bias is added
     after rounding to ``dtype``, as in ``_conv``."""
-    y = F.conv_transpose2d(x.to(dtype), conv.weight.to(dtype),
-                           stride=tuple(int(s) for s in strides))
+    y = _CONV_T[x.dim() - 2](x.to(dtype), conv.weight.to(dtype),
+                             stride=tuple(int(s) for s in strides))
     for axis, (k, s) in enumerate(zip(conv.weight.shape[2:], strides),
                                   start=2):
         k, s = int(k), int(s)
@@ -135,7 +156,7 @@ def _conv_transpose(conv: nn.ConvTranspose2d, x: torch.Tensor,
             pad = [0, 0] * (y.dim() - axis - 1) + [0, short]
             y = F.pad(y, pad)
         y = y.narrow(axis, start, length)
-    return y + conv.bias.to(dtype)[:, None, None]
+    return y + _channel(conv.bias.to(dtype), y)
 
 
 def _dropout(x: torch.Tensor, rate: float, training: bool,
@@ -156,7 +177,8 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 def _upsample_nearest(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
-    """Nearest-neighbour upsampling of NCHW by integer factors per axis."""
+    """Nearest-neighbour upsampling of NCHW or NCDHW by integer factors per
+    spatial axis."""
     for axis, f in enumerate(factors, start=2):
         if f != 1:
             x = x.repeat_interleave(int(f), dim=axis)
@@ -165,14 +187,15 @@ def _upsample_nearest(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` over the channels
-    of NCHW, in the input's (wide) dtype.
+    of NCHW or NCDHW, in the input's (wide) dtype.
 
-    Train mode normalises with the biased batch statistics over N, H, W in
-    flax's fast form, var = max(mean(x^2) - mean(x)^2, 0), and moves the
-    running averages to ``0.99 * old + 0.01 * batch`` with that biased
-    variance (``nn.BatchNorm2d`` would fold in the unbiased one). Eval mode
-    reads the running averages. Either way y = (x - mean) * (rsqrt(var +
-    eps) * scale) + bias, in flax's order. ``weight`` is flax's ``scale``."""
+    Train mode normalises with the biased batch statistics over N and the
+    spatial axes in flax's fast form, var = max(mean(x^2) - mean(x)^2, 0),
+    and moves the running averages to ``0.99 * old + 0.01 * batch`` with
+    that biased variance (``nn.BatchNorm2d`` would fold in the unbiased
+    one). Eval mode reads the running averages. Either way y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, in flax's order. ``weight`` is
+    flax's ``scale``."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
@@ -193,9 +216,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp(x.square().mean(dim=(0, 2, 3))
-                              - mean.square(), min=0.0)
+            dims = (0, *range(2, x.dim()))
+            mean = x.mean(dim=dims)
+            var = torch.clamp(x.square().mean(dim=dims) - mean.square(),
+                              min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -205,8 +229,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[:, None, None]) * mul[:, None, None]
-                + self.bias[:, None, None])
+        return ((x - _channel(mean, x)) * _channel(mul, x)
+                + _channel(self.bias, x))
 
 
 class ConvBlock(nn.Module):
@@ -217,7 +241,7 @@ class ConvBlock(nn.Module):
     ``batch_norm``. Both use epsilon 1e-3 and run in f32; the block output
     is cast to ``dtype``."""
 
-    def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, int],
+    def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...],
                  activation: str = "relu", batch_norm: bool = True,
                  bn_first: bool = False, group_norm: int = 0,
                  dtype: torch.dtype = torch.bfloat16):
@@ -225,7 +249,8 @@ class ConvBlock(nn.Module):
         self.act = _ACTIVATIONS[activation]
         self.bn_first = bn_first
         self.dtype = dtype
-        self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(f_size), padding="same")
+        self.Conv_0 = _CONV_MODULE[len(f_size)](in_ch, filters, tuple(f_size),
+                                                padding="same")
         self.norm_name: Optional[str] = None
         if group_norm:
             groups = min(int(group_norm), filters)
@@ -259,7 +284,7 @@ class DownBlock(nn.Module):
         self.drop = drop
         self.ConvBlock_1 = ConvBlock(filters, filters, **kw)
 
-    def forward(self, x: torch.Tensor, m_pool: Tuple[int, int],
+    def forward(self, x: torch.Tensor, m_pool: Tuple[int, ...],
                 generator: Optional[torch.Generator] = None):
         skip = self.ConvBlock_1(_dropout(self.ConvBlock_0(x), self.drop,
                                          self.training, generator))
@@ -272,7 +297,8 @@ class DownBlock(nn.Module):
                 f"{', '.join(bad)} of shape {tuple(skip.shape)} to zero size. "
                 "Reduce DEPTH, enlarge DIM, or use per-level clamped pools "
                 "(see effective_pools).")
-        return skip, F.max_pool2d(skip, tuple(m_pool), stride=tuple(m_pool))
+        return skip, _MAX_POOL[skip.dim() - 2](skip, tuple(m_pool),
+                                               stride=tuple(m_pool))
 
 
 class UpBlock(nn.Module):
@@ -285,18 +311,19 @@ class UpBlock(nn.Module):
         self.act = _ACTIVATIONS[kw["activation"]]
         self.dtype = kw["dtype"]
         self.use_upsample = use_upsample
+        f_size = tuple(kw["f_size"])
         if use_upsample:
-            self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(kw["f_size"]),
-                                    padding="same")
+            self.Conv_0 = _CONV_MODULE[len(f_size)](in_ch, filters, f_size,
+                                                    padding="same")
         else:
-            self.ConvTranspose_0 = nn.ConvTranspose2d(
-                in_ch, filters, tuple(kw["f_size"]))
+            self.ConvTranspose_0 = _CONV_T_MODULE[len(f_size)](
+                in_ch, filters, f_size)
         self.ConvBlock_0 = ConvBlock(filters + skip_ch, filters, **kw)
         self.drop = drop
         self.ConvBlock_1 = ConvBlock(filters, filters, **kw)
 
     def forward(self, lower: torch.Tensor, skip: torch.Tensor,
-                up_size: Tuple[int, int],
+                up_size: Tuple[int, ...],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.use_upsample:
             x = _conv(self.Conv_0, _upsample_nearest(lower, up_size),
@@ -311,12 +338,13 @@ class UpBlock(nn.Module):
 
 
 class UNet(nn.Module):
-    """Encoder/decoder 2D U-Net with a sigmoid head, or one head per
-    ``heads`` entry (name, channels, 'sigmoid' | 'softmax')."""
+    """Encoder/decoder U-Net with a sigmoid head, or one head per ``heads``
+    entry (name, channels, 'sigmoid' | 'softmax'); 2D or 3D by
+    ``len(f_size)``."""
 
     def __init__(self, in_channels: int = 1, depth: int = 4, filters: int = 32,
-                 f_size: Tuple[int, int] = (3, 3),
-                 m_pool: Tuple[int, int] = (2, 2), mask_classes: int = 2,
+                 f_size: Tuple[int, ...] = (3, 3),
+                 m_pool: Tuple[int, ...] = (2, 2), mask_classes: int = 2,
                  dropouts: Tuple[float, ...] = (0.3, 0.4, 0.4, 0.5),
                  drop_bottleneck: float = 0.5, activation: str = "relu",
                  batch_norm: bool = True, bn_first: bool = False,
@@ -325,6 +353,9 @@ class UNet(nn.Module):
                  heads: Sequence[Tuple[str, int, str]] = (),
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if len(f_size) != len(m_pool) or len(f_size) not in _CONV:
+            raise ValueError(f"f_size {tuple(f_size)} and m_pool "
+                             f"{tuple(m_pool)} must both have 2 or 3 axes")
         self.depth = depth
         self.filters = filters
         self.f_size = tuple(f_size)
@@ -358,25 +389,26 @@ class UNet(nn.Module):
                             UpBlock(ch, skips[depth - 1 - i], f, drops.pop(),
                                     use_upsample=use_upsample, **kw))
             ch = f
+        conv = _CONV_MODULE[len(f_size)]
         if self.heads:
             for name, channels, _ in self.heads:
-                self.add_module(f"head_{name}", nn.Conv2d(ch, channels, 1))
+                self.add_module(f"head_{name}", conv(ch, channels, 1))
         else:
-            self.head = nn.Conv2d(ch, mask_classes, 1)
+            self.head = conv(ch, mask_classes, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> "UNet":
         """Random init with the reference's initialisers from an explicit
         generator: he_normal conv kernels (fan-in of the transposed kernel
-        [in, out, kh, kw] is in * kh * kw, as flax's HWIO), zero biases, unit
+        [in, out, *k] is in * prod(k), as flax's HWIO / DHWIO), zero biases, unit
         norm scales, zero-mean/unit-variance running stats and the head-bias
         prior on sigmoid heads (a softmax head's common shift is a no-op,
         so its bias stays zero)."""
         with torch.no_grad():
             for mod in self.modules():
-                if isinstance(mod, nn.Conv2d):
+                if isinstance(mod, tuple(_CONV_MODULE.values())):
                     he_normal_(mod.weight, generator)
                     mod.bias.zero_()
-                elif isinstance(mod, nn.ConvTranspose2d):
+                elif isinstance(mod, tuple(_CONV_T_MODULE.values())):
                     he_normal_(mod.weight, generator,
                                fan_in=mod.weight[:, 0].numel())
                     mod.bias.zero_()
@@ -394,10 +426,15 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        """[N, H, W, C] -> [N, H, W, classes] sigmoid probabilities (f32),
-        or with heads a dict name -> [N, H, W, channels] probabilities.
-        ``generator`` draws the dropout masks in train mode."""
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        """[N, *spatial, C] -> [N, *spatial, classes] sigmoid probabilities
+        (f32), or with heads a dict name -> [N, *spatial, channels]
+        probabilities. ``generator`` draws the dropout masks in train
+        mode."""
+        rank = len(self.f_size)
+        if x.dim() != rank + 2:
+            raise ValueError(f"a {rank}D U-Net takes [N, *spatial, C] of "
+                             f"{rank + 2} axes, got {tuple(x.shape)}")
+        x = torch.movedim(x, -1, 1).to(self.dtype)
         pools, clamped = effective_pools(x.shape[2:], self.m_pool, self.depth)
         if clamped:
             warnings.warn(
@@ -422,15 +459,15 @@ class UNet(nn.Module):
         return {name: self._head(getattr(self, f"head_{name}"), x, act)
                 for name, _, act in self.heads}
 
-    def _head(self, conv: nn.Conv2d, x: torch.Tensor,
+    def _head(self, conv: nn.Module, x: torch.Tensor,
               act: str) -> torch.Tensor:
         """1x1 conv in the wide dtype, soft cap, then softmax over the
-        channels or sigmoid; NHWC out."""
-        logits = apply_softcap(F.conv2d(x, conv.weight, conv.bias),
+        channels or sigmoid; channels last out."""
+        logits = apply_softcap(_CONV[x.dim() - 2](x, conv.weight, conv.bias),
                                self.logit_softcap)
         probs = torch.softmax(logits, dim=1) if act == "softmax" \
             else torch.sigmoid(logits)
-        return probs.permute(0, 2, 3, 1)
+        return torch.movedim(probs, 1, -1)
 
 
 def model_summary(model: UNet) -> str:
@@ -472,10 +509,14 @@ def _not_ported(what: str, item: str):
 def build_model(config: Dict, supervision: bool = False,
                 factorized: bool = False) -> UNet:
     """Model factory from the flat config (counterpart of
-    ``cmrtpu.models.unet.build_model``). Parameters are left at torch's
-    defaults: load weights, or call ``reset_parameters(generator)``."""
-    if C.ndims(config) != 2:
-        _not_ported("the 3D U-Net (len(DIM) == 3)", "4.1")
+    ``cmrtpu.models.unet.build_model``): ``len(DIM)`` selects 2D or 3D, and
+    F_SIZE and M_POOL are right-sliced to that rank. Parameters are left at
+    torch's defaults: load weights, or call
+    ``reset_parameters(generator)``."""
+    ndims = C.ndims(config)
+    if ndims not in _CONV:
+        raise ValueError(f"DIM {C.get(config, 'DIM')}: the U-Net is 2D or "
+                         "3D")
     if factorized or C.get(config, "FACTORIZED_3D", False):
         _not_ported("the (2+1)D factorized U-Net", "4.4")
     if supervision:
@@ -496,8 +537,8 @@ def build_model(config: Dict, supervision: bool = False,
         in_channels=int(C.get(config, "IMG_CHANNELS")),
         depth=C.get(config, "DEPTH"),
         filters=C.get(config, "FILTERS"),
-        f_size=tuple(C.get(config, "F_SIZE"))[-2:],
-        m_pool=tuple(C.get(config, "M_POOL"))[-2:],
+        f_size=tuple(C.get(config, "F_SIZE"))[-ndims:],
+        m_pool=tuple(C.get(config, "M_POOL"))[-ndims:],
         mask_classes=C.get(config, "MASK_CLASSES"),
         dropouts=dropout_schedule(config),
         drop_bottleneck=float(C.get(config, "DROPOUT_MAX")),

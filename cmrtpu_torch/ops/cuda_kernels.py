@@ -1,17 +1,21 @@
 """Hand-written CUDA kernels: build, ``ctypes`` binding and wrappers.
 
 Counterpart of ``cmrtpu/ops/pallas_kernels.py``, one kernel for each Pallas
-kernel there:
+kernel there, and one for an XLA loop of cmrtpu's:
 
   ``gaussian_blur_2d_cuda``  K1, ``csrc/gaussian_blur.cu``, replaces
                              ``gaussian_blur_2d_pallas`` (training targets)
   ``converge_labels_cuda``   K2, ``csrc/cc_labels.cu``, replaces
                              ``converge_labels_pallas`` (serving CC filter)
+  ``converge_labels_3d_cuda`` ``csrc/cc_labels_3d.cu``, replaces the
+                             while_loop of ``label_components_3d`` in
+                             ``cmrtpu/ops/connected_components.py``
+                             (CC_FILTER '3d')
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one process
 per source, all at once) and linked into one library in
-``cmrtpu_torch/_build/`` at first use, and again whenever a source is newer
-than the library. Nothing here runs at import: the CPU tests import this
+``cmrtpu_torch/_build/`` at first use, and again whenever a source or a
+header (``csrc/*.cuh``) is newer than the library. Nothing here runs at import: the CPU tests import this
 module on hosts with no ``nvcc`` and no card. A failed build or launch
 raises; there is no fallback on a CUDA tensor.
 """
@@ -32,6 +36,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
+# headers the sources include: a newer one rebuilds the library too
+HEADERS = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libcmrtpu_kernels.so")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -114,12 +120,15 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             if (not os.path.exists(LIBRARY) or os.path.getmtime(LIBRARY)
-                    < max(os.path.getmtime(s) for s in SOURCES)):
+                    < max(os.path.getmtime(s) for s in SOURCES + HEADERS)):
                 build()
             lib = ctypes.CDLL(LIBRARY)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.cc_labels_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr]
             lib.cc_labels_launch.restype = i32
+            lib.cc_labels_3d_launch.argtypes = [ptr, ptr, i32, i32, i32, i32,
+                                                ptr]
+            lib.cc_labels_3d_launch.restype = i32
             lib.gaussian_blur_launch.argtypes = [
                 ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float), i32,
                 i32, i32, ptr]
@@ -143,6 +152,26 @@ def _launch(launcher, device: torch.device, *args) -> None:
         raise RuntimeError(f"{launcher.__name__} failed: cudaError_t {err}")
 
 
+def _mask_bytes(masks: torch.Tensor, name: str, layout: str,
+                plain: str) -> torch.Tensor:
+    """``masks`` as the uint8 view a CC kernel reads, after the checks: a
+    contiguous bool or uint8 CUDA tensor of ``layout``'s axes."""
+    if masks.device.type != "cuda":
+        raise ValueError(f"{name} takes a CUDA tensor, got {masks.device}; "
+                         "the plain version is cmrtpu_torch.ops."
+                         f"connected_components.{plain}")
+    if masks.dim() != len(layout.split(", ")):
+        raise ValueError(f"masks must be [{layout}], got "
+                         f"{tuple(masks.shape)}")
+    if masks.dtype == torch.bool:
+        masks = masks.view(torch.uint8)
+    if masks.dtype != torch.uint8:
+        raise TypeError(f"masks must be bool or uint8, got {masks.dtype}")
+    if not masks.is_contiguous():
+        raise ValueError("masks must be contiguous")
+    return masks
+
+
 def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
     """4-connected component labels of a stack of binary masks [N, H, W]
     (bool or uint8, contiguous, on a CUDA device).
@@ -153,19 +182,8 @@ def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
     fixed point. Any slice size whose indices stay below the sentinel
     (H * W < 2**30) is taken; one call is one launch of the union-find's
     three passes."""
-    if masks.device.type != "cuda":
-        raise ValueError(
-            f"converge_labels_cuda takes a CUDA tensor, got {masks.device}; "
-            "the plain version is "
-            "cmrtpu_torch.ops.connected_components.label_components_2d")
-    if masks.dim() != 3:
-        raise ValueError(f"masks must be [N, H, W], got {tuple(masks.shape)}")
-    if masks.dtype == torch.bool:
-        masks = masks.view(torch.uint8)
-    if masks.dtype != torch.uint8:
-        raise TypeError(f"masks must be bool or uint8, got {masks.dtype}")
-    if not masks.is_contiguous():
-        raise ValueError("masks must be contiguous")
+    masks = _mask_bytes(masks, "converge_labels_cuda", "N, H, W",
+                        "label_components_2d")
     n, h, w = masks.shape
     if h * w >= 2 ** 30:
         raise ValueError(f"[{h}, {w}] slices have indices >= 2**30, the "
@@ -183,6 +201,36 @@ def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
 
 
 converge_labels_cuda.launches = 0  # kernel launches since the last reset
+
+
+def converge_labels_3d_cuda(masks: torch.Tensor) -> torch.Tensor:
+    """26-connected component labels of a stack of binary volumes
+    [N, Z, H, W] (bool or uint8, contiguous, on a CUDA device), each volume
+    labelled on its own.
+
+    Returns int32 [N, Z, H, W]: component id = min volume-linear index
+    ``z * H * W + y * W + x`` of the component, background = 2**30 — the
+    contract of ``cmrtpu.ops.connected_components.label_components_3d``.
+    Volumes whose indices stay below the sentinel (Z * H * W < 2**30) are
+    taken; one call is one launch of the union-find's three passes, for
+    the whole stack."""
+    masks = _mask_bytes(masks, "converge_labels_3d_cuda", "N, Z, H, W",
+                        "label_components_3d")
+    n, z, h, w = masks.shape
+    if z * h * w >= 2 ** 30:
+        raise ValueError(f"[{z}, {h}, {w}] volumes have indices >= 2**30, "
+                         "the background sentinel")
+    labels = torch.empty((n, z, h, w), dtype=torch.int32,
+                         device=masks.device)
+    if labels.numel() == 0:
+        return labels
+    _launch(_library().cc_labels_3d_launch, masks.device, masks.data_ptr(),
+            labels.data_ptr(), n, z, h, w)
+    converge_labels_3d_cuda.launches += 1
+    return labels
+
+
+converge_labels_3d_cuda.launches = 0  # kernel launches since the last reset
 
 
 @functools.lru_cache(maxsize=None)

@@ -73,18 +73,22 @@ def _blur_stack(x: torch.Tensor, sigma: float) -> torch.Tensor:
 
 def smooth_heatmap_targets(mask_channels: torch.Tensor,
                            sigma: float) -> torch.Tensor:
-    """Binary channel masks [B, H, W, C] -> normalised Gaussian heatmaps.
+    """Binary channel masks [B, H, W, C] or [B, T, H, W, C] -> normalised
+    Gaussian heatmaps, each [H, W] plane blurred on its own.
 
-    Each example is min-max normalised jointly over its H, W and C, which is
-    ``cmrtpu``'s ``smooth_heatmap_targets`` applied per example, as its
-    ``finalize_batch`` does (ref: Generators.py:391 normalises the stacked
-    mask of one example globally). An example with no landmark stays all
-    zeros. The layout at this boundary is JAX's, channels last; the blur
-    runs on the [B*C, H, W] stack, one launch per call on the card."""
-    b, h, w, c = mask_channels.shape
-    stack = mask_channels.float().permute(0, 3, 1, 2).reshape(b * c, h, w)
-    blurred = _blur_stack(stack.contiguous(), sigma).reshape(b, c * h * w)
-    lo = blurred.amin(dim=1, keepdim=True)
-    hi = blurred.amax(dim=1, keepdim=True)
-    out = (blurred - lo) / (hi - lo + _EPS)
-    return out.reshape(b, c, h, w).permute(0, 2, 3, 1)
+    Each example is min-max normalised jointly over all its axes (T, H, W
+    and C), which is ``cmrtpu``'s ``smooth_heatmap_targets`` applied per
+    example, as its ``finalize_batch`` does (ref: Generators.py:391
+    normalises the stacked mask of one example globally). An example with
+    no landmark stays all zeros. The layout at this boundary is JAX's,
+    channels last; the blur runs on the [B*C*T, H, W] stack, one launch
+    per call on the card."""
+    b, h, w = mask_channels.shape[0], mask_channels.shape[-3], \
+        mask_channels.shape[-2]
+    moved = torch.movedim(mask_channels.float(), -1, 1)  # [B, C, ..., H, W]
+    blurred = _blur_stack(moved.reshape(-1, h, w).contiguous(), sigma)
+    flat = blurred.reshape(b, moved.shape[1:].numel())
+    lo = flat.amin(dim=1, keepdim=True)
+    hi = flat.amax(dim=1, keepdim=True)
+    out = (flat - lo) / (hi - lo + _EPS)
+    return torch.movedim(out.reshape(moved.shape), 1, -1)

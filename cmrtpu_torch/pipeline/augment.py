@@ -13,6 +13,11 @@ generator); ``apply_params`` is deterministic, so the tests hand it the
 parameters cmrtpu drew and compare the warps. Gates as in the reference: an
 outer gate at AUGMENT_PROB, then inner gates at AUGMENT_PROB (shift, grid
 distortion, downscale) and ROT90_P = 0.2 (rot90).
+
+An example is one [H, W] slice or a [T, H, W] cine volume (with HEADS a
+head axis before the mask's spatial axes); every [H, W] plane of an example
+gets that example's one draw, as ReplayCompose's additional_targets and
+cmrtpu's warp of ``[..., H, W]`` do.
 """
 
 from __future__ import annotations
@@ -209,35 +214,44 @@ def _warp2d(img, ys, xs, nearest: bool, raw_ys, raw_xs, border_mode: int,
             + _cols(top, x1) * wx[:, None, :])
 
 
+def _planes(x: torch.Tensor):
+    """x [B, ..., H, W] -> ([B * P, H, W], P): an example's P planes in a
+    row."""
+    b, h, w = x.shape[0], x.shape[-2], x.shape[-1]
+    per = 1
+    for d in x.shape[1:-2]:
+        per *= d
+    return x.reshape(b * per, h, w), per
+
+
 def apply_params(params: Dict, imgs: torch.Tensor, msks: torch.Tensor):
-    """Augment a batch of 2D examples (images [B, H, W], masks [B, H, W] or
-    [B, n_heads, H, W], the same warp for an example's image and all its
-    masks) with drawn parameters: rot90 (square inputs only), then one
-    composed warp per axis."""
-    if imgs.dim() != 3:
-        raise NotImplementedError(
-            f"augmentation of {imgs.dim() - 1}D examples is not ported to "
-            "cmrtpu_torch yet (ROADMAP slice 4); the port augments [B, H, W]")
-    b, h, w = imgs.shape
-    heads = msks.shape[1] if msks.dim() == 4 else 0
-    if heads:  # the head axis shares its example's warp
-        msks = msks.reshape(b * heads, h, w)
-    per_mask = max(heads, 1)
+    """Augment a batch of examples with drawn parameters: images [B, H, W]
+    or [B, T, H, W], masks of the same shape or with a head axis after B
+    ([B, n_heads, ...]). Every plane of an example, image and masks, gets
+    the example's rot90 (square inputs only), then one composed warp per
+    axis."""
+    if imgs.dim() not in (3, 4):
+        raise ValueError(f"images must be [B, H, W] or [B, T, H, W], got "
+                         f"{tuple(imgs.shape)}")
+    b, h, w = imgs.shape[0], imgs.shape[-2], imgs.shape[-1]
+    flat_i, per_img = _planes(imgs)
+    flat_m, per_msk = _planes(msks)
     if h == w:  # RandomRotate90 (exact, square inputs only)
         k = params["rot_k"]
-        imgs = _rot90(imgs, k)
-        msks = _rot90(msks, k.repeat_interleave(per_mask))
+        flat_i = _rot90(flat_i, k.repeat_interleave(per_img))
+        flat_m = _rot90(flat_m, k.repeat_interleave(per_msk))
     ys, raw_ys = _axis_coords(params, 0, h, b, imgs.device)
     xs, raw_xs = _axis_coords(params, 1, w, b, imgs.device)
     mode, fill = params["border_mode"], params["border_value"]
-    img_out = _warp2d(imgs, ys, xs, False, raw_ys, raw_xs, mode, fill)
-    msk_out = _warp2d(msks, *(t.repeat_interleave(per_mask, dim=0)
-                              for t in (ys, xs)), True,
-                      *(t.repeat_interleave(per_mask, dim=0)
-                        for t in (raw_ys, raw_xs)), mode, fill)
-    if heads:
-        msk_out = msk_out.reshape(b, heads, h, w)
-    return img_out, msk_out
+
+    def warp(flat, per, nearest):
+        return _warp2d(flat, *(t.repeat_interleave(per, dim=0)
+                               for t in (ys, xs)), nearest,
+                       *(t.repeat_interleave(per, dim=0)
+                         for t in (raw_ys, raw_xs)), mode, fill)
+
+    return (warp(flat_i, per_img, False).reshape(imgs.shape),
+            warp(flat_m, per_msk, True).reshape(msks.shape))
 
 
 def _rot90(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

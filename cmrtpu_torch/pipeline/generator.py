@@ -79,12 +79,13 @@ def normalise_batch(imgs: torch.Tensor, scaler: str) -> torch.Tensor:
 def finalize_batch(imgs: torch.Tensor, msks: torch.Tensor, config: Dict,
                    masks: bool = True):
     """The tail of the stochastic stage for a batch on one device: images
-    [B, H, W] and label maps [B, H, W] -> (x [B, H, W, 1], y [B, H, W, C]),
-    JAX's channels-last layout. ``y`` holds one binary channel per
-    MASK_VALUES entry, blurred into heatmaps by K1 when GAUS is on, or the
-    normalised image again when there are no masks.
+    [B, *DIM] and label maps [B, *DIM] (DIM is [H, W] or a cine volume's
+    [T, H, W]) -> (x [B, *DIM, 1], y [B, *DIM, C]), JAX's channels-last
+    layout. ``y`` holds one binary channel per MASK_VALUES entry, blurred
+    into heatmaps by K1 when GAUS is on (every [H, W] plane of the batch in
+    one launch), or the normalised image again when there are no masks.
 
-    With HEADS the label maps are [B, n_heads, H, W], one per head, and
+    With HEADS the label maps are [B, n_heads, *DIM], one per head, and
     ``y`` concatenates per head in HEADS order: a one-hot of labels
     0..C-1 for a softmax head, binary channels for labels 1..C for a
     sigmoid head (K1 heatmaps when GAUS is on, one launch per such head)."""
@@ -121,7 +122,9 @@ class DataGenerator:
     """The deterministic stage of cmrtpu's DataGenerator with its in-memory
     padded cache: ``_cache_x`` [N, *DIM] float32 images and ``_cache_y``
     [N, *DIM] float32 label maps ([N, n_heads, *DIM] with HEADS; the images
-    again without masks)."""
+    again without masks). DIM is a 2D slice's [H, W] or a cine volume's
+    [T, H, W]; RESAMPLE resamples a volume in plane, keeping its t axis
+    (cmrtpu means to, but its call fails on the volume's geometry)."""
 
     def __init__(self, x: Sequence[str], y: Optional[Sequence[str]] = None,
                  config: Optional[Dict] = None,
@@ -197,9 +200,14 @@ class DataGenerator:
 
         if self.resample and img.ndim in (2, 3):
             target_spacing = list(reversed(self.spacing))  # numpy -> sitk order
-            new_size = T.calc_resampled_size(img.size[:len(target_spacing)],
-                                             img.spacing[:len(target_spacing)],
+            k = len(target_spacing)
+            new_size = T.calc_resampled_size(img.size[:k], img.spacing[:k],
                                              target_spacing)
+            # a volume is resampled in plane: its other axes keep their size
+            # and spacing (cmrtpu drops their spacing, and its image then
+            # fails its own geometry check)
+            new_size = [*new_size, *img.size[k:]]
+            target_spacing = [*target_spacing, *img.spacing[k:]]
             img = R.resample_image(img, new_size, target_spacing,
                                    self.img_interpolation)
             msks = [R.resample_image(m, new_size, target_spacing,

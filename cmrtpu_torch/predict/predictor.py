@@ -23,7 +23,8 @@ from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.models.hybrids import get_model
 from cmrtpu_torch.ops import resample as R
-from cmrtpu_torch.ops.connected_components import clean_prediction_2d_cc
+from cmrtpu_torch.ops.connected_components import (clean_prediction_2d_cc,
+                                                   clean_prediction_3d_cc)
 from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.train.checkpoint import load_weights_for_model
@@ -50,17 +51,17 @@ def resolve_device(device) -> torch.device:
 
 def cc_clean_fn(cfg: Dict):
     """The CC_FILTER knob's cleaner, or None when off. Truthy and '2d' keep
-    the biggest 4-connected component per label per slice; '3d' (volume
-    components) is not ported yet."""
+    the biggest 4-connected component per label per slice; '3d' keeps the
+    biggest 26-connected component per label in the whole [Z, H, W]
+    volume, so an isolated blob on a slice without a true detection goes
+    too (cmrtpu's ``cc_clean_fn``)."""
     mode = C.get(cfg, "CC_FILTER", False)
     if isinstance(mode, str):
         norm = mode.strip().lower()
         if norm in ("", "false", "none", "0"):
             return None
         if norm == "3d":
-            raise NotImplementedError(
-                "CC_FILTER='3d' is not ported to cmrtpu_torch yet "
-                "(ROADMAP 4.3); serve it with cmrtpu")
+            return clean_prediction_3d_cc
         if norm in ("2d", "true", "1"):
             return clean_prediction_2d_cc
         raise ValueError(
@@ -206,10 +207,11 @@ def pred_fold(config: Dict, device="cuda") -> bool:
     the heatmap targets on the device in one batch (``finalize_batch``,
     K1), predict, threshold 0.5 into flat labels {1: anterior, 2:
     inferior}, keep the biggest component per label and slice (CC_FILTER,
-    K2, both labels in one launch), map back to the original CMR geometry
+    K2, both labels in one launch; per label in the volume with '3d', the
+    3D kernel), map back to the original CMR geometry
     and write ``gt/`` and ``pred/<patient>_<ED|ES>_msk.nrrd`` and
     ``pred/<patient>_<ED|ES>_cmr.nrrd``. A HEADS model writes each head
-    (``_head_outputs``), with one K2 launch per head."""
+    (``_head_outputs``), with one CC launch per head."""
     start = time.perf_counter()
     TIMING_LOG.debug("pred_fold start", extra={"timing": {"event": "start"}})
     cfg = C.normalise_config(config)

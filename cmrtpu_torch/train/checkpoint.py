@@ -7,9 +7,10 @@ flat ``params/<flax path>`` and ``batch_stats/<flax path>`` keys, e.g.
 ``cmrtpu_torch.models.unet`` carry the same names, so the bridge is:
 
   flax leaf                           torch state_dict entry
-  ``.../Conv_0/kernel`` HWIO          ``....Conv_0.weight`` OIHW
-  ``.../ConvTranspose_0/kernel`` HWIO ``....ConvTranspose_0.weight``
-                                      [in, out, kh, kw], flipped in H, W
+  ``.../Conv_0/kernel`` HWIO, DHWIO   ``....Conv_0.weight`` OIHW, OIDHW
+  ``.../ConvTranspose_0/kernel``      ``....ConvTranspose_0.weight``
+  HWIO, DHWIO                         [in, out, *k], flipped on every
+                                      spatial axis
   ``.../GroupNorm_0/scale``           ``....GroupNorm_0.weight`` (BatchNorm_0
                                       alike)
   ``.../bias``                        ``....bias``
@@ -74,52 +75,88 @@ def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     return tree
 
 
+# a conv kernel's rank: 4 in the 2D U-Net, 5 in the 3D one
+_KERNEL_NDIMS = (4, 5)
+
+
+def _kind(module: str) -> str:
+    """'conv_t', 'conv' or 'norm' by the flax module name, '' otherwise."""
+    if module.startswith("ConvTranspose"):
+        return "conv_t"
+    if module.startswith("Conv") or module == "head" \
+            or module.startswith("head_"):
+        return "conv"
+    if module.startswith(("GroupNorm", "BatchNorm")):
+        return "norm"
+    return ""
+
+
+def _flip_spatial(arr: np.ndarray, rank: int) -> np.ndarray:
+    return arr[(slice(None, None, -1),) * rank]
+
+
 def flax_to_state_dict(params: Dict, batch_stats: Dict = None
                        ) -> Dict[str, torch.Tensor]:
-    """Nested flax trees (numpy leaves) -> torch ``state_dict``."""
+    """Nested flax trees (numpy leaves) -> torch ``state_dict``. A conv
+    kernel [*k, I, O] becomes [O, I, *k]; a transposed one is flipped on
+    its spatial axes and becomes [I, O, *k]. A leaf that is not one of
+    the U-Net's (a kernel of another rank, a scale outside a norm) raises."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in {**_flatten(params),
                       **_flatten(batch_stats or {})}.items():
-        leaf = path[-1]
-        if leaf not in _TO_TORCH or (leaf == "kernel" and arr.ndim != 4):
+        leaf, kind = path[-1], _kind(path[-2]) if len(path) > 1 else ""
+        conv = kind in ("conv", "conv_t")
+        valid = leaf in _TO_TORCH and (
+            (leaf == "kernel" and conv and arr.ndim in _KERNEL_NDIMS)
+            or (leaf == "scale" and kind == "norm" and arr.ndim == 1)
+            or (leaf == "bias" and kind and arr.ndim == 1)
+            or (leaf in ("mean", "var") and kind == "norm" and arr.ndim == 1))
+        if not valid:
             raise ValueError(
-                f"{'/'.join(path)} {arr.shape}: not a leaf of the 2D U-Net "
-                "that cmrtpu_torch ports")
-        if leaf == "kernel" and _transposed(path[-2]):
-            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [I, O, kh, kw]
-        elif leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                f"{'/'.join(path)} {arr.shape}: not a leaf of the 2D or 3D "
+                "U-Net that cmrtpu_torch ports")
+        if leaf == "kernel":
+            rank = arr.ndim - 2
+            if kind == "conv_t":
+                arr = _flip_spatial(arr, rank).transpose(
+                    rank, rank + 1, *range(rank))
+            else:
+                arr = arr.transpose(rank + 1, rank, *range(rank))
         module = ".".join(path[:-1])
         out[f"{module}.{_TO_TORCH[leaf]}"] = torch.tensor(arr.copy())
     return out
 
 
-def _transposed(module: str) -> bool:
-    return module.startswith("ConvTranspose")
-
-
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
                        ) -> Tuple[Dict, Dict]:
-    """torch ``state_dict`` -> (params, batch_stats) nested numpy trees."""
+    """torch ``state_dict`` -> (params, batch_stats) nested numpy trees, the
+    exact inverse of ``flax_to_state_dict``. An entry that is not one of
+    the U-Net's raises."""
     params, stats = {}, {}
     for name, tensor in state_dict.items():
         *module, leaf = name.split(".")
         arr = tensor.detach().cpu().numpy()
-        if leaf == "weight" and arr.ndim == 4 and _transposed(module[-1]):
-            params[(*module, "kernel")] = np.ascontiguousarray(
-                arr.transpose(2, 3, 0, 1)[::-1, ::-1])  # -> HWIO, unflipped
-        elif leaf == "weight" and arr.ndim == 4:
-            params[(*module, "kernel")] = arr.transpose(2, 3, 1, 0)  # -> HWIO
-        elif leaf == "weight":
+        kind = _kind(module[-1]) if module else ""
+        if leaf == "weight" and kind in ("conv", "conv_t") \
+                and arr.ndim in _KERNEL_NDIMS:
+            rank = arr.ndim - 2
+            if kind == "conv_t":  # [I, O, *k] -> [*k, I, O], unflipped
+                arr = _flip_spatial(arr.transpose(*range(2, rank + 2), 0, 1),
+                                    rank)
+            else:  # [O, I, *k] -> [*k, I, O]
+                arr = arr.transpose(*range(2, rank + 2), 1, 0)
+            params[(*module, "kernel")] = np.ascontiguousarray(arr)
+        elif leaf == "weight" and kind == "norm" and arr.ndim == 1:
             params[(*module, "scale")] = arr
-        elif leaf == "bias":
+        elif leaf == "bias" and kind and arr.ndim == 1:
             params[(*module, "bias")] = arr
-        elif leaf == "running_mean":
+        elif leaf == "running_mean" and kind == "norm":
             stats[(*module, "mean")] = arr
-        elif leaf == "running_var":
+        elif leaf == "running_var" and kind == "norm":
             stats[(*module, "var")] = arr
         else:
-            raise ValueError(f"{name}: no flax counterpart")
+            raise ValueError(f"{name} {tuple(arr.shape)}: no flax "
+                             "counterpart in the 2D or 3D U-Net")
     return _unflatten(params), _unflatten(stats)
 
 

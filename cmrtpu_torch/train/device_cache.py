@@ -14,6 +14,10 @@ The matcher's and the augmentation's draws come from the trainer's loop
 generator on the card, whose state a full-state checkpoint keeps. Only the
 epoch's mean logs leave the card, in one transfer.
 
+A 2D cache holds [N, H, W] slices, a 3D (cine) cache [N, T, H, W]
+volumes: each step's draws, targets and histogram matching take one
+example whole, every frame of a volume alike, as cmrtpu's do.
+
 ``CACHE_DTYPE`` sets the images' storage: float32, bfloat16 (half the
 bytes) or uint8 (a quarter, per-example affine quantization); masks of
 small non-negative integers are stored as uint8. Every gather casts to

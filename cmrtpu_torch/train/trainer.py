@@ -19,11 +19,12 @@ import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.models.hybrids import get_model
-from cmrtpu_torch.predict.predictor import resolve_device
+from cmrtpu_torch.predict.predictor import resolve_device, to_numpy
 from cmrtpu_torch.train import checkpoint as ckpt
 from cmrtpu_torch.train import losses as L
 from cmrtpu_torch.train.callbacks import Callback
@@ -128,6 +129,24 @@ class Trainer:
         WeightsSaver): the EMA shadow in place of the parameters when EMA
         is on, the live weights otherwise."""
         return {**self.model.state_dict(), **self.state.inference_params()}
+
+    def predict(self, x: np.ndarray):
+        """Eval-mode forward of a [N, *DIM, C] batch on the trainer's device
+        from ``serving_params`` (the EMA shadow when EMA is on): numpy
+        probabilities [N, *DIM, classes], or a dict of them per head
+        (cmrtpu's ``Trainer.predict``)."""
+        x = np.asarray(x, np.float32)
+        self.model.eval()
+        with torch.inference_mode():
+            out = torch.func.functional_call(
+                self.model, self.serving_params,
+                (torch.as_tensor(x, device=self.device),))
+        return to_numpy(out, x.shape[0])
+
+    def evaluate(self, data: Iterable) -> Dict[str, float]:
+        """Mean eval-step logs over host (x, y) batches (cmrtpu's
+        ``Trainer.evaluate``)."""
+        return self._run_epoch(data, training=False)
 
     # -- checkpoint / resume ----------------------------------------------
     def train_state(self) -> Dict:

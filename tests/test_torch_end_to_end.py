@@ -298,3 +298,31 @@ def test_pred_fold_matches_cmrtpu(trained_exp, data_root, tmp_path):
                 read_image(os.path.join(jax_out, name)).array,
                 atol=CMR_ATOL, rtol=0)
     assert labelled > 0  # the predictions are not all background
+
+
+def test_pred_fold_3d_cc_matches_cmrtpu(trained_exp, tmp_path):
+    """CC_FILTER '3d' on the same fold: both packages keep the biggest
+    26-connected component per label in each patient-phase's volume and
+    write the same label files, byte for byte, which differ from the
+    per-slice filter's."""
+    from cmrtpu.predict.predictor import pred_fold as jax_pred_fold
+
+    fold_dir = os.path.join(trained_exp, "f0")
+    cfg = json.load(open(os.path.join(fold_dir, "config", "config.json")))
+    cfg["CC_FILTER"] = "3d"
+    jax_out, torch_out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_pred_fold(dict(cfg, EXP_PATH=jax_out))
+    assert pred_fold(dict(cfg, EXP_PATH=torch_out), device="cpu")
+    kept, differs = 0, False
+    for p in fold_patients(cfg["DF_FOLDS"], 0):
+        for phase in ("ED", "ES"):
+            name = os.path.join("pred", f"{p}_{phase}_msk.nrrd")
+            with open(os.path.join(jax_out, name), "rb") as fh:
+                want = fh.read()
+            with open(os.path.join(torch_out, name), "rb") as fh:
+                assert fh.read() == want, name
+            volume = read_image(os.path.join(torch_out, name)).array
+            kept += int((volume > 0).sum())
+            differs |= bool((volume != read_image(os.path.join(
+                fold_dir, name)).array).any())
+    assert kept > 0 and differs

@@ -20,6 +20,7 @@ import cmrtpu_torch, cmrtpu_torch.predict.serving, cmrtpu_torch.cli.serve
 import cmrtpu_torch.cli.train, cmrtpu_torch.train.fold
 import cmrtpu_torch.cli.predict, cmrtpu_torch.cli.evaluate_cv
 import cmrtpu_torch.cli.make_dataset, cmrtpu_torch.tools.full_cv_demo
+import cmrtpu_torch.tools.cine_quality_demo, cmrtpu_torch.ops.cuda_kernels
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
 banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu")

@@ -113,6 +113,30 @@ def test_served_outputs_match_cmrtpu(fold_dir, in_dir, tmp_path):
         assert (mt["outputs"], mt["slices"]) == (mj["outputs"], mj["slices"])
 
 
+def test_served_outputs_with_3d_cc_match_cmrtpu(fold_dir, in_dir, tmp_path):
+    """CC_FILTER '3d': both engines keep the biggest 26-connected component
+    per label in each study's volume; the written labels are equal, and
+    differ from the per-slice filter's in some study."""
+    cfg = dict(CFG, CC_FILTER="3d")
+    model = os.path.join(fold_dir, "model")
+    out_j, out_t, out_2d = (tmp_path / "jax", tmp_path / "torch",
+                            tmp_path / "per_slice")
+    jax_serve_directory(JaxEngine(config=cfg, model_path=model), in_dir,
+                        str(out_j))
+    serve_directory(ServingEngine(config=cfg, model_path=model, device="cpu"),
+                    in_dir, str(out_t))
+    serve_directory(ServingEngine(config=CFG, model_path=model, device="cpu"),
+                    in_dir, str(out_2d))
+    differs = False
+    for name, z, _ in STUDIES:
+        stem = f"{name.split('.')[0]}_msk_pred.nrrd"
+        got = read_image(str(out_t / stem)).array
+        assert got.shape == (z, 24, 28)
+        np.testing.assert_array_equal(got, read_image(str(out_j / stem)).array)
+        differs |= bool((got != read_image(str(out_2d / stem)).array).any())
+    assert differs
+
+
 def test_predictor_pads_to_bucket_and_matches_cmrtpu(tmp_path):
     from cmrtpu.predict.predictor import Predictor as JaxPredictor
     from cmrtpu_torch.predict.predictor import Predictor
@@ -159,10 +183,13 @@ def test_cc_clean_fn_modes(mode, cleans):
 
 
 def test_cc_clean_fn_rejects_3d_and_typos():
+    """'3d' selects the volume cleaner (26-connected, per label); a typo
+    raises."""
+    from cmrtpu_torch.ops.connected_components import clean_prediction_3d_cc
     from cmrtpu_torch.predict.predictor import cc_clean_fn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP 4.3"):
-        cc_clean_fn({"CC_FILTER": "3d"})
+    for mode in ("3d", " 3D "):
+        assert cc_clean_fn({"CC_FILTER": mode}) is clean_prediction_3d_cc
     with pytest.raises(ValueError, match="expected a boolean"):
         cc_clean_fn({"CC_FILTER": "2D-ish"})
 

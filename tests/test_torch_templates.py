@@ -1,13 +1,14 @@
-"""Every shipped 2D experiment template trains through cmrtpu_torch on the
-CPU, mirroring tests/test_template_configs.py (the same shrink: 32², depth
-2, 4 filters, batch 4, f32; every behavioural switch kept).
+"""Every shipped experiment template but the sharded-cache one trains
+through cmrtpu_torch on the CPU, mirroring tests/test_template_configs.py
+(the same shrink: 32² or the 3D template's [4, 16, 16], depth 2, 4 filters,
+batch 4, f32; every behavioural switch kept).
 
-Per 2D template: one step of the port's device-resident loop from label
-maps (histogram matching, augmentation, targets and BatchNorm or GroupNorm
-as the template sets them) gives a finite loss; and one train step on a
-fixed batch from cmrtpu's initial weights, dropout 0, gives cmrtpu's loss
-within rel 1e-5. The 3D and sharded-cache templates raise
-``NotImplementedError`` naming their ROADMAP items."""
+Per template: one step of the port's device-resident loop from label maps
+of the template's own rank (histogram matching, augmentation, targets and
+BatchNorm or GroupNorm as the template sets them) gives a finite loss; and
+one train step on a fixed batch from cmrtpu's initial weights, dropout 0,
+gives cmrtpu's loss within rel 1e-5. The sharded-cache template raises
+``NotImplementedError`` naming its ROADMAP item."""
 
 import glob
 import json
@@ -33,8 +34,7 @@ torch.set_num_threads(1)
 TEMPLATES = sorted(glob.glob(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "exp",
     "template_cfgs", "*.json")))
-NOT_PORTED = {"cine_3d_config.json": "ROADMAP 4.1",
-              "sharded_cache_config.json": "ROADMAP 6.2"}
+NOT_PORTED = {"sharded_cache_config.json": "ROADMAP 6.2"}
 PORTED = [p for p in TEMPLATES if os.path.basename(p) not in NOT_PORTED]
 
 
@@ -48,24 +48,25 @@ def _shrunk(path):
 
 
 def _label_maps(cfg, rng, n):
-    """[n, H, W] landmark labels, or [n, n_heads, H, W] for HEADS."""
-    h, w = cfg["DIM"]
-    lm = np.zeros((n, h, w), np.float32)
+    """[n, *DIM] landmark labels (every frame of a 3D example alike), or
+    [n, n_heads, *DIM] for HEADS."""
+    h, w = cfg["DIM"][-2:]
+    lm = np.zeros((n, *cfg["DIM"]), np.float32)
     for i in range(n):
         y, x = rng.integers(4, h - 8, 2)
-        lm[i, y:y + 2, x:x + 2] = 1
-        lm[i, y + 4:y + 6, x + 2:x + 4] = 2
+        lm[i, ..., y:y + 2, x:x + 2] = 1
+        lm[i, ..., y + 4:y + 6, x + 2:x + 4] = 2
     if not cfg.get("HEADS"):
         return lm
-    seg = rng.integers(0, 4, (n, h, w)).astype(np.float32)
+    seg = rng.integers(0, 4, (n, *cfg["DIM"])).astype(np.float32)
     return np.stack([lm, seg], axis=1)
 
 
-def test_every_2d_template_is_covered():
+def test_every_ported_template_is_covered():
     names = {os.path.basename(p) for p in PORTED}
-    assert names == {"example_config.json", "gaus_sigma2_config.json",
-                     "gaus_sigma4_config.json", "histmatch_config.json",
-                     "multihead_config.json"}
+    assert names == {"cine_3d_config.json", "example_config.json",
+                     "gaus_sigma2_config.json", "gaus_sigma4_config.json",
+                     "histmatch_config.json", "multihead_config.json"}
 
 
 @pytest.mark.parametrize("path", PORTED,
@@ -73,7 +74,7 @@ def test_every_2d_template_is_covered():
 def test_template_trains_and_matches_cmrtpu(path):
     cfg = _shrunk(path)
     rng = np.random.default_rng(0)
-    xs = rng.normal(size=(8, 32, 32)).astype(np.float32)
+    xs = rng.normal(size=(8, *cfg["DIM"])).astype(np.float32)
     ys = _label_maps(cfg, rng, 8)
 
     # the whole loop step, every switch of the template on

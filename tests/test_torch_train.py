@@ -282,7 +282,9 @@ def test_device_default_is_cuda():
 
 @pytest.mark.parametrize("extra,error", [
     ({"LOSS_FUNCTION": "focal"}, NotImplementedError),
-    ({"DIM": [8, 32, 32]}, NotImplementedError),
+    # the 3D U-Net trains (tests/test_torch_cine.py); MONITOR_LOCALISATION
+    # covers 2D only, as in cmrtpu
+    ({"DIM": [8, 32, 32]}, ValueError),
     ({"PAD": "valid"}, NotImplementedError),
     ({"KERNEL_INIT": "glorot_uniform"}, NotImplementedError),
     ({"QUANT_INT8": True}, ValueError),

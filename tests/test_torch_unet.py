@@ -114,10 +114,10 @@ def test_reset_parameters_is_seeded_he_normal():
 
 
 @pytest.mark.parametrize("extra", [
-    {"DIM": [8, 32, 32]}, {"QUANT_INT8": True},
+    {"QUANT_INT8": True},
     {"WEIGHT_STANDARDISATION": True}, {"FACTORIZED_3D": True},
     {"MODEL_VARIANT": "avg"}, {"MODEL_VARIANT": "unet_2p1d"},
-], ids=["3d", "int8", "ws", "factorized", "hybrid", "2p1d"])
+], ids=["int8", "ws", "factorized", "hybrid", "2p1d"])
 def test_unported_configs_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({**BASE, **extra})
