@@ -108,12 +108,29 @@ Run from the root of a checkout. Phases, one line each:
                  2, bf16 and f32 (TF32 off) on the card against float64 on
                  the card, with both decoders; controls that skip a norm
                  must fall outside the bf16 bounds;
- 22. train-3d  — that template at its widths, EPOCHS 2, through
+ 22. forward-hybrid — each MODEL_VARIANT of that template (wrapper,
+                 followed, concat, avg, avg_plain, unet_2p1d) and the
+                 template with deep supervision, at its widths, batch 2,
+                 BatchNorm averages from one batch: bf16 on the card
+                 against float64 on the card within each case's bounds,
+                 which its controls (a skipped norm per trunk, z folded in
+                 the wrong order, a (2+1)D block without its middle
+                 activation, no supervision gate, no head_avg) must fail;
+                 softmax outputs sum to 1; the wrapper equals its 2D trunk
+                 slice by slice;
+ 23. train-3d  — that template at its widths, EPOCHS 2, through
                  DataGenerator + Trainer.fit_cached on 24 + 8 cine volumes
                  of the ported cine demo: K1 exactly once per train and
                  eval step; Trainer.predict on the validation volumes equal
                  to the restored Predictor's; warm steps timed (median of
-                 12) and profiled, frames/s and the peak memory.
+                 12) and profiled, frames/s and the peak memory;
+ 24. train-hybrid — the same for MODEL_VARIANT wrapper, avg and unet_2p1d
+                 on the same cohort; then followed and concat one warm and
+                 one timed step each, K1 once a step.
+Inside phase 16's cohort, after cache-dtype: supervision — the flagship
+through Trainer(cfg, supervision=True).fit_cached for one epoch, K1 once
+per train and eval step, the model.npz restored through Predictor with its
+branch and equal to Trainer.predict.
 Inside phase 7, after evaluate: cc3d-cli — a copy of the flagship fold
 with CC_FILTER '3d' through cli.predict and cli.serve: the 3D kernel once
 per patient-phase, study and warm-up, K2 never, each cleaned volume equal
@@ -121,8 +138,8 @@ to scipy's 26-connected filter of the same thresholded predictions and each
 written label file that filter's output in the written geometry.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
-resume, resume-exact and ema phases' runs, train_3d, and predict_cli_3d
-and serve_3d with CC_FILTER '3d'),
+resume, resume-exact and ema phases' runs, supervision, train_3d, the
+train-hybrid runs, and predict_cli_3d and serve_3d with CC_FILTER '3d'),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
@@ -156,6 +173,7 @@ from cmrtpu_torch.cli.serve import main as serve_main
 from cmrtpu_torch.cli.train import main as train_main
 from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
+from cmrtpu_torch.models.hybrids import HYBRIDS, get_model
 from cmrtpu_torch.models.unet import BatchNorm, build_model
 from cmrtpu_torch.ops import connected_components as cc
 from cmrtpu_torch.ops import cuda_kernels as kernels
@@ -1885,12 +1903,14 @@ def phase_trainer_features(cfg):
         _make_dataset(data_root)
         by_path.update(phase_resume(cfg, data_root, work))
         by_path.update(phase_resume_exact(cfg, data_root, work))
-        x_tr, y_tr, _, _ = get_trainings_files(
+        x_tr, y_tr, x_val, y_val = get_trainings_files(
             os.path.join(data_root, "2D"), 0,
             os.path.join(data_root, "df_kfold.csv"))
         gen = DataGenerator(x_tr, y_tr, config=cfg)
         by_path.update(phase_ema(cfg, data_root, work, gen))
         phase_cache_dtype(cfg, gen)
+        by_path.update(phase_supervision(
+            cfg, work, gen, DataGenerator(x_val, y_val, config=cfg)))
     check(not _loaded_foreign(), f"trainer: loaded {_loaded_foreign()}")
     return by_path
 
@@ -1959,10 +1979,7 @@ def phase_forward_3d(cfg, phase, bf16_max, bf16_mean, unheld=()):
         model.load_state_dict(card_f32.state_dict())
         ref = build_model(f32_cfg).cuda().eval()
         ref.load_state_dict(card_f32.state_dict())
-        ref.double()
-        for mod in ref.modules():
-            if hasattr(mod, "dtype"):
-                mod.dtype = torch.float64
+        _as_float64(ref)
         with torch.inference_mode():
             want = ref(x.double()).float().cpu().numpy()
             bf16 = model(x).cpu().numpy()
@@ -1998,81 +2015,382 @@ def phase_forward_3d(cfg, phase, bf16_max, bf16_mean, unheld=()):
               "therefore cannot tell a wrong forward from bf16 rounding")
 
 
-def phase_train_3d():
-    """The 3D template at its published widths, EPOCHS 2, through
-    DataGenerator + Trainer.fit_cached on a cine cohort of the ported demo
-    (24 train and 8 validation volumes): K1 exactly once per train and eval
-    step, then Trainer.predict on the validation volumes, equal to the
-    model.npz it saves restored through Predictor; then warm steps timed
-    and profiled, with the peak memory. Returns the launches by path."""
+def _cine_cohort(work):
+    """The ported cine demo's cohort for train-3d and train-hybrid: 24
+    train and 8 validation volumes through DataGenerator (the template's
+    RESAMPLE to 1.2 mm, cropped to DIM). Returns the generators and the
+    seconds of the cohort's writing and of the host stage."""
     with open(CINE, encoding="utf-8") as fh:
-        cfg = dict(json.load(fh), EPOCHS=2)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cine_") as work:
-        t0 = time.perf_counter()
-        xs, ys, _ = generate_cine_cohort(work, CINE_TRAIN + CINE_VAL, CINE_T,
-                                         CINE_HW)
-        cohort_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        train = DataGenerator(xs[:CINE_TRAIN], ys[:CINE_TRAIN], config=cfg)
-        val = DataGenerator(xs[CINE_TRAIN:], ys[CINE_TRAIN:], config=cfg)
-        host_s = time.perf_counter() - t0
-        check(train._cache_x.shape == (CINE_TRAIN, *cfg["DIM"])
-              and val._cache_y.shape == (CINE_VAL, *cfg["DIM"]),
-              f"train-3d: caches {train._cache_x.shape}, "
-              f"{val._cache_y.shape}")
-        batch = int(cfg["BATCHSIZE"])
-        steps, eval_steps = CINE_TRAIN // batch, -(-CINE_VAL // batch)
-        trainer = Trainer(cfg, device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.gaussian_blur_2d_cuda.launches = 0
-        kernels.converge_labels_cuda.launches = 0
-        kernels.converge_labels_3d_cuda.launches = 0
-        t0 = time.perf_counter()
-        hist = trainer.fit_cached(train, val)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = {"k1": kernels.gaussian_blur_2d_cuda.launches,
-                    "k2": kernels.converge_labels_cuda.launches,
-                    "cc3d": kernels.converge_labels_3d_cuda.launches}
-        fit_peak = torch.cuda.max_memory_allocated()
-        want = 2 * (steps + eval_steps)
-        check(launches == {"k1": want, "k2": 0, "cc3d": 0},
-              f"train-3d: launches {launches} for 2 x ({steps} train + "
-              f"{eval_steps} eval) steps, want K1 {want} and no CC")
-        keys = ("loss", "val_loss", "dice_coef_labels", "val_dice_coef_labels")
-        check(len(hist) == 2 and all(np.isfinite(h[k]) for h in hist
-                                     for k in keys),
-              f"train-3d: history {hist}")
+        cfg = json.load(fh)
+    t0 = time.perf_counter()
+    xs, ys, _ = generate_cine_cohort(work, CINE_TRAIN + CINE_VAL, CINE_T,
+                                     CINE_HW)
+    cohort_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = DataGenerator(xs[:CINE_TRAIN], ys[:CINE_TRAIN], config=cfg)
+    val = DataGenerator(xs[CINE_TRAIN:], ys[CINE_TRAIN:], config=cfg)
+    host_s = time.perf_counter() - t0
+    check(train._cache_x.shape == (CINE_TRAIN, *cfg["DIM"])
+          and val._cache_y.shape == (CINE_VAL, *cfg["DIM"]),
+          f"cine cohort: caches {train._cache_x.shape}, "
+          f"{val._cache_y.shape}")
+    return train, val, {"cohort_s": cohort_s, "host_stage_s": host_s}
 
-        x = normalise_batch(torch.from_numpy(val._cache_x),
-                            str(cfg.get("SCALER", "MinMax")))[..., None].numpy()
-        probs = trainer.predict(x)
-        check(probs.shape == (CINE_VAL, *cfg["DIM"], 2)
-              and np.isfinite(probs).all(),
-              f"train-3d: Trainer.predict gave {probs.shape}")
-        model_dir = os.path.join(work, "model")
-        save_weights(model_dir, trainer.serving_params)
-        served = Predictor(cfg, model_dir, device="cuda").predict(x)
-        check(np.array_equal(served, probs),
-              "train-3d: the restored Predictor differs from Trainer.predict "
-              f"by {float(np.abs(served - probs).max())}")
 
-        loop = DeviceCachedLoop(trainer, train)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timing = _time_loop(loop)
-        step_peak = torch.cuda.max_memory_allocated()
-    frames_per_s = batch * CINE_T / (timing["step_ms_median"] / 1e3)
-    log("train-3d", dim=cfg["DIM"], batch=batch,
-        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-        train_steps=2 * steps,
-        eval_steps=2 * eval_steps, launches=launches, cohort_s=cohort_s,
-        host_stage_s=host_s, fit_s=fit_s, peak_memory_bytes_fit=fit_peak,
-        peak_memory_bytes_steps=step_peak, frames_per_s=frames_per_s,
+def _reset_counts():
+    """K1's and K2's counts to 0. The 3D CC kernel's is left as it is:
+    main sets it to 0 once the CC_FILTER '3d' paths have run and checks at
+    the end that no later path launched it."""
+    kernels.gaussian_blur_2d_cuda.launches = 0
+    kernels.converge_labels_cuda.launches = 0
+
+
+def _counts():
+    return {"k1": kernels.gaussian_blur_2d_cuda.launches,
+            "k2": kernels.converge_labels_cuda.launches,
+            "cc3d": kernels.converge_labels_3d_cuda.launches}
+
+
+def _fit_cine(cfg, train, val, phase, work):
+    """``cfg`` (the 3D template with its MODEL_VARIANT), EPOCHS 2, through
+    Trainer.fit_cached on the cine cohort: K1 exactly once per train and
+    eval step; Trainer.predict on the validation volumes equal to the
+    model.npz it saves restored through Predictor; then warm steps timed
+    and profiled, with the peak memory. Returns the launches and the
+    line's fields."""
+    batch = int(cfg["BATCHSIZE"])
+    steps, eval_steps = CINE_TRAIN // batch, -(-CINE_VAL // batch)
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit_cached(train, val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    want = 2 * (steps + eval_steps)
+    check(launches == {"k1": want, "k2": 0, "cc3d": 0},
+          f"{phase}: launches {launches} for 2 x ({steps} train + "
+          f"{eval_steps} eval) steps, want K1 {want} and no CC")
+    keys = ("loss", "val_loss", "dice_coef_labels", "val_dice_coef_labels")
+    check(len(hist) == 2 and all(np.isfinite(h[k]) for h in hist
+                                 for k in keys),
+          f"{phase}: history {hist}")
+
+    x = normalise_batch(torch.from_numpy(val._cache_x),
+                        str(cfg.get("SCALER", "MinMax")))[..., None].numpy()
+    probs = trainer.predict(x)
+    check(probs.shape == (CINE_VAL, *cfg["DIM"], 2)
+          and np.isfinite(probs).all(),
+          f"{phase}: Trainer.predict gave {probs.shape}")
+    model_dir = os.path.join(work, phase, "model")
+    save_weights(model_dir, trainer.serving_params)
+    served = Predictor(cfg, model_dir, device="cuda").predict(x)
+    check(np.array_equal(served, probs),
+          f"{phase}: the restored Predictor differs from Trainer.predict "
+          f"by {float(np.abs(served - probs).max())}")
+
+    loop = DeviceCachedLoop(trainer, train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing = _time_loop(loop)
+    step_peak = torch.cuda.max_memory_allocated()
+    del loop, trainer
+    torch.cuda.empty_cache()
+    fields = dict(
+        variant=cfg.get("MODEL_VARIANT", "unet"), dim=cfg["DIM"],
+        batch=batch, cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        train_steps=2 * steps, eval_steps=2 * eval_steps, launches=launches,
+        fit_s=fit_s, peak_memory_bytes_fit=fit_peak,
+        peak_memory_bytes_steps=step_peak,
+        frames_per_s=batch * CINE_T / (timing["step_ms_median"] / 1e3),
         history=[{k: h[k] for k in keys + ("epoch_time",)} for h in hist],
         predict_equal_restored=True, **timing)
+    return launches, fields
+
+
+def phase_train_3d(train, val, cohort, work):
+    """The 3D template at its published widths, EPOCHS 2, through
+    DataGenerator + Trainer.fit_cached on the cine cohort (``_fit_cine``).
+    Returns the launches by path."""
+    with open(CINE, encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), EPOCHS=2)
+    launches, fields = _fit_cine(cfg, train, val, "train-3d", work)
+    log("train-3d", **cohort, **fields)
     return {"train_3d": launches}
+
+
+# -- slice 4, rest: the hybrids, the (2+1)D U-Net and deep supervision ------
+
+# forward-hybrid: each MODEL_VARIANT of the cine template (and the template
+# with deep supervision) at its published widths, batch FWD3D_BATCH, card
+# bf16 and card f32 (TF32 off) against float64 on the card. bf16 bounds
+# (max, mean) per case at ~2x the error measured on an H100 (700 W) in a
+# probe: wrapper 0.068 / 0.0054, followed 0.214 / 0.021, concat 0.060 /
+# 0.0060, avg 0.0030 / 0.00032, avg_plain 0.011 / 0.0012, unet_2p1d
+# 0.833 / 0.062, supervision 0.096 / 0.0068 (PERF.md). The (2+1)D net's
+# bf16 output is cmrtpu's (tests/test_torch_hybrids.py holds the two within
+# 2e-2): its blocks leave channels dead after the middle ReLU, whose
+# BatchNorm (variance 0 + eps) magnifies bf16 rounding about 30x; so its
+# max bound is void and only its mean bounds it. Every control
+# must fail its case's f32 bound, and its bf16 bounds but those named in
+# HYBRID_UNHELD, whose faults bf16 rounding hides at a random init (their
+# errors are logged)
+HYBRID_BF16 = {"wrapper": (0.14, 0.011), "followed": (0.43, 0.042),
+               "concat": (0.12, 0.012), "avg": (0.006, 0.00064),
+               "avg_plain": (0.0225, 0.0024), "unet_2p1d": (1.0, 0.124),
+               "supervision": (0.19, 0.0135)}
+HYBRID_UNHELD = {"followed": ("no_norm_unet_3d.ConvBlock_1",),
+                 "concat": ("no_norm_unet_3d.ConvBlock_1",),
+                 "unet_2p1d": ("no_norm_ConvBlock_1",
+                               "no_mid_act_ConvBlock_1")}
+# wrapper's output against its 2D trunk slice by slice, f32 with TF32 off
+# (cuDNN may pick another algorithm for a batch of 2 than of 16 slices)
+SLICEWISE_ATOL = 1e-4
+# softmax outputs (f32 heads) sum to 1
+SOFTMAX_SUM_ATOL = 1e-5
+# train-hybrid: fitted, restored and timed as train-3d; then one timed
+# step each of the other two hybrids
+TRAIN_HYBRIDS = ("wrapper", "avg", "unet_2p1d")
+STEP_HYBRIDS = ("followed", "concat")
+
+
+def _hybrid_case(cine, name):
+    """(config, supervision) of a forward-hybrid case."""
+    if name == "supervision":
+        return dict(cine), True
+    return dict(cine, MODEL_VARIANT=name), False
+
+
+def _as_float64(model):
+    """``model`` evaluated in float64: parameters, buffers and every
+    module's compute dtype."""
+    model.double()
+    for mod in model.modules():
+        if hasattr(mod, "dtype"):
+            mod.dtype = torch.float64
+    return model
+
+
+def _without_mid_act(model, block):
+    """A copy of ``model`` whose (2+1)D ConvBlock ``block`` skips the
+    activation between its spatial and temporal convs."""
+    control = copy.deepcopy(model)
+    blk = control.get_submodule(block)
+    act = blk.act
+
+    def conv(x):
+        blk.act = lambda y: y
+        try:
+            return type(blk)._conv(blk, x)
+        finally:
+            blk.act = act
+
+    blk._conv = conv
+    return control
+
+
+def _folded_zb(model):
+    """A copy of the hybrid ``model`` that folds z into the batch in
+    [Z, B] order and restacks as [B, Z]: each slice's output lands at
+    another example's or depth's place."""
+    control = copy.deepcopy(model)
+
+    def slice_forward(x, generator=None):
+        b, z = x.shape[:2]
+        y = control.unet_2d(x.transpose(0, 1).reshape(b * z, *x.shape[2:]))
+        return y.reshape(b, z, *y.shape[1:])
+
+    control._slice_forward = slice_forward
+    return control
+
+
+def _hybrid_controls(model, name, x):
+    """Forwards of faulty copies of ``model`` on ``x``: a constant 0.5, a
+    norm skipped in the bottleneck of each trunk and in the 3D trunk's
+    first block, z folded in [Z, B] order, and per case a fault of its own
+    (no middle activation in a (2+1)D block, no supervision gate, no
+    head_avg)."""
+    out = {"constant_0.5": lambda: torch.full(
+        (*x.shape[:-1], 2), 0.5, device=x.device)}
+    blocks = ["ConvBlock_1"]
+    if name in HYBRIDS:
+        blocks = ["unet_2d.ConvBlock_1"]
+        out["z_folded_as_zb"] = lambda: _folded_zb(model)(x)
+    if name in HYBRIDS and name != "wrapper":
+        blocks += ["unet_3d.ConvBlock_1", "unet_3d.DownBlock_0.ConvBlock_0"]
+    for block in blocks:
+        out[f"no_norm_{block}"] = lambda b=block: _without_norm(model, b)(x)
+    if name == "unet_2p1d":
+        for block in ("DownBlock_0.ConvBlock_0", "ConvBlock_1"):
+            out[f"no_mid_act_{block}"] = \
+                lambda b=block: _without_mid_act(model, b)(x)
+    if name == "supervision":
+        def ungated():
+            control = copy.deepcopy(model)
+            control.supervision = False
+            return control(x)
+        out["no_supervision_gate"] = ungated
+    if name == "avg":
+        def no_head_avg():
+            control = copy.deepcopy(model)
+            control.final_conv = False
+            return control(x)
+        out["no_head_avg"] = no_head_avg
+    return out
+
+
+def phase_forward_hybrid(cine, name):
+    """One MODEL_VARIANT of the cine template (or the template with deep
+    supervision) at its published widths, BatchNorm averages from one
+    batch: card f32 (TF32 off) and bf16 against float64 on the card within
+    the case's bounds, which every control must fail (bf16: but those in
+    HYBRID_UNHELD); softmax outputs sum to 1; the wrapper equals its 2D
+    trunk slice by slice."""
+    cfg, supervision = _hybrid_case(cine, name)
+    bf16_max, bf16_mean = HYBRID_BF16[name]
+    unheld = HYBRID_UNHELD.get(name, ())
+    phase = "forward-hybrid"
+    with _tf32_off():
+        f32_cfg = dict(cfg, MIXED_PRECISION=False)
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (FWD3D_BATCH, *cfg["DIM"], 1)).astype(np.float32)).cuda()
+        card_f32 = _calibrate_bn(get_model(f32_cfg, supervision)
+                                 .reset_parameters(
+                                     torch.Generator().manual_seed(SEED))
+                                 .cuda(), x)
+        model = get_model(cfg, supervision).cuda().eval()
+        model.load_state_dict(card_f32.state_dict())
+        ref = get_model(f32_cfg, supervision).cuda().eval()
+        ref.load_state_dict(card_f32.state_dict())
+        _as_float64(ref)
+        with torch.inference_mode():
+            want = ref(x.double()).float().cpu().numpy()
+            bf16 = model(x).cpu().numpy()
+            f32 = card_f32(x).cpu().numpy()
+            ms = cuda_ms(lambda: model(x), 5)
+            ms_f64 = cuda_ms(lambda: ref(x.double()), 1)
+            controls = {
+                prec: {k: _errors(fn().float().cpu().numpy(), want)
+                       for k, fn in _hybrid_controls(m, name, x).items()}
+                for prec, m in (("bf16", model), ("f32", card_f32))}
+            slicewise = None
+            if name == "wrapper":
+                per_slice = torch.stack([card_f32.unet_2d(x[:, z])
+                                         for z in range(x.shape[1])], dim=1)
+                slicewise = float((card_f32(x) - per_slice).abs().max())
+    shape = (FWD3D_BATCH, *cfg["DIM"], 2)
+    check(bf16.shape == shape and np.isfinite(bf16).all(),
+          f"{phase} {name}: bad output {bf16.shape}")
+    err, f32_err = _errors(bf16, want), _errors(f32, want)
+    sum_err = None
+    if name in HYBRIDS and name != "wrapper":
+        sum_err = float(np.abs(bf16.sum(-1) - 1.0).max())
+    log(phase, case=name, batch=FWD3D_BATCH, dim=cfg["DIM"], ms=ms,
+        f64_ms=ms_f64, f32_vs_f64=f32_err, bf16_vs_f64=err,
+        controls_bf16_vs_f64=controls["bf16"],
+        controls_f32_vs_f64=controls["f32"],
+        bounds={"f32_max": F32_3D_ATOL, "bf16_max": bf16_max,
+                "bf16_mean": bf16_mean}, controls_not_held=list(unheld),
+        softmax_sum_err=sum_err, wrapper_vs_slicewise_f32=slicewise)
+    check(f32_err["max"] <= F32_3D_ATOL,
+          f"{phase} {name}: card f32 max {f32_err['max']} > {F32_3D_ATOL}")
+    check(err["max"] <= bf16_max and err["mean"] <= bf16_mean,
+          f"{phase} {name}: card bf16 {err} outside ({bf16_max}, "
+          f"{bf16_mean})")
+    for control, e in controls["f32"].items():
+        check(e["max"] > F32_3D_ATOL,
+              f"{phase} {name}: f32 control {control} {e} passes the f32 "
+              "bound")
+    for control, e in controls["bf16"].items():
+        check(control in unheld or e["max"] > bf16_max
+              or e["mean"] > bf16_mean,
+              f"{phase} {name}: control {control} {e} passes the bf16 "
+              "bounds, which therefore cannot tell it from bf16 rounding")
+    check(sum_err is None or sum_err <= SOFTMAX_SUM_ATOL,
+          f"{phase} {name}: softmax sums off 1 by {sum_err}")
+    check(slicewise is None or slicewise <= SLICEWISE_ATOL,
+          f"{phase} wrapper: {slicewise} from its 2D trunk slice by slice")
+
+
+def phase_train_hybrid(cine, train, val, work):
+    """wrapper, avg and unet_2p1d on the cine template at its widths,
+    EPOCHS 2, as train-3d (``_fit_cine``); then followed and concat take
+    one timed step each after one warm step, K1 once a step. Returns the
+    launches by path."""
+    by_path = {}
+    for variant in TRAIN_HYBRIDS:
+        cfg = dict(cine, EPOCHS=2, MODEL_VARIANT=variant)
+        launches, fields = _fit_cine(cfg, train, val,
+                                     f"train-hybrid-{variant}", work)
+        log("train-hybrid", **fields)
+        by_path[f"train_hybrid_{variant}"] = launches
+    for variant in STEP_HYBRIDS:
+        trainer = Trainer(dict(cine, MODEL_VARIANT=variant), device="cuda")
+        loop = DeviceCachedLoop(trainer, train)
+        idx = torch.from_numpy(loop._epoch_indices(loop.n_train,
+                                                   False)).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        step_ms = _warm_step_ms(lambda: loop.train_step(idx[0]), reps=1,
+                                warm=1)
+        launches = _counts()
+        check(launches == {"k1": 2, "k2": 0, "cc3d": 0},
+              f"train-hybrid {variant}: launches {launches} for 2 steps")
+        log("train-hybrid", variant=variant, batch=loop.batch,
+            steps=2, timed_steps=1, launches=launches, step_ms=step_ms,
+            frames_per_s=loop.batch * CINE_T / (step_ms / 1e3),
+            peak_memory_bytes_steps=torch.cuda.max_memory_allocated())
+        by_path[f"step_hybrid_{variant}"] = launches
+        del loop, trainer
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_supervision(cfg, work, gen, val_gen):
+    """The flagship through Trainer(cfg, supervision=True).fit_cached for
+    one epoch on the phantom cohort: K1 once per train and eval step; the
+    model.npz it saves restores through Predictor with the supervision
+    branch, equal to Trainer.predict bit for bit. Returns the launches by
+    path."""
+    trainer = Trainer(cfg, device="cuda", supervision=True)
+    check(trainer.model.supervision, "supervision: no branch built")
+    batch = int(cfg["BATCHSIZE"])
+    n_train, n_val = len(gen._cache_x), len(val_gen._cache_x)
+    steps, eval_steps = n_train // batch, -(-n_val // batch)
+    _reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit_cached(gen, val_gen, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts()
+    check(launches == {"k1": steps + eval_steps, "k2": 0, "cc3d": 0},
+          f"supervision: launches {launches} for {steps} train and "
+          f"{eval_steps} eval steps")
+    check(np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["val_loss"]),
+          f"supervision: history {hist}")
+    model_dir = os.path.join(work, "supervision", "model")
+    save_weights(model_dir, trainer.serving_params)
+    pred = Predictor(cfg, model_dir, device="cuda")
+    check(pred.model.supervision,
+          "supervision: the Predictor built no supervision branch")
+    x = np.random.default_rng(SEED).standard_normal(
+        (8, H, W, 1)).astype(np.float32)
+    probs = trainer.predict(x)
+    served = pred.predict(x)
+    check(np.array_equal(served, probs),
+          "supervision: the restored Predictor differs from Trainer.predict "
+          f"by {float(np.abs(served - probs).max())}")
+    log("supervision", train_steps=steps, eval_steps=eval_steps,
+        launches=launches, fit_s=fit_s,
+        history={k: hist[0][k] for k in ("loss", "val_loss", "val_loc_mm")},
+        predict_equal_restored=True)
+    del trainer, pred
+    torch.cuda.empty_cache()
+    return {"supervision": launches}
 
 
 def scipy_clean_3d(pred, values):
@@ -2335,7 +2653,12 @@ def main():
     phase_forward_3d(dict(cine, USE_UPSAMPLE=False), "forward-3d-transpose",
                      BF16_3D_T_MAX_ATOL, BF16_3D_T_MEAN_ATOL,
                      unheld=("no_norm_ConvBlock_1",))
-    by_path.update(phase_train_3d())
+    for name in HYBRID_BF16:
+        phase_forward_hybrid(cine, name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cine_") as work:
+        train, val, cohort = _cine_cohort(work)
+        by_path.update(phase_train_3d(train, val, cohort, work))
+        by_path.update(phase_train_hybrid(cine, train, val, work))
     # every path but cli.predict and cli.serve with CC_FILTER '3d' (counted
     # by their own entries) ran without the 3D kernel
     check(kernels.converge_labels_3d_cuda.launches == 0,

@@ -25,7 +25,9 @@ Layer map, entry points first:
   pipeline/augment.py          draw_params / apply_params on the card
   pipeline/histmatch.py        Var.1 histogram matching (binned, exact), quota gate
   data/dataset.py              slice names, fold lists
-  models/hybrids.py, unet.py   get_model; 2D U-Net nn.Modules (NHWC in/out)
+  models/hybrids.py            get_model; the 2D-in-3D hybrids
+  models/unet.py               2D/3D U-Net, (2+1)D blocks, deep supervision
+  models/layers.py             resizes, affine helpers, UnetWrapper
   train/checkpoint.py          model.npz in the cmrtpu key layout (weights bridge)
   ops/gaussian.py              heatmap targets; plain torch blur
   ops/connected_components.py  largest-component filter; plain torch labels

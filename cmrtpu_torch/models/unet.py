@@ -27,12 +27,13 @@ reference.
 
 Ported: the plain 2D and 3D U-Net with GroupNorm, BatchNorm (flax's, train
 and eval mode) or no norm, per-level pools clamped where an axis runs out,
-the upsample and the transpose-conv decoders, and single- or multi-head
-outputs. In train mode dropout draws its masks from an explicit
-``torch.Generator`` passed to ``forward`` (flax draws them from the step's
-dropout key). Every other configuration (deep supervision, the hybrids, the
-(2+1)D blocks, int8, weight standardisation) raises
-``NotImplementedError`` naming its ROADMAP item.
+the upsample and the transpose-conv decoders, single- or multi-head
+outputs, the (2+1)D blocks (``factorized``: FACTORIZED_3D, MODEL_VARIANT
+unet_2p1d) and deep supervision. In train mode dropout draws its masks
+from an explicit ``torch.Generator`` passed to ``forward`` (flax draws
+them from the step's dropout key). int8 and weight standardisation raise
+``NotImplementedError`` naming their ROADMAP item; the hybrids are in
+``hybrids.py``.
 """
 
 from __future__ import annotations
@@ -239,18 +240,34 @@ class ConvBlock(nn.Module):
     ``group_norm=N`` uses GroupNorm with min(N, filters) groups, reduced
     until it divides ``filters``; otherwise ``BatchNorm`` when
     ``batch_norm``. Both use epsilon 1e-3 and run in f32; the block output
-    is cast to ``dtype``."""
+    is cast to ``dtype``.
+
+    ``factorized`` with a rank-3 ``f_size`` whose t extent exceeds 1 makes
+    the conv (2+1)D, as cmrtpu's: ``Conv_0`` is a 2D conv of kernel
+    ``f_size[1:]`` over [B * T, C, H, W] (t folded into the batch), then
+    the activation, then ``Conv_1``, a (t, 1, 1) conv from ``filters`` to
+    ``filters``; the norm and the activation follow as in the plain
+    block."""
 
     def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...],
                  activation: str = "relu", batch_norm: bool = True,
                  bn_first: bool = False, group_norm: int = 0,
+                 factorized: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.act = _ACTIVATIONS[activation]
         self.bn_first = bn_first
         self.dtype = dtype
-        self.Conv_0 = _CONV_MODULE[len(f_size)](in_ch, filters, tuple(f_size),
-                                                padding="same")
+        self.factorized = factorized and len(f_size) == 3 and f_size[0] > 1
+        if self.factorized:
+            self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(f_size[1:]),
+                                    padding="same")
+            self.Conv_1 = nn.Conv3d(filters, filters, (f_size[0], 1, 1),
+                                    padding="same")
+        else:
+            self.Conv_0 = _CONV_MODULE[len(f_size)](in_ch, filters,
+                                                    tuple(f_size),
+                                                    padding="same")
         self.norm_name: Optional[str] = None
         if group_norm:
             groups = min(int(group_norm), filters)
@@ -267,11 +284,20 @@ class ConvBlock(nn.Module):
             return y
         return getattr(self, self.norm_name)(y.to(wide_dtype(self.dtype)))
 
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.factorized:
+            return _conv(self.Conv_0, x, self.dtype)
+        b, c, t, h, w = x.shape
+        y = _conv(self.Conv_0, x.transpose(1, 2).reshape(b * t, c, h, w),
+                  self.dtype)
+        y = self.act(y).reshape(b, t, -1, h, w).transpose(1, 2)
+        return _conv(self.Conv_1, y, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn_first:
-            x = self.act(self._norm(_conv(self.Conv_0, x, self.dtype)))
+            x = self.act(self._norm(self._conv(x)))
         else:
-            x = self._norm(self.act(_conv(self.Conv_0, x, self.dtype)))
+            x = self._norm(self.act(self._conv(x)))
         return x.to(self.dtype)
 
 
@@ -340,7 +366,12 @@ class UpBlock(nn.Module):
 class UNet(nn.Module):
     """Encoder/decoder U-Net with a sigmoid head, or one head per ``heads``
     entry (name, channels, 'sigmoid' | 'softmax'); 2D or 3D by
-    ``len(f_size)``."""
+    ``len(f_size)``.
+
+    ``supervision`` adds cmrtpu's deep-supervision branch: the input of the
+    last UpBlock goes through ``Conv_0`` (a 1 x ... x 1 conv to ``filters``
+    channels) and the activation, is upsampled nearest by the first level's
+    pool and multiplies the decoder's output ahead of the head."""
 
     def __init__(self, in_channels: int = 1, depth: int = 4, filters: int = 32,
                  f_size: Tuple[int, ...] = (3, 3),
@@ -351,6 +382,7 @@ class UNet(nn.Module):
                  group_norm: int = 0, head_bias_prior=None,
                  logit_softcap=None, use_upsample: bool = True,
                  heads: Sequence[Tuple[str, int, str]] = (),
+                 factorized: bool = False, supervision: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if len(f_size) != len(m_pool) or len(f_size) not in _CONV:
@@ -364,10 +396,12 @@ class UNet(nn.Module):
         self.logit_softcap = logit_softcap
         self.head_bias_prior = head_bias_prior
         self.heads = tuple((str(n), int(c), str(a)) for n, c, a in heads)
+        self.supervision = supervision
         self.dtype = dtype
+        self.act = _ACTIVATIONS[activation]
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
-                  group_norm=group_norm, dtype=dtype)
+                  group_norm=group_norm, factorized=factorized, dtype=dtype)
         ch, skips = in_channels, []
         for level in range(depth):
             f = filters * 2 ** level
@@ -390,6 +424,8 @@ class UNet(nn.Module):
                                     use_upsample=use_upsample, **kw))
             ch = f
         conv = _CONV_MODULE[len(f_size)]
+        if supervision:  # fed the last UpBlock's input, 2 * filters wide
+            self.Conv_0 = conv(2 * filters, filters, 1)
         if self.heads:
             for name, channels, _ in self.heads:
                 self.add_module(f"head_{name}", conv(ch, channels, 1))
@@ -450,9 +486,13 @@ class UNet(nn.Module):
                                       self.drop_bottleneck, self.training,
                                       generator))
         for i in range(self.depth):
+            pre_last = x
             x = getattr(self, f"UpBlock_{i}")(x, skips.pop(),
                                               pools[self.depth - 1 - i],
                                               generator)
+        if self.supervision:
+            lower = self.act(_conv(self.Conv_0, pre_last, self.dtype))
+            x = _upsample_nearest(lower, pools[0]) * x
         x = x.to(wide_dtype(self.dtype))
         if not self.heads:
             return self._head(self.head, x, "sigmoid")
@@ -470,16 +510,18 @@ class UNet(nn.Module):
         return torch.movedim(probs, 1, -1)
 
 
-def model_summary(model: UNet) -> str:
+def model_summary(model: nn.Module) -> str:
     """Text summary with the parameter count (counterpart of
     ``cmrtpu.models.unet.model_summary`` -> model_summary.txt): one line per
-    parameter under its flax path and shape."""
+    parameter under its flax path and shape, for the U-Net and the hybrids
+    alike (only the attributes a model has are listed)."""
     from cmrtpu_torch.train.checkpoint import _flatten, state_dict_to_flax
 
     attrs = " ".join(f"{name}={getattr(model, name)}"
                      for name in ("depth", "filters", "f_size", "m_pool",
-                                  "mask_classes", "dtype"))
-    lines = [f"{type(model).__name__} {attrs}"]
+                                  "mask_classes", "dtype")
+                     if hasattr(model, name))
+    lines = [f"{type(model).__name__} {attrs}".rstrip()]
     params, stats = state_dict_to_flax(model.state_dict())
     total = 0
     for path, leaf in sorted(_flatten(params).items()):
@@ -517,10 +559,6 @@ def build_model(config: Dict, supervision: bool = False,
     if ndims not in _CONV:
         raise ValueError(f"DIM {C.get(config, 'DIM')}: the U-Net is 2D or "
                          "3D")
-    if factorized or C.get(config, "FACTORIZED_3D", False):
-        _not_ported("the (2+1)D factorized U-Net", "4.4")
-    if supervision:
-        _not_ported("deep supervision", "3.8")
     if C.get(config, "QUANT_INT8", False):
         _not_ported("the int8 twin (QUANT_INT8)", "5.4")
     if C.get(config, "WEIGHT_STANDARDISATION", False):
@@ -550,5 +588,7 @@ def build_model(config: Dict, supervision: bool = False,
         logit_softcap=C.get(config, "LOGIT_SOFTCAP", None),
         use_upsample=bool(C.get(config, "USE_UPSAMPLE", True)),
         heads=tuple(tuple(h) for h in C.get(config, "HEADS", ()) or ()),
+        factorized=bool(factorized or C.get(config, "FACTORIZED_3D", False)),
+        supervision=supervision,
         dtype=dtype,
     )

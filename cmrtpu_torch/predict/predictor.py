@@ -27,7 +27,8 @@ from cmrtpu_torch.ops.connected_components import (clean_prediction_2d_cc,
                                                    clean_prediction_3d_cc)
 from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
-from cmrtpu_torch.train.checkpoint import load_weights_for_model
+from cmrtpu_torch.train.checkpoint import (WEIGHTS_NAME,
+                                           load_weights_for_model)
 from cmrtpu_torch.utils.io_utils import ensure_dir
 
 # pred_fold's spans at DEBUG, each with a dict in ``record.timing``: its
@@ -69,8 +70,25 @@ def cc_clean_fn(cfg: Dict):
     return clean_prediction_2d_cc if mode else None
 
 
+def _supervised(model_path: str) -> bool:
+    """True when ``model.npz`` holds a deep-supervision branch: a
+    ``Conv_0`` beside the U-Net's head, or beside a hybrid trunk's. Only
+    the archive's names are read."""
+    npz = model_path if model_path.endswith(".npz") \
+        else os.path.join(model_path, WEIGHTS_NAME)
+    if not os.path.exists(npz):
+        return False
+    with np.load(npz) as blobs:
+        names = set(blobs.files)
+    return any(f"params/{trunk}Conv_0/kernel" in names
+               for trunk in ("", "unet_2d/", "unet_3d/"))
+
+
 class Predictor:
-    """Restored model + batched forward on an explicit device."""
+    """Restored model + batched forward on an explicit device. The model
+    is MODEL_VARIANT's, with the deep-supervision branch when the weights
+    hold one (cmrtpu's Predictor builds the model without it and flax
+    ignores the branch's weights)."""
 
     def __init__(self, config: Dict, model_path: Optional[str] = None,
                  device="cuda"):
@@ -79,8 +97,9 @@ class Predictor:
             raise NotImplementedError(
                 "TTA is not ported to cmrtpu_torch yet (ROADMAP 5.1)")
         self.device = resolve_device(device)
-        self.model = get_model(self.config)
         model_path = model_path or C.get(self.config, "MODEL_PATH")
+        self.model = get_model(self.config,
+                               supervision=_supervised(model_path))
         load_weights_for_model(model_path, self.model)
         self.model.to(self.device).eval()
 

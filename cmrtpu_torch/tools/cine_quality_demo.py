@@ -13,8 +13,9 @@ name and power limit; ``<root>/summary.json`` keeps them.
     python -m cmrtpu_torch.tools.cine_quality_demo --patients 12 --epochs 600
 
 ``--patients 4 --epochs 2 --dim 32 --t-frames 4 --device cpu`` is a
-CPU-sized smoke run. ``--variant`` other than ``unet`` raises: the hybrids
-(ROADMAP 4.2) and the (2+1)D U-Net (4.4) are not ported.
+CPU-sized smoke run. ``--variant`` sets MODEL_VARIANT: ``unet`` (default),
+``unet_2p1d`` (the (2+1)D U-Net) or a 2D-in-3D hybrid (``wrapper``,
+``followed``, ``concat``, ``avg``, ``avg_plain``).
 """
 
 import argparse
@@ -122,7 +123,8 @@ def main(argv=None):
                              "decoder upsamples t back, so the output "
                              "stays per-frame")
     parser.add_argument("--variant", default="unet",
-                        help="MODEL_VARIANT; only 'unet' is ported")
+                        help="MODEL_VARIANT (e.g. unet_2p1d, or 'wrapper' "
+                             "for the slice-wise 2D hybrid)")
     parser.add_argument("--depth", type=int, default=3,
                         help="U-Net DEPTH (4 is the published 3D template's)")
     parser.add_argument("--filters", type=int, default=8)
@@ -135,11 +137,6 @@ def main(argv=None):
                         help="torch device; 'cpu' runs the plain versions "
                              "of the kernels")
     args = parser.parse_args(argv)
-    if args.variant.lower() not in ("unet", ""):
-        item = "4.4" if args.variant.lower() == "unet_2p1d" else "4.2"
-        raise NotImplementedError(
-            f"--variant {args.variant!r} is not ported to cmrtpu_torch yet "
-            f"(ROADMAP {item}); run examples/cine_quality_demo.py")
 
     from cmrtpu_torch.pipeline.generator import DataGenerator
     from cmrtpu_torch.train.callbacks import TimeBudget
@@ -184,7 +181,8 @@ def main(argv=None):
     errs, missed = _errors(trainer, test_x, test_y, cfg)
     print(f"\n=== held-out per-frame localisation, {n_test} patients x "
           f"{args.t_frames} frames (mm @ {SPACING_MM} mm spacing) ===")
-    summary = {"patients": args.patients, "test_patients": n_test,
+    summary = {"variant": args.variant, "patients": args.patients,
+               "test_patients": n_test,
                "t_frames": args.t_frames, "dim": args.dim,
                "epochs": n_epochs, "train_wall_s": wall,
                "frames_per_s": frames / max(wall, 1e-9),

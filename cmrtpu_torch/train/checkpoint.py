@@ -3,11 +3,15 @@ bridge between the flax variable tree and a torch ``state_dict``.
 
 Counterpart of ``cmrtpu/train/checkpoint.py:29-119``. A ``model.npz`` holds
 flat ``params/<flax path>`` and ``batch_stats/<flax path>`` keys, e.g.
-``params/DownBlock_0/ConvBlock_1/Conv_0/kernel``. The torch modules of
-``cmrtpu_torch.models.unet`` carry the same names, so the bridge is:
+``params/DownBlock_0/ConvBlock_1/Conv_0/kernel``, or under a hybrid's
+trunk ``params/unet_2d/DownBlock_0/...``. The torch modules of
+``cmrtpu_torch.models`` carry the same names, so the bridge is:
 
   flax leaf                           torch state_dict entry
   ``.../Conv_0/kernel`` HWIO, DHWIO   ``....Conv_0.weight`` OIHW, OIDHW
+  (``head``, ``head_<name>`` alike;   (a (2+1)D block's 2D ``Conv_0``
+  a (2+1)D block's is HWIO in a 3D    is a 4D weight in a 3D net)
+  net)
   ``.../ConvTranspose_0/kernel``      ``....ConvTranspose_0.weight``
   HWIO, DHWIO                         [in, out, *k], flipped on every
                                       spatial axis
@@ -75,7 +79,8 @@ def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     return tree
 
 
-# a conv kernel's rank: 4 in the 2D U-Net, 5 in the 3D one
+# a conv kernel's rank: 4 in the 2D U-Net and a (2+1)D block's spatial
+# conv, 5 in the 3D U-Net
 _KERNEL_NDIMS = (4, 5)
 
 
@@ -99,8 +104,9 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
                        ) -> Dict[str, torch.Tensor]:
     """Nested flax trees (numpy leaves) -> torch ``state_dict``. A conv
     kernel [*k, I, O] becomes [O, I, *k]; a transposed one is flipped on
-    its spatial axes and becomes [I, O, *k]. A leaf that is not one of
-    the U-Net's (a kernel of another rank, a scale outside a norm) raises."""
+    its spatial axes and becomes [I, O, *k]. A leaf that is not a conv's,
+    a norm's or a bias (a kernel of another rank, a scale outside a norm)
+    raises."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in {**_flatten(params),
                       **_flatten(batch_stats or {})}.items():
@@ -113,8 +119,8 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
             or (leaf in ("mean", "var") and kind == "norm" and arr.ndim == 1))
         if not valid:
             raise ValueError(
-                f"{'/'.join(path)} {arr.shape}: not a leaf of the 2D or 3D "
-                "U-Net that cmrtpu_torch ports")
+                f"{'/'.join(path)} {arr.shape}: not a leaf of the U-Nets "
+                "and hybrids that cmrtpu_torch ports")
         if leaf == "kernel":
             rank = arr.ndim - 2
             if kind == "conv_t":
@@ -156,7 +162,7 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
             stats[(*module, "var")] = arr
         else:
             raise ValueError(f"{name} {tuple(arr.shape)}: no flax "
-                             "counterpart in the 2D or 3D U-Net")
+                             "counterpart in the U-Nets and hybrids")
     return _unflatten(params), _unflatten(stats)
 
 

@@ -9,8 +9,12 @@ compute dtype. Conventions kept from the reference:
     [1e-7, 1-1e-7] and eps added again inside each log;
   * a HEADS model's loss sums BCE+Dice over its sigmoid heads and CCE+Dice
     over its softmax heads, the targets concatenated in HEADS order.
-Other loss names raise (ROADMAP 3.10). ``dice_numpy`` is the hard dice of
-the evaluation, on numpy masks.
+The factories ``weighted_cce_dice_loss``, ``max_volume_loss`` and
+``loss_with_zero_mask`` build losses a caller passes as
+``Trainer(loss_fn=...)``; ``get_loss`` selects none of them by name, as in
+cmrtpu, and raises for a name it does not know (cmrtpu falls back to
+BceDiceLoss). ``dice_numpy`` is the hard dice of the evaluation, on numpy
+masks.
 """
 
 from __future__ import annotations
@@ -77,6 +81,65 @@ def bce_dice_loss(y_true, y_pred, w_bce: float = 1.0,
 
 def mse_loss(y_true, y_pred) -> torch.Tensor:
     return torch.mean((_wide(y_true) - _wide(y_pred)) ** 2)
+
+
+def weighted_cce_dice_loss(weights) -> Callable:
+    """Weighted categorical CE - dice: the probabilities renormalised over
+    the channels and clipped to [1e-7, 1 - 1e-7], each channel's CE term
+    weighted by ``weights[c]``."""
+    w = torch.as_tensor(np.asarray(weights, np.float32))
+
+    def loss_fn(y_true, y_pred):
+        p = _wide(y_pred)
+        p = torch.clamp(p / p.sum(dim=-1, keepdim=True), _KERAS_EPS,
+                        1.0 - _KERAS_EPS)
+        cce = -torch.sum(_wide(y_true) * torch.log(p)
+                         * w.to(p.device, p.dtype), dim=-1)
+        return torch.mean(cce) - dice_coef(y_true, y_pred)
+
+    return loss_fn
+
+
+def max_volume_loss(min_probability: float = 0.8) -> Callable:
+    """1 - the mean over voxels of the largest foreground probability,
+    counted only where it exceeds ``min_probability`` (a 4-channel
+    output's background channel 0 is left out)."""
+
+    def loss_fn(y_true, y_pred):
+        p = y_pred[..., 1:] if y_pred.shape[-1] == 4 else y_pred
+        m = torch.amax(_wide(p), dim=-1)
+        return 1.0 - torch.mean(m * (m > min_probability).to(m.dtype))
+
+    return loss_fn
+
+
+def loss_with_zero_mask(loss: Callable = None,
+                        mask_smaller_than: float = 0.01,
+                        weight_inplane: bool = False,
+                        xy_shape: int = 224) -> Callable:
+    """A per-voxel loss (``loss``, default the squared error) kept only
+    where the single-channel target exceeds ``mask_smaller_than``; with
+    ``weight_inplane`` each voxel is weighted by cmrtpu's ramp, 0 at the
+    border to 100 at the centre of an ``xy_shape``² plane, plus 1e-7. The
+    result is per voxel, as cmrtpu's: the caller reduces it."""
+    base = loss or (lambda yt, yp: (yt - yp) ** 2)
+    ramp = np.zeros((xy_shape, xy_shape), dtype=np.float32)
+    for i, value in enumerate(np.linspace(0, 100, xy_shape // 2)):
+        ramp[i:-i or None, i:-i or None] = value
+    weights = torch.from_numpy(ramp)[None, None]  # cmrtpu's [1, 1, xy, xy]
+
+    def loss_fn(y_true, y_pred):
+        yt, yp = _wide(y_true), _wide(y_pred)
+        mask = (yt > mask_smaller_than).to(yt.dtype).squeeze(-1)
+        per_vox = base(yt, yp)
+        if per_vox.shape != mask.shape:  # the loss kept the channel axis
+            per_vox = torch.mean(per_vox, dim=-1)
+        out = per_vox * mask
+        if weight_inplane:
+            out = out * weights.to(out.device, out.dtype) + _KERAS_EPS
+        return out
+
+    return loss_fn
 
 
 def dice_numpy(y_true, y_pred, empty_score: float = 1.0) -> float:
@@ -150,8 +213,10 @@ def get_loss(config: Dict) -> Callable:
         return mse_loss
     # cmrtpu falls back to BceDiceLoss for any other name; the port says so
     raise NotImplementedError(
-        f"LOSS_FUNCTION={name!r} is not ported to cmrtpu_torch yet (ROADMAP "
-        "3.10); the port trains with BceDiceLoss or mse")
+        f"LOSS_FUNCTION={name!r} names no loss: get_loss selects BceDiceLoss "
+        "or mse (cmrtpu falls back to BceDiceLoss, ROADMAP Queue 3); pass "
+        "weighted_cce_dice_loss, max_volume_loss or loss_with_zero_mask as "
+        "Trainer(loss_fn=...)")
 
 
 def default_metrics(mask_classes: int) -> Dict[str, Callable]:

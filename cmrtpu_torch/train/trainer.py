@@ -33,12 +33,13 @@ from cmrtpu_torch.train.optimizers import (get_learning_rate, get_optimizer,
 from cmrtpu_torch.train.steps import TrainState
 
 
-def init_model(config: Dict) -> torch.nn.Module:
-    """The configured model with the reference's initialisers, drawn from a
-    generator seeded with SEED (on the CPU, so every device gets the same
-    weights)."""
+def init_model(config: Dict, supervision: bool = False) -> torch.nn.Module:
+    """The configured model (MODEL_VARIANT; with the deep-supervision
+    branch when ``supervision``) with the reference's initialisers, drawn
+    from a generator seeded with SEED (on the CPU, so every device gets the
+    same weights)."""
     seed = int(C.get(config, "SEED", 42))
-    return get_model(config).reset_parameters(
+    return get_model(config, supervision=supervision).reset_parameters(
         torch.Generator().manual_seed(seed))
 
 
@@ -68,12 +69,13 @@ def _check_config(cfg: Dict) -> None:
 class Trainer:
     def __init__(self, config: Dict, model: Optional[torch.nn.Module] = None,
                  device="cuda", loss_fn: Optional[Callable] = None,
-                 metrics: Optional[Dict[str, Callable]] = None):
+                 metrics: Optional[Dict[str, Callable]] = None,
+                 supervision: bool = False):
         self.config = C.normalise_config(config)
         _check_config(self.config)
         self.device = resolve_device(device)
         if model is None:
-            model = init_model(self.config)
+            model = init_model(self.config, supervision)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn or L.get_loss(self.config)
         self.metrics = metrics if metrics is not None else L.default_metrics(

@@ -34,6 +34,7 @@ import optax
 import pytest
 import torch
 
+from cmrtpu.models.hybrids import get_model as jax_get_model
 from cmrtpu.models.unet import build_model as jax_build_model
 from cmrtpu.models.unet import init_variables
 from cmrtpu.parallel.mesh import create_mesh
@@ -297,9 +298,17 @@ def test_cached_train_step_3d_matches_cmrtpu(cfg):
     1e-3 x its max |value| (the f32 gradients of a U-Net at a random init
     differ by that much between frameworks, PERF.md), the running averages
     within 1e-5."""
+    cached_step_both(cfg)
+
+
+def cached_step_both(cfg, supervision=False):
+    """One cached train step of ``get_model(cfg, supervision)`` in both
+    packages from cmrtpu's weights, held as
+    ``test_cached_train_step_3d_matches_cmrtpu`` says."""
     rng = np.random.default_rng(2)
     xs = rng.normal(size=(4, *cfg["DIM"])).astype(np.float32)
-    ys = _cine_labels(rng, 4, *cfg["DIM"])
+    ys = _cine_labels(rng, 4, *cfg["DIM"]) if len(cfg["DIM"]) == 3 \
+        else _cine_labels(rng, 4, 1, *cfg["DIM"])[:, 0]
     metrics = jax_default_metrics(2)
     if "HEADS" in cfg:  # a label map per head, [4, 2, T, H, W]
         seg = rng.integers(0, 3, ys.shape).astype(np.float32)
@@ -307,7 +316,7 @@ def test_cached_train_step_3d_matches_cmrtpu(cfg):
         concat = jax_concat_heads(cfg["HEADS"])  # as cmrtpu's Trainer does
         metrics = {name: (lambda yt, yp, f=fn: f(yt, concat(yp)))
                    for name, fn in metrics.items()}
-    model = jax_build_model(cfg)
+    model = jax_get_model(cfg, supervision=supervision)
     variables = init_variables(model, cfg,
                                jax.random.key(3, impl="threefry2x32"))
     init = jax.tree_util.tree_map(np.array, dict(variables))
@@ -322,7 +331,7 @@ def test_cached_train_step_3d_matches_cmrtpu(cfg):
     new_state, ref_logs = step(state, dx, dy, jnp.arange(4, dtype=jnp.int32),
                                jax.random.key(0))
 
-    port = get_model(cfg)
+    port = get_model(cfg, supervision=supervision)
     port.load_state_dict(flax_to_state_dict(init["params"],
                                             init.get("batch_stats")))
     trainer = Trainer(cfg, model=port, device="cpu")
@@ -449,8 +458,8 @@ def test_monitor_localisation_raises_for_volumes():
 
 def test_cine_demo_cohort_and_run(tmp_path):
     """The ported demo writes cmrtpu's demo cohort (same draws, same
-    arrays) and runs end to end on the CPU at a toy size; a variant that is
-    not ported raises."""
+    arrays) and runs end to end on the CPU at a toy size, with the plain
+    U-Net and with the (2+1)D one."""
     import importlib.util
 
     from cmrtpu_torch.io import read_image
@@ -477,5 +486,9 @@ def test_cine_demo_cohort_and_run(tmp_path):
                     "--depth", "2", "--filters", "4", "--device", "cpu"])
     assert summary["epochs"] == 1 and summary["landmarks"] == 16
     assert os.path.exists(tmp_path / "run" / "summary.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP 4.4"):
-        main(["--variant", "unet_2p1d", "--device", "cpu"])
+    summary = main(["--root", str(tmp_path / "run_2p1d"), "--patients",
+                    "4", "--epochs", "1", "--dim", "16", "--t-frames", "4",
+                    "--depth", "2", "--filters", "4", "--variant",
+                    "unet_2p1d", "--device", "cpu"])
+    assert summary["variant"] == "unet_2p1d" and summary["epochs"] == 1
+    assert np.isfinite(summary["loss_last"])

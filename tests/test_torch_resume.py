@@ -145,8 +145,8 @@ def test_resumed_run_experiment_matches_cmrtpu(data, tmp_path, monkeypatch):
     jax_run_experiment(dict(cfg, EPOCHS=3, RESUME=True), data_path=data,
                        exp_path=jax_exp)
 
-    def from_cmrtpu(config):
-        model = get_model(config)
+    def from_cmrtpu(config, supervision=False):
+        model = get_model(config, supervision=supervision)
         model.load_state_dict(flax_to_state_dict(captured["params"]))
         return model
 

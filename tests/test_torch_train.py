@@ -212,8 +212,8 @@ def test_run_experiment_matches_cmrtpu(tmp_path, monkeypatch):
     jax_exp = jax_run_experiment(dict(cfg), data_path=data,
                                  exp_path=str(tmp_path / "jax"))
 
-    def from_cmrtpu(config):
-        model = get_model(config)
+    def from_cmrtpu(config, supervision=False):
+        model = get_model(config, supervision=supervision)
         model.load_state_dict(flax_to_state_dict(captured["params"]))
         return model
 

@@ -23,13 +23,13 @@ BASE = {"DIM": [32, 32], "DEPTH": 3, "FILTERS": 8, "MASK_CLASSES": 2,
         "MIXED_PRECISION": False}
 
 
-def perturbed_variables(cfg, seed, conv_bias=True):
-    """flax init, with norm scales/biases, running stats and (optionally)
-    conv biases moved off their trivial init values so every leaf matters.
-    The key's PRNG is pinned: another test in the same process may switch
-    jax's default (cmrtpu's Trainer sets PRNG_IMPL), which would draw other
-    weights."""
-    variables = init_variables(jax_build_model(cfg), cfg,
+def perturbed_variables(cfg, seed, conv_bias=True, model=None):
+    """flax init of ``model`` (default: cfg's U-Net), with norm
+    scales/biases, running stats and (optionally) conv biases moved off
+    their trivial init values so every leaf matters. The key's PRNG is
+    pinned: another test in the same process may switch jax's default
+    (cmrtpu's Trainer sets PRNG_IMPL), which would draw other weights."""
+    variables = init_variables(model or jax_build_model(cfg), cfg,
                                jax.random.key(seed, impl="threefry2x32"))
     rng = np.random.default_rng(seed)
 
@@ -114,15 +114,8 @@ def test_reset_parameters_is_seeded_he_normal():
 
 
 @pytest.mark.parametrize("extra", [
-    {"QUANT_INT8": True},
-    {"WEIGHT_STANDARDISATION": True}, {"FACTORIZED_3D": True},
-    {"MODEL_VARIANT": "avg"}, {"MODEL_VARIANT": "unet_2p1d"},
-], ids=["int8", "ws", "factorized", "hybrid", "2p1d"])
+    {"QUANT_INT8": True}, {"WEIGHT_STANDARDISATION": True},
+], ids=["int8", "ws"])
 def test_unported_configs_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({**BASE, **extra})
-
-
-def test_deep_supervision_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP 3.8"):
-        get_model({**BASE, "USE_UPSAMPLE": False}, supervision=True)
