@@ -135,11 +135,29 @@ Inside phase 7, after evaluate: cc3d-cli — a copy of the flagship fold
 with CC_FILTER '3d' through cli.predict and cli.serve: the 3D kernel once
 per patient-phase, study and warm-up, K2 never, each cleaned volume equal
 to scipy's 26-connected filter of the same thresholded predictions and each
-written label file that filter's output in the written geometry.
+written label file that filter's output in the written geometry; then
+predict-4d — each of fold 0's two test patients gets an ACDC-sized cine
+(30 frames x 10 slices of 200^2, its ED and ES volumes swept over one
+cycle) and cli.predict_4d runs the trained fold over them: K2 exactly once
+per cine (both labels of all 300 slices stacked), K1 and the 3D kernel
+never; each [30, 10, 224, 224] uint8 volume equal to scipy's per-slice
+filter of the same forward thresholded on the host, and a control with
+one frame's filter skipped unequal; K2 at the stacked [600, 224, 224]
+exact against plain and scipy and timed; wall s, stage ms, the forward's
+slices/s and the process's peak memory during the call beside what it
+held at the call's start; predict-4d-3d — the same on a copy of the fold
+with CC_FILTER '3d' (the 3D kernel once per cine, K2 never, scipy's
+26-connected filter per frame; the 3D kernel at the stacked [60, 10, 224,
+224] exact against plain and scipy and timed); override-twin —
+predict_override_twin(exp, CC_FILTER '3d') on the card: K1 and the 3D
+kernel once per patient-phase, K2 never, every twin pred/ file byte-equal
+to the cc3d-cli copy's, and evaluate_cv_save on the plain and the twin
+root one row per patient-phase with finite distances.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
 resume, resume-exact and ema phases' runs, supervision, train_3d, the
-train-hybrid runs, and predict_cli_3d and serve_3d with CC_FILTER '3d'),
+train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
+predict_4d, predict_4d_3d and override_twin),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
@@ -169,9 +187,11 @@ from cmrtpu_torch.cli.evaluate_cv import main as evaluate_main
 from cmrtpu_torch.config import normalise_config
 from cmrtpu_torch.cli.make_dataset import cli as make_dataset_main
 from cmrtpu_torch.cli.predict import main as predict_main
+from cmrtpu_torch.cli.predict_4d import main as predict_4d_main
 from cmrtpu_torch.cli.serve import main as serve_main
 from cmrtpu_torch.cli.train import main as train_main
 from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
+from cmrtpu_torch.eval.evaluate import evaluate_cv_save
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.models.hybrids import HYBRIDS, get_model
 from cmrtpu_torch.models.unet import BatchNorm, build_model
@@ -187,7 +207,7 @@ from cmrtpu_torch.ops.resample import NEAREST
 from cmrtpu_torch.predict import predictor as predictor_module
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.predict.predictor import (TIMING_LOG, Predictor,
-                                            threshold_and_flatten)
+                                            predict_override_twin)
 from cmrtpu_torch.tools.cine_quality_demo import generate_cine_cohort
 from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
 from cmrtpu_torch.train.checkpoint import save_weights
@@ -255,9 +275,13 @@ GRAD_EXTRA = 1e-3
 # constants lies ~640x max |g| off (CPU, 96^2); the control below must fail
 # this bound in the same run
 BN_GRAD_ATOL = 2e-2
+START = time.perf_counter()
 
 
 def log(phase, **fields):
+    """One line of a phase's figures, with the seconds since the script's
+    imports, so that a run's time can be split by phase."""
+    fields["since_start_s"] = time.perf_counter() - START
     print(f"[{phase}] {json.dumps(fields)}", flush=True)
 
 
@@ -787,6 +811,16 @@ class _Spans(logging.Handler):
     def __exit__(self, *exc):
         TIMING_LOG.removeHandler(self)
 
+    def predict_4d(self):
+        """The one predict_4d_on_2d_cv call logged: its wall seconds and
+        its per-file spans."""
+        starts = [r for r in self.records if r["event"] == "4d_start"]
+        ends = [r for r in self.records if r["event"] == "4d_end"]
+        check(len(starts) == len(ends) == 1,
+              f"predict_4d spans: {len(starts)} starts, {len(ends)} ends")
+        return {"wall_s": ends[0]["wall_s"],
+                "files": [r for r in self.records if r["event"] == "4d_file"]}
+
     def pred_fold(self):
         """The one pred_fold call logged: launches of each kernel in it,
         launches before it, its wall seconds and its patient-phases."""
@@ -959,8 +993,10 @@ def phase_train(cfg):
     the cohort that make_dataset sliced, with the chained pred_fold, then
     serve the model.npz it wrote, time warm train steps, predict the fold
     again through the predict CLI and evaluate it through the evaluate_cv
-    CLI. FOLDS is cut to [0]. Returns each kernel's launches by path and
-    the warm step's timing."""
+    CLI; then CC_FILTER '3d' through both CLIs, the 4D cine paths and the
+    override twin on the same fold. FOLDS is cut to [0]. Returns each
+    kernel's launches by path, the warm step's timing and K2's and the 3D
+    kernel's figures at a cine's stacked shapes."""
     cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         data_root = os.path.join(work, "data")
@@ -1021,6 +1057,9 @@ def phase_train(cfg):
         check(kernels.converge_labels_3d_cuda.launches == 0,
               "train: the 3D CC kernel launched on a 2D path")
         cc3d_paths = phase_cc3d_cli(fold, data_root, test, work)
+        p4d_paths, cine_cc = phase_predict_4d(exp, fold, data_root, test,
+                                              work)
+        twin_paths = phase_override_twin(exp, data_root, test, work)
     log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
         chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
         chained_patient_phases=chained["phases"],
@@ -1030,7 +1069,7 @@ def phase_train(cfg):
     return {"train": {"k1": chained["k1_before"], "k2": chained["k2_before"]},
             "pred_fold": {"k1": chained["k1"], "k2": chained["k2"]},
             "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]},
-            **cc3d_paths}, timing
+            **cc3d_paths, **p4d_paths, **twin_paths}, timing, cine_cc
 
 
 def phase_predict(fold, data_root, test_patients, mtimes):
@@ -2593,6 +2632,299 @@ def phase_cc3d_cli(fold, data_root, test_patients, work):
     return by_path
 
 
+# predict-4d: an ACDC-sized cine of each test patient, 30 frames of the
+# cohort's 10 slices, from its own ED and ES volumes
+CINE_FRAMES = 30
+
+
+def _write_cine(data_root, pid, rng):
+    """Overwrite ``<pid>_4d.nii.gz`` with CINE_FRAMES frames that sweep
+    the patient's ED volume to its ES volume and back (the LV's scale over
+    one cycle), each with its own noise, at the cohort's geometry."""
+    folder = os.path.join(data_root, "original", pid)
+    ed = read_image(os.path.join(folder, f"{pid}_frame01.nii.gz"))
+    es = read_image(os.path.join(folder, f"{pid}_frame12.nii.gz"))
+    w = (1 - np.cos(2 * np.pi * np.arange(CINE_FRAMES) / CINE_FRAMES)) / 2
+    w = w[:, None, None, None]
+    cine = (1 - w) * ed.array[None] + w * es.array[None] \
+        + rng.normal(0, 10.0, (CINE_FRAMES, *ed.array.shape))
+    write_image(MedicalImage(array=cine.astype(np.float32),
+                             spacing=tuple(ed.spacing) + (1.0,)),
+                os.path.join(folder, f"{pid}_4d.nii.gz"))
+
+
+class _Forwards:
+    """Wraps ``Predictor.predict``: each call's output, cloned on the
+    device (a host copy inside the run would fall into its forward
+    span)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, predict):
+        def wrapped(pred, x, to_host=True):
+            out = predict(pred, x, to_host=to_host)
+            self.calls.append(out.clone() if isinstance(out, torch.Tensor)
+                              else np.copy(out))
+            return out
+        return wrapped
+
+    def host(self, i):
+        out = self.calls[i]
+        return out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+
+
+def scipy_clean_2d(pred, values):
+    """Per slice and label value the biggest 4-connected component
+    (scipy; a tie keeps the smaller id), a later value over an earlier
+    one: the reference of CC_FILTER true on a [..., H, W] stack."""
+    flat = pred.reshape(-1, *pred.shape[-2:])
+    out = np.zeros_like(flat)
+    for k, sl in enumerate(flat):
+        for val in values:
+            lab, n = scipy.ndimage.label(sl == val)
+            if n:
+                sizes = np.bincount(lab.ravel())[1:]
+                out[k][lab == 1 + int(np.argmax(sizes))] = val
+    return out.reshape(pred.shape)
+
+
+def _run_4d(exp, data_root):
+    """cli.predict_4d on ``exp`` with every count at 0 just before it:
+    the launches, the per-file spans and wall seconds, the forwards'
+    outputs, the device memory: the process's peak during the call and
+    what the process held at its start (the earlier phases' tensors), and
+    the call's wall seconds."""
+    forwards = _Forwards()
+    for k in (kernels.gaussian_blur_2d_cuda, kernels.converge_labels_cuda,
+              kernels.converge_labels_3d_cuda):
+        k.launches = 0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched(Predictor, "predict", forwards), _Spans() as spans:
+        predict_4d_main(["-exp", exp, "-data", data_root])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _counts()
+    memory = {"peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "held_at_start_gb": held / 1e9}
+    return launches, spans.predict_4d(), forwards, memory, wall_s
+
+
+def host_threshold(probs):
+    """Sigmoid channels -> uint8 labels in numpy, independent of the
+    port: channel c over 0.5 -> c + 1, a later channel overwrites."""
+    flat = np.zeros(probs.shape[:-1], np.uint8)
+    for c in range(probs.shape[-1]):
+        flat[probs[..., c] > 0.5] = c + 1
+    return flat
+
+
+def _check_4d_outputs(out_dir, test_patients, forwards, files, clean,
+                      phase, cfg):
+    """Each written cine label volume: uint8 [CINE_FRAMES, Z, *DIM],
+    labels in {0, 1, 2}, the config's in-plane spacing (RESAMPLE), the
+    study's z spacing, 1.0 in t; and equal to ``clean`` (scipy) of the
+    recorded forward's thresholded labels. Returns per cine its written
+    labels and its thresholded labels before the filter."""
+    shape = (CINE_FRAMES, Z, *cfg["DIM"])
+    spacing = (*reversed(cfg["SPACING"]), COHORT_SPACING[2], 1.0)
+    check(len(forwards.calls) == len(files) == len(test_patients),
+          f"{phase}: {len(forwards.calls)} forwards, {len(files)} spans "
+          f"for {len(test_patients)} cines")
+    results = []
+    for i, pid in enumerate(sorted(test_patients)):
+        name = f"{pid}_4d_pred.nrrd"
+        check(files[i]["file"] == name, f"{phase}: span {files[i]['file']}")
+        out = read_image(os.path.join(out_dir, name))
+        check(out.array.dtype == np.uint8 and out.array.shape == shape,
+              f"{phase} {name}: {out.array.dtype} {out.array.shape}")
+        check(set(np.unique(out.array)) <= {0, 1, 2},
+              f"{phase} {name}: labels {np.unique(out.array)}")
+        check(np.allclose(out.spacing, spacing),
+              f"{phase} {name}: spacing {out.spacing}")
+        probs = forwards.host(i)
+        check(probs.shape == (CINE_FRAMES * Z, *cfg["DIM"], 2),
+              f"{phase} {name}: forward {probs.shape}")
+        flat = host_threshold(probs).reshape(shape)
+        want = clean(flat, (1, 2))
+        check(np.array_equal(out.array, want),
+              f"{phase} {name}: labels != scipy's filter of the same "
+              "thresholded forward")
+        results.append((out.array, flat))
+    return results
+
+
+def _at_stacked_shape(phase, masks, kernel, plain, names, structure=None):
+    """A CC kernel at the stacked shape a 4D path gave it (both labels of
+    every slice or frame of one cine): exact against its plain
+    version and scipy, then timed by events, a CUDA graph and the profiler
+    beside the plain version and the bound. These launches are not the
+    path's."""
+    got = kernel(masks)
+    check(torch.equal(got, plain(masks)), f"{phase}: kernel != plain at "
+          f"the cine's stacked {list(masks.shape)}")
+    check(np.array_equal(got.cpu().numpy(), scipy_min_index_labels(
+        masks.cpu().numpy(), structure)),
+          f"{phase}: kernel != scipy at the cine's stacked shape")
+    dev_us, by_kernel = device_us(lambda: kernel(masks), 10, names)
+    return {"shape": list(masks.shape),
+            "foreground": float(masks.float().mean()),
+            "ms": cuda_ms(lambda: kernel(masks), 20),
+            "graph_ms": graph_ms(lambda: kernel(masks), 10),
+            "device_us": dev_us, "device_us_by_kernel": by_kernel,
+            "plain_ms": cuda_ms(lambda: plain(masks), 2),
+            "bound_ms": _k2_bound_ms(masks.shape)}
+
+
+def _stage_ms(files):
+    """Median ms of each predict_4d stage over the cines, and the
+    forward's slices per second."""
+    out = {k[:-2] + "_ms": float(np.median([f[k] for f in files])) * 1e3
+           for k in ("read_s", "preprocess_s", "forward_s", "cc_s",
+                     "write_s", "total_s")}
+    out["forward_slices_per_s"] = float(np.median(
+        [f["slices"] / f["forward_s"] for f in files]))
+    return out
+
+
+def phase_predict_4d(exp, fold, data_root, test_patients, work):
+    """predict-4d: each test patient's cine made ACDC-sized (CINE_FRAMES x
+    Z slices of 200^2), then cli.predict_4d on the trained flagship fold
+    (CC_FILTER true): K2 exactly once per cine, K1 and the 3D kernel
+    never; each written volume equal to scipy's per-slice filter of the
+    same forward thresholded on the host, and a control with one frame's
+    filter skipped unequal. K2 at the cine's stacked [2 * T * Z, 224, 224]
+    against its plain version and scipy, timed. predict-4d-3d: the same on
+    a copy of the fold with CC_FILTER '3d' (the 3D kernel once per cine,
+    K2 never, scipy's 26-connected filter per frame), and the 3D kernel at
+    the cine's stacked [2 * T, Z, 224, 224] against its plain version and
+    scipy, timed. Returns the launches by path and both kernels' figures
+    at their stacked shapes."""
+    rng = np.random.default_rng(SEED)
+    for pid in sorted(test_patients):
+        _write_cine(data_root, pid, rng)
+    cines = len(test_patients)
+    by_path = {}
+    with open(os.path.join(fold, "config", "config.json"),
+              encoding="utf-8") as fh:
+        cfg = normalise_config(json.load(fh))
+
+    launches, run, forwards, memory, wall_s = _run_4d(exp, data_root)
+    by_path["predict_4d"] = launches
+    check(launches == {"k1": 0, "k2": cines, "cc3d": 0},
+          f"predict-4d: launches {launches} for {cines} cines")
+    results = _check_4d_outputs(os.path.join(fold, "pred_4d"),
+                                test_patients, forwards, run["files"],
+                                scipy_clean_2d, "predict-4d", cfg)
+    # the control: one frame's filter skipped (the frame where the filter
+    # removed most) must fail the same check
+    written, flat = results[0]
+    per_frame = (written != flat).reshape(CINE_FRAMES, -1).sum(axis=1)
+    frame = int(np.argmax(per_frame))
+    control = written.copy()
+    control[frame] = flat[frame]
+    check(per_frame[frame] > 0 and not np.array_equal(control, written),
+          "predict-4d: the control with frame "
+          f"{frame}'s filter skipped passes the check")
+    removed = [int((w != f).sum()) for w, f in results]
+
+    masks = torch.from_numpy(np.concatenate(
+        [flat == v for v in (1, 2)]).reshape(-1, *cfg["DIM"])).cuda()
+    k2_cine = _at_stacked_shape("predict-4d", masks,
+                                kernels.converge_labels_cuda,
+                                cc.label_components_2d, K2_KERNELS)
+    log("predict-4d", launches=launches, cines=cines,
+        frames=CINE_FRAMES, slices_per_cine=CINE_FRAMES * Z, wall_s=wall_s,
+        call_wall_s=run["wall_s"], ms_per_cine=_stage_ms(run["files"]),
+        **memory, voxels_removed_by_the_filter=removed,
+        control_frame=frame, control_voxels=int(per_frame[frame]),
+        k2_at_stacked_shape=dict(k2_cine,
+                                 bound_us=k2_cine["bound_ms"] * 1e3))
+    del forwards, masks
+
+    exp3d = os.path.join(work, "exp_4d_cc3d")
+    fold3d = os.path.join(exp3d, "f0")
+    shutil.copytree(fold, fold3d, ignore=shutil.ignore_patterns(
+        "pred", "gt", "pred_4d", "tensorboard_logs"))
+    cfg_path = os.path.join(fold3d, "config", "config.json")
+    with open(cfg_path, encoding="utf-8") as fh:
+        raw = dict(json.load(fh), CC_FILTER="3d")
+    with open(cfg_path, "w", encoding="utf-8") as fh:
+        json.dump(raw, fh)
+    launches, run, forwards, memory, wall_s = _run_4d(exp3d, data_root)
+    by_path["predict_4d_3d"] = launches
+    check(launches == {"k1": 0, "k2": 0, "cc3d": cines},
+          f"predict-4d-3d: launches {launches} for {cines} cines")
+    results = _check_4d_outputs(
+        os.path.join(fold3d, "pred_4d"), test_patients, forwards,
+        run["files"], lambda flat, values: np.stack(
+            [scipy_clean_3d(f, values) for f in flat]), "predict-4d-3d", cfg)
+    # the 3D kernel at the stacked shape the path gave it: label 1's and
+    # label 2's masks of every frame of the first cine, [2 * T, Z, H, W]
+    _, flat = results[0]
+    masks = torch.from_numpy(np.stack(
+        [flat == v for v in (1, 2)]).reshape(-1, Z, *cfg["DIM"])).cuda()
+    cc3d_cine = _at_stacked_shape("predict-4d-3d", masks,
+                                  kernels.converge_labels_3d_cuda,
+                                  cc.label_components_3d, CC3D_KERNELS,
+                                  structure=CUBE)
+    log("predict-4d-3d", launches=launches, cines=cines, wall_s=wall_s,
+        ms_per_cine=_stage_ms(run["files"]), **memory,
+        voxels_removed_by_the_filter=[int((w != f).sum())
+                                      for w, f in results],
+        cc3d_at_stacked_shape=dict(cc3d_cine,
+                                   bound_us=cc3d_cine["bound_ms"] * 1e3))
+    del forwards, masks
+    return by_path, {"k2": k2_cine, "cc3d": cc3d_cine}
+
+
+def phase_override_twin(exp, data_root, test_patients, work):
+    """override-twin: predict_override_twin(exp, CC_FILTER '3d') on the
+    card: K1 and the 3D kernel once per patient-phase, K2 never; each
+    twin pred/ file byte-equal to the cc3d-cli copy's (the same pred_fold
+    with the same config); evaluate_cv_save on the plain root and on the
+    twin writes one row per patient-phase with finite distances."""
+    phases = 2 * len(test_patients)
+    for k in (kernels.gaussian_blur_2d_cuda, kernels.converge_labels_cuda,
+              kernels.converge_labels_3d_cuda):
+        k.launches = 0
+    t0 = time.perf_counter()
+    t_root = predict_override_twin(exp, {"CC_FILTER": "3d"}, "cc3d")
+    wall_s = time.perf_counter() - t0
+    launches = _counts()
+    check(launches == {"k1": phases, "k2": 0, "cc3d": phases},
+          f"override-twin: launches {launches} for {phases} patient-phases")
+    twin = sorted(glob.glob(os.path.join(t_root, "f0", "pred", "*.nrrd")))
+    cli3d = os.path.join(work, "f0_cc3d", "pred")
+    check([os.path.basename(f) for f in twin] == sorted(
+        os.path.basename(f) for f in glob.glob(os.path.join(cli3d, "*.nrrd")))
+          and len(twin) == 2 * phases,
+          f"override-twin: {len(twin)} files")
+    for f in twin:
+        with open(f, "rb") as a, open(os.path.join(
+                cli3d, os.path.basename(f)), "rb") as b:
+            check(a.read() == b.read(), f"override-twin: {f} differs from "
+                  "the cc3d-cli copy's")
+    rows = {}
+    for name, root in (("plain", exp), ("twin", t_root)):
+        t = time.perf_counter()
+        table = evaluate_cv_save(root, data_root)
+        dists = [r[c] for r in table for c in ("ant_dist_pred",
+                                               "inf_dist_pred")]
+        check(len(table) == phases and np.isfinite(dists).all(),
+              f"override-twin: evaluate_cv_save on the {name} root: "
+              f"{len(table)} rows, distances {dists}")
+        rows[name] = {"wall_s": time.perf_counter() - t,
+                      "ant_inf_dist_pred_px": dists}
+    log("override-twin", launches=launches, patient_phases=phases,
+        wall_s=wall_s, files_equal_to_cc3d_cli=len(twin),
+        evaluate_cv_save=rows)
+    return {"override_twin": launches}
+
+
 def _ms(us):
     return None if us is None else us / 1e3
 
@@ -2630,7 +2962,7 @@ def main():
                          "k1": kernels.gaussian_blur_2d_cuda.launches}}
     check(by_path["serve"]["k1"] == 0,
           "serve: K1 launched on the serving path")
-    train_paths, flagship_timing = phase_train(cfg)
+    train_paths, flagship_timing, cine_cc = phase_train(cfg)
     by_path.update(train_paths)
     kernels.converge_labels_3d_cuda.launches = 0
     phase_train_f32(cfg)
@@ -2667,6 +2999,7 @@ def main():
     h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
     stacked, c1 = k2["landmark-like"], k1_3d["cine-s2"]
     h3, dense3 = cc3d["landmark-like"], cc3d["random-0.55"]
+    k2_cine, cc3d_cine = cine_cc["k2"], cine_cc["cc3d"]
 
     def launches(kernel):
         # a path without an entry for the 3D kernel was checked to launch
@@ -2687,7 +3020,12 @@ def main():
          "stacked_case": f"landmark-like {stacked['shape']}",
          "stacked_ms": stacked["ms"], "stacked_graph_ms": stacked["graph_ms"],
          "stacked_device_ms": _ms(stacked["device_us"]),
-         "stacked_bound_ms": stacked["bound_ms"]},
+         "stacked_bound_ms": stacked["bound_ms"],
+         "cine_case": f"predict-4d's stacked labels {k2_cine['shape']}",
+         "cine_ms": k2_cine["ms"], "cine_graph_ms": k2_cine["graph_ms"],
+         "cine_device_ms": _ms(k2_cine["device_us"]),
+         "cine_plain_ms": k2_cine["plain_ms"],
+         "cine_bound_ms": k2_cine["bound_ms"]},
         {"name": "gaussian_blur_2d_cuda", "route": "cuda",
          "source": "cmrtpu_torch/csrc/gaussian_blur.cu",
          "replaces": "cmrtpu/ops/pallas_kernels.py:87",
@@ -2722,7 +3060,12 @@ def main():
          "dense_ms": dense3["ms"], "dense_graph_ms": dense3["graph_ms"],
          "dense_device_ms": _ms(dense3["device_us"]),
          "dense_plain_ms": dense3["plain_ms"],
-         "dense_bound_ms": dense3["bound_ms"]}]}),
+         "dense_bound_ms": dense3["bound_ms"],
+         "cine_case": f"predict-4d-3d's stacked labels {cc3d_cine['shape']}",
+         "cine_ms": cc3d_cine["ms"], "cine_graph_ms": cc3d_cine["graph_ms"],
+         "cine_device_ms": _ms(cc3d_cine["device_us"]),
+         "cine_plain_ms": cc3d_cine["plain_ms"],
+         "cine_bound_ms": cc3d_cine["bound_ms"]}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """CV evaluation: assemble the per-patient df_eval.csv without pandas —
-counterpart of ``cmrtpu/eval/evaluate.py:evaluate_cv``.
+counterpart of ``cmrtpu/eval/evaluate.py``: ``evaluate_cv`` and the lighter
+``evaluate_cv_save``.
 
 Per patient x phase: insertion points from the prediction / GT /
 inter-observer / original ventricle masks, mean-IP and slice-wise angles and
@@ -32,6 +33,8 @@ import numpy as np
 
 from cmrtpu_torch.data.dataset import get_acdc_pathologies
 from cmrtpu_torch.eval import landmarks as LM
+from cmrtpu_torch.eval.file_metrics import (angle_columns, dist_columns,
+                                            get_angles_as_df, get_dist_as_df)
 from cmrtpu_torch.io import read_image
 from cmrtpu_torch.train.losses import dice_numpy
 
@@ -129,6 +132,31 @@ def sorting_lambda_frame(x):
             int(os.path.basename(x).split("_")[1].split("frame")[1]))
 
 
+def _experiment_files(exp_path: str):
+    """(pred, gt, cmr) files of every fold, each sorted by patient: under
+    ``<exp>/*/*/`` (a timestamped run's folds), else, with no prediction
+    there, under the flat ``<exp>/*/``."""
+    for root in (os.path.join(exp_path, "*/*/"),
+                 os.path.join(exp_path, "*/")):
+        pred = sorted(glob.glob(os.path.join(root, "pred", "*msk.nrrd")),
+                      key=sorting_lambda)
+        if pred:
+            break
+    return pred, *(sorted(glob.glob(os.path.join(root, sub, pattern)),
+                          key=sorting_lambda)
+                   for sub, pattern in (("gt", "*msk.nrrd"),
+                                        ("pred", "*cmr.nrrd")))
+
+
+def _data_files(data_path: str):
+    """(inter-observer RVIP files, original ventricle masks), each sorted
+    by patient and frame."""
+    return tuple(sorted(glob.glob(os.path.join(data_path, *parts)),
+                        key=sorting_lambda_frame)
+                 for parts in (("io", "*rvip.nrrd"),
+                               ("original", "*/*frame*gt.nii.gz")))
+
+
 def _missing(v) -> bool:
     return v is None or (isinstance(v, float) and math.isnan(v))
 
@@ -170,30 +198,10 @@ def evaluate_cv(exp_path: str, data_path: str,
     path_to_exp = exp_path
     glob_exp = os.path.join(path_to_exp, "*/*/")
 
-    io_files = sorted(glob.glob(os.path.join(data_root, "io", "*rvip.nrrd")),
-                      key=sorting_lambda_frame)
-    pred_files = sorted(glob.glob(os.path.join(glob_exp, "pred", "*msk.nrrd")),
-                        key=sorting_lambda)
-    gt_files = sorted(glob.glob(os.path.join(glob_exp, "gt", "*msk.nrrd")),
-                      key=sorting_lambda)
-    cmr_files = sorted(glob.glob(os.path.join(glob_exp, "pred", "*cmr.nrrd")),
-                       key=sorting_lambda)
-    if not pred_files:  # flat fold layout exp/f<k>/pred as fallback
-        pred_files = sorted(glob.glob(os.path.join(path_to_exp,
-                                                   "*/pred/*msk.nrrd")),
-                            key=sorting_lambda)
-        gt_files = sorted(glob.glob(os.path.join(path_to_exp,
-                                                 "*/gt/*msk.nrrd")),
-                          key=sorting_lambda)
-        cmr_files = sorted(glob.glob(os.path.join(path_to_exp,
-                                                  "*/pred/*cmr.nrrd")),
-                           key=sorting_lambda)
+    pred_files, gt_files, cmr_files = _experiment_files(path_to_exp)
+    io_files, orig_msk_files = _data_files(data_root)
     logging.info("source files: %d pred / %d gt / %d cmr / %d inter-observer",
                  len(pred_files), len(gt_files), len(cmr_files), len(io_files))
-
-    orig_msk_files = sorted(glob.glob(os.path.join(data_root, "original",
-                                                   "*/*frame*gt.nii.gz")),
-                            key=sorting_lambda_frame)
     logging.info("original ventricle-mask files: %d", len(orig_msk_files))
 
     if not pred_files:
@@ -355,3 +363,71 @@ def evaluate_cv(exp_path: str, data_path: str,
     write_csv(col, out_csv)
     logging.info("evaluation written for %s -> %s", glob_exp, out_csv)
     return col
+
+
+def evaluate_cv_save(exp_path: str, data_path: str) -> List[Dict]:
+    """The lighter evaluation (ref: evaluate_cv_save,
+    src/models/evaluate_cv.py:599-660): mean-IP angle and distance stats
+    (``get_angles_as_df``, ``get_dist_as_df``) of the prediction,
+    inter-observer and original ventricle-mask sources against the gt
+    files, paired by position, with pred_files, patient, phase and
+    pathology; written as ``<exp_path>/df_eval.csv``, the bytes cmrtpu's
+    ``evaluate_cv_save`` writes. Returns the rows.
+
+    A source whose file count is not the gt files' is skipped with a
+    warning (it would mis-pair); when every source is skipped this raises.
+    A failed pathology join leaves the column empty. A column name met
+    again (``gt_angle`` of each source) keeps its first values and place,
+    as cmrtpu's ``df.columns.duplicated()`` drop does."""
+    glob_exp = os.path.join(exp_path, "*/*/")
+    pred_files, gt_files, _ = _experiment_files(exp_path)
+    io_files, orig_msk_files = _data_files(data_path)
+    if not pred_files:
+        raise FileNotFoundError(f"no prediction masks under {glob_exp}pred/")
+
+    sources = []
+    for files, ismsk, sfx in ((pred_files, False, "pred"),
+                              (io_files, False, "io"),
+                              (orig_msk_files, True, "orig_msk")):
+        if len(files) == len(gt_files):
+            sources.append((files, ismsk, sfx))
+        else:
+            logging.warning("skip source '%s': %d files != %d gt files "
+                            "(would mis-pair positionally)",
+                            sfx, len(files), len(gt_files))
+    if not sources:
+        raise FileNotFoundError(
+            f"every source was skipped: pred/gt file counts differ "
+            f"({len(pred_files)} pred vs {len(gt_files)} gt under {glob_exp}) "
+            "— check the experiment layout, or use evaluate_cv (which joins "
+            "by patient+phase instead of positionally)")
+    if len(gt_files) != len(pred_files):
+        raise ValueError(f"{len(pred_files)} prediction masks for "
+                         f"{len(gt_files)} rows")
+
+    col: Dict[str, List] = {}
+    for table, names in ((get_angles_as_df, angle_columns),
+                         (get_dist_as_df, dist_columns)):
+        for files, ismsk, sfx in sources:
+            rows = table(gt_files, files, f2ismsk=ismsk, suffix=sfx,
+                         meanips=True)
+            for name in names(sfx):
+                col.setdefault(name, [r[name] for r in rows])
+    col.setdefault("pred_files", list(pred_files))
+    col.setdefault("patient", [os.path.basename(x).split("_")[0]
+                               for x in pred_files])
+    col.setdefault("phase", [os.path.basename(x).split("_")[1]
+                             for x in pred_files])
+    try:
+        pathology = get_acdc_pathologies(os.path.join(data_path, "original"))
+        col.setdefault("pathology", [pathology.get(p)
+                                     for p in col["patient"]])
+    except (IndexError, OSError, ValueError) as exc:
+        logging.warning(
+            "pathology join against %s/original failed (%s: %s) — the "
+            "'pathology' column will be empty", data_path,
+            type(exc).__name__, exc)
+        col.setdefault("pathology", [None] * len(pred_files))
+    write_csv(col, os.path.join(exp_path, "df_eval.csv"))
+    logging.info("evaluation written for %s", glob_exp)
+    return [dict(zip(col, values)) for values in zip(*col.values())]

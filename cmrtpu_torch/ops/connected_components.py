@@ -91,11 +91,11 @@ def largest_component_batch(masks: torch.Tensor) -> torch.Tensor:
 
 def _clean(pred_flat, label_values: Sequence[int], device,
            largest) -> torch.Tensor:
-    """Per-label filter of a [Z, H, W] label volume (numpy or tensor) on
-    ``device`` (default: the tensor's own, the CPU for numpy): the masks of
-    all label values stacked [len(values), Z, H, W] go through ``largest``
-    at once, one kernel launch on a CUDA device; a later label value
-    overwrites an earlier one, as in the reference."""
+    """Per-label filter of a [..., Z, H, W] label volume (numpy or tensor)
+    on ``device`` (default: the tensor's own, the CPU for numpy): the masks
+    of all label values stacked [len(values), ..., Z, H, W] go through
+    ``largest`` at once, one kernel launch on a CUDA device; a later label
+    value overwrites an earlier one, as in the reference."""
     pred = torch.as_tensor(pred_flat, device=device)
     out = torch.zeros_like(pred)
     values = list(label_values)
@@ -112,10 +112,13 @@ def clean_prediction_2d_cc(pred_flat, label_values: Sequence[int] = (1, 2),
                            device=None) -> torch.Tensor:
     """Per-slice, per-label biggest 4-connected component of a [Z, H, W]
     label volume (CC_FILTER true or '2d'), every slice of every label value
-    in one [len(values) * Z, H, W] labelling."""
+    in one [len(values) * Z, H, W] labelling. A [T, Z, H, W] cine is
+    labelled the same way in one [len(values) * T * Z, H, W] launch: each
+    slice is labelled on its own, so the result equals the volume-by-volume
+    filter's."""
     return _clean(pred_flat, label_values, device,
                   lambda m: largest_component_batch(
-                      m.flatten(0, 1)).reshape(m.shape))
+                      m.flatten(0, -3)).reshape(m.shape))
 
 
 def _axis_min(labels: torch.Tensor, dim: int) -> torch.Tensor:
@@ -179,5 +182,9 @@ def clean_prediction_3d_cc(pred_flat, label_values: Sequence[int] = (1, 2),
                            device=None) -> torch.Tensor:
     """Per-label biggest 26-connected volume component of a [Z, H, W] label
     volume (CC_FILTER '3d', ``cmrtpu``'s ``clean_prediction_3d_cc``); a
-    label with no voxel stays empty."""
-    return _clean(pred_flat, label_values, device, largest_component_3d_batch)
+    label with no voxel stays empty. Each [Z, H, W] volume of a [T, Z, H,
+    W] cine is filtered on its own, all of them in one [len(values) * T, Z,
+    H, W] launch."""
+    return _clean(pred_flat, label_values, device,
+                  lambda m: largest_component_3d_batch(
+                      m.flatten(0, -4)).reshape(m.shape))

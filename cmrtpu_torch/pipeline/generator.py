@@ -21,6 +21,7 @@ them stacked as [N, n_heads, *DIM].
 
 from __future__ import annotations
 
+import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.data.dataset import create_2d_slices_from_4d_volume_file
 from cmrtpu_torch.io import MedicalImage, read_image
 from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.gaussian import smooth_heatmap_targets
@@ -223,3 +225,20 @@ class DataGenerator:
         else:
             msk_nda = msks[0].array
         return img_nda.astype(np.float32), msk_nda.astype(np.float32)
+
+
+def sliceable(generator_cls, x: Sequence[str], y=None,
+              config: Optional[Dict] = None,
+              temp_path: str = "data/interim") -> List[DataGenerator]:
+    """One 2D generator (BATCHSIZE 1) per 4D file of ``x``, over the t x z
+    slices that ``create_2d_slices_from_4d_volume_file`` writes under
+    ``temp_path``, for running a 2D model over cine stacks (ref: sliceable,
+    src/data/Generators.py:401-424)."""
+    cfg = dict(config or {})
+    cfg["BATCHSIZE"] = 1
+    generators = []
+    for img_f in x:
+        sliced = create_2d_slices_from_4d_volume_file(img_f, temp_path)
+        logging.info("x_sliced: %d, example: %s", len(sliced), sliced[0])
+        generators.append(generator_cls(x=sliced, y=None, config=cfg))
+    return generators

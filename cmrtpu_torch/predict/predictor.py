@@ -1,6 +1,8 @@
 """Restored model + batched forward, thresholding, the CC_FILTER cleaner and
-the per-fold inference entry point ``pred_fold`` — counterpart of
-``cmrtpu/predict/predictor.py``.
+the inference entry points ``pred_fold`` (one fold's test patients),
+``predict_4d_on_2d_cv`` (a trained 2D CV over whole cine sequences) and
+``predict_override_twin`` (every fold again with predict-time overrides)
+— counterpart of ``cmrtpu/predict/predictor.py``.
 
 ``cmrtpu.predict.predictor`` imports jax at module level, so its numpy-only
 functions are re-implemented here over the port's own copies of the host
@@ -10,6 +12,7 @@ modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
 from __future__ import annotations
 
 import glob
+import json
 import logging
 import os
 import time
@@ -33,7 +36,9 @@ from cmrtpu_torch.utils.io_utils import ensure_dir
 
 # pred_fold's spans at DEBUG, each with a dict in ``record.timing``: its
 # start, every patient-phase with its stage seconds, and its end with the
-# wall seconds of the call (a handler on this logger reads them)
+# wall seconds of the call (a handler on this logger reads them);
+# predict_4d_on_2d_cv's likewise, as events '4d_start', '4d_file' (one per
+# cine) and '4d_end'
 TIMING_LOG = logging.getLogger(__name__ + ".timing")
 
 _BUCKET = 8  # Predictor.predict pads slice batches to a multiple of this
@@ -100,7 +105,7 @@ class Predictor:
         model_path = model_path or C.get(self.config, "MODEL_PATH")
         self.model = get_model(self.config,
                                supervision=_supervised(model_path))
-        load_weights_for_model(model_path, self.model)
+        load_weights_for_model(model_path, self.model, self.config)
         self.model.to(self.device).eval()
 
     @torch.inference_mode()
@@ -110,44 +115,63 @@ class Predictor:
         returns before the device finishes)."""
         return self.model(torch.as_tensor(x, device=self.device))
 
-    def predict(self, x: np.ndarray):
+    def predict(self, x: np.ndarray, to_host: bool = True):
         """Batched forward, padded to a multiple of ``_BUCKET`` and trimmed
         back to the input's batch size: a numpy array, or a dict of them
-        per head."""
+        per head; with ``to_host`` False the tensors stay on the device."""
         n = x.shape[0]
         padded = -(-n // _BUCKET) * _BUCKET
         if padded != n:
             x = np.concatenate([x, np.zeros((padded - n, *x.shape[1:]), x.dtype)])
-        return to_numpy(self._forward(x), n)
+        out = self._forward(x)
+        return to_numpy(out, n) if to_host else _rows(out, n)
+
+
+def _rows(out, n: int):
+    """The first ``n`` rows of a forward's output (a tensor, or a dict of
+    tensors per head)."""
+    if isinstance(out, dict):
+        return {k: v[:n] for k, v in out.items()}
+    return out[:n]
 
 
 def to_numpy(out, n: int):
     """The first ``n`` rows of a forward's output (a tensor, or a dict of
     tensors per head) on the host."""
+    out = _rows(out, n)
     if isinstance(out, dict):
-        return {k: v[:n].cpu().numpy() for k, v in out.items()}
-    return out[:n].cpu().numpy()
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    return out.cpu().numpy()
 
 
 def filter_by_patient_id(p_id: str, f_names: List[str]) -> List[str]:
     return [elem for elem in f_names if p_id in elem]
 
 
-def threshold_and_flatten(channels: np.ndarray) -> np.ndarray:
-    """sigmoid channels -> flat labels (ch0>0.5 -> 1, ch1>0.5 -> 2; later
-    channels overwrite)."""
-    flat = np.zeros(channels.shape[:-1], dtype=np.float64)
+def flatten_labels(channels: torch.Tensor, activation: str) -> torch.Tensor:
+    """Channel probabilities -> uint8 flat labels on the tensor's device:
+    sigmoid heads by the 0.5 threshold (ch0>0.5 -> 1, ch1>0.5 -> 2; later
+    channels overwrite), softmax heads by argmax (0 = background; the
+    first maximum wins)."""
+    if str(activation) == "softmax":
+        return channels.argmax(dim=-1).to(torch.uint8)
+    flat = torch.zeros(channels.shape[:-1], dtype=torch.uint8,
+                       device=channels.device)
     for c in range(channels.shape[-1]):
         flat[channels[..., c] > 0.5] = c + 1
     return flat
 
 
 def flatten_head(channels: np.ndarray, activation: str) -> np.ndarray:
-    """Channel probabilities -> flat labels: sigmoid heads by the 0.5
-    threshold rule, softmax heads by argmax (0 = background)."""
-    if str(activation) == "softmax":
-        return np.argmax(channels, axis=-1).astype(np.float64)
-    return threshold_and_flatten(channels)
+    """``flatten_labels`` of host channels, as float64 labels."""
+    host = torch.from_numpy(np.ascontiguousarray(channels))
+    return flatten_labels(host, activation).numpy().astype(np.float64)
+
+
+def threshold_and_flatten(channels: np.ndarray) -> np.ndarray:
+    """sigmoid channels -> flat float64 labels (ch0>0.5 -> 1, ch1>0.5 -> 2;
+    later channels overwrite)."""
+    return flatten_head(channels, "sigmoid")
 
 
 def _head_outputs(cfg: Dict, preds, gts: Optional[np.ndarray]):
@@ -189,6 +213,25 @@ def _head_outputs(cfg: Dict, preds, gts: Optional[np.ndarray]):
             "per-head _<name>.nrrd families directly",
             [h[0] for h in heads])
     return outputs
+
+
+def select_4d_landmark_head(cfg: Dict):
+    """The head the 4D prediction tracks: the first sigmoid head (the one
+    that owns the ``_msk`` files in ``_head_outputs``), else the first
+    head's argmax labels. Returns ``(name, activation, cc_label_values)``; name
+    and label values are None for a single-head model (its label values
+    follow the output's channel count)."""
+    heads = [tuple(h) for h in (C.get(cfg, "HEADS") or ())]
+    if not heads:
+        return None, "sigmoid", None
+    head = next((h for h in heads if str(h[2]) != "softmax"), None)
+    if head is not None:
+        return str(head[0]), "sigmoid", tuple(range(1, int(head[1]) + 1))
+    head = heads[0]
+    logging.warning(
+        "predict_4d_on_2d_cv: HEADS has no sigmoid landmark head; using "
+        "head %r (argmax labels)", head[0])
+    return str(head[0]), str(head[2]), tuple(range(1, int(head[1])))
 
 
 def preprocess_model_input(slices: np.ndarray, slice_spacing,
@@ -338,3 +381,121 @@ def pred_fold(config: Dict, device="cuda") -> bool:
     TIMING_LOG.debug("pred_fold end", extra={"timing": {
         "event": "end", "wall_s": time.perf_counter() - start}})
     return True
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def predict_4d_on_2d_cv(exp_root: str, data_root: str,
+                        export_suffix: str = "pred_4d",
+                        device="cuda") -> None:
+    """Run a trained 2D CV over whole 4D cine sequences on ``device``
+    (ref: src/models/predict_4d_on_seg.py:23-113). Per fold ``f<k>`` of
+    ``exp_root``: the ``original/*/*4d.nii.gz`` files under ``data_root``
+    whose path holds one of the fold's test patients (DF_FOLDS); per file
+    the t x z slices preprocessed as one batch (``preprocess_model_input``),
+    one forward through ``Predictor``, the landmark head
+    (``select_4d_landmark_head``) flattened into labels on the device, and
+    the CC filter, which always runs (``cc_clean_fn`` or the per-slice 2D
+    filter): every t of the file in one launch (K2, or the 3D kernel with
+    ``CC_FILTER: '3d'``). Only the uint8 labels come back to the host; they
+    are written as ``<fold>/<export_suffix>/<stem>_pred.nrrd``, [t, z, H, W]
+    on the model grid (DIM), spacing (x, y) of the config with RESAMPLE and
+    the study's own without, the study's z spacing, 1.0."""
+    start = time.perf_counter()
+    TIMING_LOG.debug("predict_4d start", extra={"timing": {
+        "event": "4d_start"}})
+    dev = resolve_device(device)
+    fold_dirs = sorted(glob.glob(os.path.join(exp_root, "f[0-9]")))
+    files_4d = sorted(glob.glob(os.path.join(data_root, "original",
+                                             "*/*4d.nii.gz")))
+    for fold_dir in fold_dirs:
+        cfg = C.load_config(os.path.join(fold_dir, "config", "config.json"))
+        cfg["MODEL_PATH"] = os.path.join(fold_dir, "model")
+        test_patients = fold_patients(C.get(cfg, "DF_FOLDS"),
+                                      C.get(cfg, "FOLD"), "test")
+        fold_files = [f for f in files_4d
+                      if any(p in f for p in test_patients)]
+        predictor = Predictor(cfg, device=dev)
+        out_dir = os.path.join(fold_dir, export_suffix)
+        ensure_dir(out_dir)
+        head_name, head_act, head_cc = select_4d_landmark_head(cfg)
+        cc = cc_clean_fn(cfg) or clean_prediction_2d_cc
+        dim = tuple(C.get(cfg, "DIM"))
+        resample = bool(C.get(cfg, "RESAMPLE", False))
+        for f4d in fold_files:
+            t0 = time.perf_counter()
+            vol = read_image(f4d)
+            nda = vol.array  # [t, z, y, x]
+            t_dim, z_dim = nda.shape[0], nda.shape[1]
+            spacing = list(reversed(C.get(cfg, "SPACING"))) if resample \
+                else list(vol.spacing[:2])
+            t1 = time.perf_counter()
+            batch = preprocess_model_input(
+                nda.reshape(t_dim * z_dim, *nda.shape[2:]),
+                vol.spacing[:2], cfg)
+            t2 = time.perf_counter()
+            preds = predictor.predict(batch, to_host=False)
+            if isinstance(preds, dict):
+                preds = preds[head_name] if head_name in preds \
+                    else next(iter(preds.values()))
+            _sync(dev)
+            t3 = time.perf_counter()
+            cc_labels = head_cc
+            if cc_labels is None:
+                cc_labels = tuple(range(1, preds.shape[-1] + 1))
+            flat = flatten_labels(preds, head_act).reshape(t_dim, z_dim, *dim)
+            cleaned = cc(flat, cc_labels, device=dev).cpu().numpy()
+            t4 = time.perf_counter()
+            out = MedicalImage(array=cleaned.astype(np.uint8),
+                               spacing=(spacing[0], spacing[1],
+                                        vol.spacing[2] if vol.ndim > 2
+                                        else 10.0, 1.0))
+            name = os.path.basename(f4d).replace(".nii.gz", "_pred.nrrd")
+            write_image(out, os.path.join(out_dir, name))
+            t5 = time.perf_counter()
+            TIMING_LOG.debug("predict_4d %s", name, extra={"timing": {
+                "event": "4d_file", "fold": os.path.basename(fold_dir),
+                "file": name, "slices": t_dim * z_dim, "read_s": t1 - t0,
+                "preprocess_s": t2 - t1, "forward_s": t3 - t2,
+                "cc_s": t4 - t3, "write_s": t5 - t4, "total_s": t5 - t0}})
+            logging.info("4D prediction written: %s", name)
+    TIMING_LOG.debug("predict_4d end", extra={"timing": {
+        "event": "4d_end", "wall_s": time.perf_counter() - start}})
+
+
+def predict_override_twin(exp_root: str, overrides: Dict, suffix: str,
+                          device="cuda") -> str:
+    """Predict every fold of a trained experiment root again, with
+    predict-time config overrides, into the sibling root
+    ``<exp_root>_<suffix>`` (the same checkpoints; ``pred_fold`` on
+    ``device``), ready for the evaluation: any predict-time knob
+    (CC_FILTER '3d', DETECTION head choices, ...) A/B'd against the plain
+    root on the same weights and data. An override key that is not an
+    uppercase key of ``cmrtpu_torch/config.py`` raises: the config would
+    drop it silently, and the twin would equal the plain root."""
+    bad = [k for k in overrides
+           if not (isinstance(k, str) and k.isupper()
+                   and (k in C.DEFAULTS or k in C._ALIASES
+                        or k in C._SETTABLE_EXTRA))]
+    if bad:
+        raise ValueError(
+            f"unknown override key(s) {bad} — keys must be uppercase "
+            f"entries of cmrtpu_torch/config.py (DEFAULTS/_SETTABLE_EXTRA)")
+    t_root = exp_root.rstrip("/") + f"_{suffix}"
+    folds = sorted(glob.glob(os.path.join(exp_root, "f[0-9]*")))
+    if not folds:
+        raise FileNotFoundError(f"no fold dirs under {exp_root}")
+    for fold_dir in folds:
+        t_fold = os.path.join(t_root, os.path.basename(fold_dir))
+        cfg = C.load_config(os.path.join(fold_dir, "config", "config.json"))
+        cfg.update(overrides)
+        cfg["EXP_PATH"] = t_fold
+        cfg["MODEL_PATH"] = os.path.join(fold_dir, "model")
+        ensure_dir(os.path.join(t_fold, "config"))
+        with open(os.path.join(t_fold, "config", "config.json"), "w") as fh:
+            json.dump(cfg, fh, indent=2, default=str)
+        pred_fold(cfg, device=device)
+    return t_root

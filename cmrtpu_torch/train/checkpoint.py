@@ -312,17 +312,40 @@ def load_weights(model_path: str) -> Tuple[Dict, Dict]:
     return _unflatten(params), _unflatten(stats)
 
 
-def load_weights_for_model(model_path: str, model: nn.Module) -> nn.Module:
+def load_weights_for_model(model_path: str, model: nn.Module,
+                           config: Dict) -> nn.Module:
     """Load ``model.npz`` into ``model`` (strict: every key and shape must
-    match). A keras ``model.h5`` is not ported yet."""
+    match). A model directory with a keras ``model.h5`` and no
+    ``model.npz`` (the reference's published folds) is imported instead
+    (``train/keras_import.py``), walked in the order that ``config``'s
+    model gives; that route needs h5py."""
     npz = model_path if model_path.endswith(".npz") \
         else os.path.join(model_path, WEIGHTS_NAME)
     h5 = model_path if model_path.endswith(".h5") \
         else os.path.join(model_path, "model.h5")
     if not os.path.exists(npz) and os.path.exists(h5):
-        raise NotImplementedError(
-            f"{h5}: keras weight import is not ported to cmrtpu_torch yet "
-            "(ROADMAP 3.7); convert it with cmrtpu first")
+        from cmrtpu_torch.train.keras_import import import_keras_unet_weights
+        trees = import_keras_unet_weights(model, h5, config)
+        model.load_state_dict(flax_to_state_dict(trees["params"],
+                                                 trees["batch_stats"]))
+        return model
     params, stats = load_weights(model_path)
     model.load_state_dict(flax_to_state_dict(params, stats))
     return model
+
+
+def load_pretrained_model(model_path: str, model: nn.Module,
+                          config: Dict):
+    """The fallback chain of model loading (ref: load_pretrained_model,
+    src/models/ModelUtils.py:7-73; cmrtpu's ``load_pretrained_model``):
+    the full train state ``state.pt`` when ``model_path`` holds one, else
+    ``model.npz``, else a keras ``model.h5`` (walked by ``config``). Returns
+    ``(model, state)``, ``state`` None unless it came from ``state.pt``;
+    with a state the weights are the live ones, not the EMA shadow. A
+    ``state.pt`` that does not load into ``model`` raises, as a resume
+    does (cmrtpu falls through to the weights)."""
+    if os.path.exists(os.path.join(model_path, STATE_NAME)):
+        state = restore_train_state(model_path)
+        model.load_state_dict(state["model"])
+        return model, state
+    return load_weights_for_model(model_path, model, config), None

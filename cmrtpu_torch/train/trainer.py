@@ -189,7 +189,7 @@ class Trainer:
     def restore_weights(self, model_path: str) -> None:
         """Load a weights-only model.npz; with EMA on the shadow is seeded
         from the loaded weights, not kept at the initial ones."""
-        ckpt.load_weights_for_model(model_path, self.model)
+        ckpt.load_weights_for_model(model_path, self.model, self.config)
         if self.state.ema is not None:
             self.state.reset_ema()
 

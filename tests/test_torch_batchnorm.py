@@ -210,7 +210,7 @@ def test_bn_run_experiment_matches_cmrtpu(tmp_path, monkeypatch):
     in_jax = np.asarray(jax_build_model(cfg).apply(
         {"params": params, "batch_stats": stats}, x, train=False))
     own = load_weights_for_model(os.path.join(torch_exp, "f0", "model"),
-                                 get_model(cfg))
+                                 get_model(cfg), cfg)
     with torch.no_grad():
         np.testing.assert_allclose(own.eval()(torch.from_numpy(x)).numpy(),
                                    in_jax, atol=1e-4)

@@ -5,6 +5,7 @@ back with identical keys, shapes, dtypes and values — for GroupNorm and
 BatchNorm U-Nets."""
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -64,7 +65,7 @@ def test_cmrtpu_npz_round_trips_through_port(norm, tmp_path):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     jax_ckpt.save_weights(a, variables["params"],
                           variables.get("batch_stats"))
-    model = load_weights_for_model(a, build_model(cfg))
+    model = load_weights_for_model(a, build_model(cfg), cfg)
     save_weights(b, model)
     _assert_same_npz(_npz(a), _npz(b))
 
@@ -102,10 +103,16 @@ def test_port_npz_loads_into_cmrtpu(norm, tmp_path):
         assert torch.equal(t, model.state_dict()[key]), key
 
 
-def test_keras_h5_is_not_ported(tmp_path):
+def test_keras_h5_is_not_ported(tmp_path, monkeypatch):
+    """A model directory with a keras model.h5 and no model.npz takes the
+    keras route (train/keras_import.py, held to cmrtpu's importer in
+    test_torch_keras_import.py). On a host without h5py, as the card, its
+    error names the route through model.npz."""
     (tmp_path / "model.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP 3.7"):
-        load_weights_for_model(str(tmp_path), build_model(CONFIGS["gn"]))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="save_weights"):
+        load_weights_for_model(str(tmp_path), build_model(CONFIGS["gn"]),
+                               CONFIGS["gn"])
 
 
 def test_foreign_leaf_is_rejected():

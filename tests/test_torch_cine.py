@@ -159,7 +159,7 @@ def test_npz_5d_round_trips_both_ways(cfg, tmp_path):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     jax_ckpt.save_weights(a, variables["params"],
                           variables.get("batch_stats"))
-    model = load_weights_for_model(a, build_model(cfg))
+    model = load_weights_for_model(a, build_model(cfg), cfg)
     assert any(t.dim() == 5 for t in model.state_dict().values())
     save_weights(b, model)
     _assert_same_npz(_npz(a), _npz(b))

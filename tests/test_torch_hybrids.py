@@ -287,7 +287,7 @@ def test_npz_round_trips_both_ways(variant, supervision, tmp_path):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     jax_ckpt.save_weights(a, variables["params"], variables["batch_stats"])
     model = load_weights_for_model(
-        a, get_model(cfg, supervision=supervision))
+        a, get_model(cfg, supervision=supervision), cfg)
     save_weights(b, model)
     _assert_same_npz(_npz(a), _npz(b))
 

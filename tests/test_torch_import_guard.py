@@ -1,5 +1,6 @@
-"""cmrtpu_torch never imports cmrtpu, jax, flax, optax, orbax, pandas or
-scikit-learn.
+"""cmrtpu_torch never imports cmrtpu, jax, flax, optax, orbax, pandas,
+scikit-learn or h5py (the keras route imports h5py only when it reads a
+model.h5).
 
 The port runs on hosts that have none of them and keeps its own copies of
 the host modules it needs, so every module of the package — the serving,
@@ -19,11 +20,14 @@ import importlib, pkgutil, sys
 import cmrtpu_torch, cmrtpu_torch.predict.serving, cmrtpu_torch.cli.serve
 import cmrtpu_torch.cli.train, cmrtpu_torch.train.fold
 import cmrtpu_torch.cli.predict, cmrtpu_torch.cli.evaluate_cv
+import cmrtpu_torch.cli.predict_4d, cmrtpu_torch.train.keras_import
+import cmrtpu_torch.data.analytics, cmrtpu_torch.eval.file_metrics
 import cmrtpu_torch.cli.make_dataset, cmrtpu_torch.tools.full_cv_demo
 import cmrtpu_torch.tools.cine_quality_demo, cmrtpu_torch.ops.cuda_kernels
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
-banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu")
+banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu",
+          "h5py")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("loaded:", bad)
 sys.exit(1 if bad else 0)

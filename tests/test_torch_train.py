@@ -241,7 +241,8 @@ def test_run_experiment_matches_cmrtpu(tmp_path, monkeypatch):
     in_jax = np.asarray(jax_model.apply({"params": params, **(
         {"batch_stats": stats} if stats else {})}, x, train=False))
     own = get_model(cfg)
-    load_weights_for_model(os.path.join(torch_exp, "f0", "model"), own)
+    load_weights_for_model(os.path.join(torch_exp, "f0", "model"), own,
+                           cfg)
     with torch.no_grad():
         np.testing.assert_allclose(
             own.eval()(torch.from_numpy(x)).numpy(), in_jax, atol=1e-4)
