@@ -152,12 +152,30 @@ with CC_FILTER '3d' (the 3D kernel once per cine, K2 never, scipy's
 predict_override_twin(exp, CC_FILTER '3d') on the card: K1 and the 3D
 kernel once per patient-phase, K2 never, every twin pred/ file byte-equal
 to the cc3d-cli copy's, and evaluate_cv_save on the plain and the twin
-root one row per patient-phase with finite distances.
+root one row per patient-phase with finite distances. Then slice 5's
+serving extras on the same fold, at batch 16: tta — TTA 'probs' and
+'coords' against a float64 recomputation from the four per-rotation
+forwards (a control that does not rotate back must fail), forward ms
+beside the plain forward, cli.serve of each (K2 once per study and the
+warm-up) and predict_tta_twin of each through pred_fold and
+cli.evaluate_cv; ensemble — the fold and three seeded-noise copies as a
+CV root: the vmapped float32 ensemble against its members' mean (a
+control without a member must fail), the batched bf16 forward's ms
+against four sequential ones, cli.serve -ensemble, soup_experiment and
+cli.evaluate_cv of the soup root; export — cli.export, cli.serve
+-artifact in a fresh interpreter that imports no cmrtpu_torch.models
+(its K2 launches counted there), labels equal to the live fold's, a
+swapped weights.npz that must change the output, --fold-bn of a BN_FIRST
+copy against the unfolded model and served; int8 — the int8 conv bit for
+bit against its float64 plain version at [16, 32, 224, 224] and [1, 32,
+8, 224, 224], quantize_fold on the fold's training slices, pred_fold and
+cli.evaluate_cv of the twin, its |delta prob| against the float fold,
+cli.export --int8 served through -artifact, forward ms int8 against bf16.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
 resume, resume-exact and ema phases' runs, supervision, train_3d, the
 train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
-predict_4d, predict_4d_3d and override_twin),
+predict_4d, predict_4d_3d, override_twin and the serving extras' paths),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
@@ -169,6 +187,8 @@ import copy
 import csv
 import glob
 import types
+import warnings
+import zipfile
 import json
 import logging
 import os
@@ -207,10 +227,19 @@ from cmrtpu_torch.ops.resample import NEAREST
 from cmrtpu_torch.predict import predictor as predictor_module
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.predict.predictor import (TIMING_LOG, Predictor,
-                                            predict_override_twin)
+                                            pred_fold, predict_override_twin,
+                                            preprocess_model_input)
+from cmrtpu_torch.predict.ensemble import EnsemblePredictor, soup_experiment
+from cmrtpu_torch.predict.export import load_exported, load_exported_weights
+from cmrtpu_torch.predict.quantize import quantize_fold
+from cmrtpu_torch.predict.tta import (predict_tta_twin,
+                                      tta_rot90_coords_forward)
+from cmrtpu_torch.cli.export import main as export_main
 from cmrtpu_torch.tools.cine_quality_demo import generate_cine_cohort
 from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
-from cmrtpu_torch.train.checkpoint import save_weights
+from cmrtpu_torch.train.checkpoint import (_flatten, _unflatten,
+                                           flax_to_state_dict, load_weights,
+                                           save_weights)
 from cmrtpu_torch.train import device_cache
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
 from cmrtpu_torch.train.optimizers import get_optimizer
@@ -587,33 +616,45 @@ def phase_serve(cfg, model):
         return _serve_fold(fold, work, "serve", {"msk": {0, 1, 2}})
 
 
-def _serve_fold(fold, work, phase, outputs, kernel=None):
-    """Serve 3 synthetic studies from ``fold`` through cli.serve. Each
-    study writes one ``<stem>_<suffix>_pred.nrrd`` per entry of ``outputs``
-    (suffix -> allowed labels) in its own geometry; the CC kernel
-    (``kernel``, K2 by default; the 3D kernel for CC_FILTER '3d') launches
-    once per study and head, plus once for the engine's warm-up. Returns
-    its launches."""
-    kernel = kernel or kernels.converge_labels_cuda
+# the serving phases' synthetic studies: name -> origin
+STUDIES = {"study0.nrrd": (0.0, 0.0, 0.0),
+           "study1.nii.gz": (-120.5, 80.25, 30.0),
+           "study2.nrrd": (12.0, -7.5, -45.0)}
+
+
+def _write_studies(in_dir):
+    """The 3 synthetic studies (z=10, 256 x 216 at 1.5625 mm) in
+    ``in_dir``, settled."""
     rng = np.random.default_rng(SEED)
-    studies = {"study0.nrrd": (0.0, 0.0, 0.0),
-               "study1.nii.gz": (-120.5, 80.25, 30.0),
-               "study2.nrrd": (12.0, -7.5, -45.0)}
-    in_dir, out_dir = os.path.join(work, "in"), os.path.join(work, "out")
     os.makedirs(in_dir)
-    for name, origin in studies.items():
+    for name, origin in STUDIES.items():
         path = os.path.join(in_dir, name)
         write_image(MedicalImage(array=_phantom(rng, Z, 216, 256),
                                  spacing=(1.5625, 1.5625, 10.0),
                                  origin=origin), path)
         os.utime(path, (0, 0))  # settled
 
-    kernel.launches = 0
+
+def _serve_fold(fold, work, phase, outputs, kernel="k2", source="-exp"):
+    """Serve 3 synthetic studies from ``fold`` through cli.serve (``source``
+    names the route: ``-exp`` a fold, ``-artifact`` an export,
+    ``-ensemble`` a CV root). Each study writes one
+    ``<stem>_<suffix>_pred.nrrd`` per entry of ``outputs`` (suffix ->
+    allowed labels) in its own geometry; the CC kernel (``kernel``: "k2",
+    or "cc3d" for CC_FILTER '3d') launches once per study and head, plus
+    once for the engine's warm-up, and the other kernels no time. Every
+    count is set to 0 before the serve and read after it; returns them."""
+    studies = STUDIES
+    in_dir, out_dir = os.path.join(work, "in"), os.path.join(work, "out")
+    _write_studies(in_dir)
+
+    _reset_all()
     t0 = time.perf_counter()
-    totals = serve_main(["-exp", fold, "-in", in_dir, "-out", out_dir,
-                         "--max-studies", str(len(studies))])
+    totals = serve_main([source, fold, "-in", in_dir, "-out", out_dir,
+                         "--max-studies", str(len(studies)),
+                         "--device", DEV])
     wall_s = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = _counts()
 
     check(totals["studies"] == len(studies), f"{phase}: totals {totals}")
     latencies, labels = {}, {}
@@ -642,10 +683,11 @@ def _serve_fold(fold, work, phase, outputs, kernel=None):
                             "post_write_s", "total_s", "slices")}
     # one launch per study and head (a head's label values stacked), plus
     # the engine's warm-up
-    want = len(studies) * len(outputs) + 1
+    want = dict({"k1": 0, "k2": 0, "cc3d": 0},
+                **{kernel: len(studies) * len(outputs) + 1})
     check(launches == want,
-          f"{phase}: {launches} kernel launches for {len(studies)} studies "
-          f"and {len(outputs)} heads, want {want}")
+          f"{phase}: launches {launches} for {len(studies)} studies and "
+          f"{len(outputs)} heads, want {want}")
     check("jax" not in sys.modules, f"{phase}: jax was imported")
     log(phase, studies=len(studies), launches=launches, wall_s=wall_s,
         totals=totals, latencies=latencies, labels_served=labels)
@@ -1060,6 +1102,7 @@ def phase_train(cfg):
         p4d_paths, cine_cc = phase_predict_4d(exp, fold, data_root, test,
                                               work)
         twin_paths = phase_override_twin(exp, data_root, test, work)
+        extra_paths = phase_serving_extras(exp, fold, data_root, test, work)
     log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
         chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
         chained_patient_phases=chained["phases"],
@@ -1069,7 +1112,8 @@ def phase_train(cfg):
     return {"train": {"k1": chained["k1_before"], "k2": chained["k2_before"]},
             "pred_fold": {"k1": chained["k1"], "k2": chained["k2"]},
             "predict_cli": {"k1": predicted["k1"], "k2": predicted["k2"]},
-            **cc3d_paths, **p4d_paths, **twin_paths}, timing, cine_cc
+            **cc3d_paths, **p4d_paths, **twin_paths, **extra_paths}, \
+        timing, cine_cc
 
 
 def phase_predict(fold, data_root, test_patients, mtimes):
@@ -1351,16 +1395,13 @@ def phase_variants(flagship_timing):
             by_path[f"{tag}:pred_fold"] = {"k1": chained["k1"],
                                            "k2": chained["k2"]}
             if heads > 1:  # serve the multihead fold before work goes
-                kernels.gaussian_blur_2d_cuda.launches = 0
-                k2_served = _serve_fold(fold, os.path.join(work, "serve"),
-                                        "serve-multihead",
-                                        {"msk": {0, 1, 2},
-                                         "seg": {0, 1, 2, 3}})
-                by_path["serve_multihead"] = {
-                    "k1": kernels.gaussian_blur_2d_cuda.launches,
-                    "k2": k2_served}
-                check(by_path["serve_multihead"]["k1"] == 0,
-                      "serve-multihead: K1 launched on the serving path")
+                # the serve sets every count to 0: the 2D paths so far
+                # launched no 3D kernel
+                check(kernels.converge_labels_3d_cuda.launches == 0,
+                      "variants: the 3D CC kernel launched on a 2D path")
+                by_path["serve_multihead"] = _serve_fold(
+                    fold, os.path.join(work, "serve"), "serve-multihead",
+                    {"msk": {0, 1, 2}, "seg": {0, 1, 2, 3}})
     check("serve_multihead" in by_path, "variants: no multihead fold served")
     check(not _loaded_foreign(), f"variants: loaded {_loaded_foreign()}")
     return by_path
@@ -2084,6 +2125,13 @@ def _reset_counts():
     kernels.converge_labels_cuda.launches = 0
 
 
+def _reset_all():
+    """All three kernels' counts to 0."""
+    for k in (kernels.gaussian_blur_2d_cuda, kernels.converge_labels_cuda,
+              kernels.converge_labels_3d_cuda):
+        k.launches = 0
+
+
 def _counts():
     return {"k1": kernels.gaussian_blur_2d_cuda.launches,
             "k2": kernels.converge_labels_cuda.launches,
@@ -2610,17 +2658,10 @@ def phase_cc3d_cli(fold, data_root, test_patients, work):
             "!= scipy's filter in the written geometry")
 
     recorded = _Recorded()
-    kernels.gaussian_blur_2d_cuda.launches = 0
-    kernels.converge_labels_cuda.launches = 0
     with _patched(predictor_module, "clean_prediction_3d_cc", recorded):
-        c3 = _serve_fold(fold3d, os.path.join(work, "serve_3d"), "serve-3d",
-                         {"msk": {0, 1, 2}},
-                         kernel=kernels.converge_labels_3d_cuda)
-    by_path["serve_3d"] = {"k1": kernels.gaussian_blur_2d_cuda.launches,
-                           "k2": kernels.converge_labels_cuda.launches,
-                           "cc3d": c3}
-    check(by_path["serve_3d"]["k1"] == by_path["serve_3d"]["k2"] == 0,
-          f"serve-3d: launches {by_path['serve_3d']}")
+        by_path["serve_3d"] = _serve_fold(
+            fold3d, os.path.join(work, "serve_3d"), "serve-3d",
+            {"msk": {0, 1, 2}}, kernel="cc3d")
     for flat, values, out in recorded.calls:
         check(np.array_equal(out, scipy_clean_3d(flat, values)),
               "serve-3d: a cleaned volume != scipy's 26-connected filter")
@@ -2925,6 +2966,609 @@ def phase_override_twin(exp, data_root, test_patients, work):
     return {"override_twin": launches}
 
 
+# serving extras (slice 5) on the trained flagship fold: rot90 TTA, the
+# exported artifact, the fold ensemble and soup, the int8 twin
+EXTRA_BATCH = 16
+# every new phase names its device; a rehearsal on the CPU sets "cpu"
+DEV = "cuda"
+# a TTA forward against the float64 mean of the same four per-rotation
+# forwards (the same bf16 forwards; only the f32 sum differs)
+TTA_F64_ATOL = 1e-5
+# coords: a stamp centre may round the other way where a mean coordinate
+# lies this close to a .5 tie
+TIE = 1e-3
+# ensemble: the vmapped forward (members batched into grouped convs)
+# against the float64 mean of the members' own forwards, both float32 with
+# TF32 off: the same math summed in other orders, 3.6e-6 on the H100 at
+# 224^2 with GroupNorm 16 (the control without a member: 0.21)
+ENSEMBLE_ATOL = 1e-4
+# the served bf16 ensemble (cli.serve -ensemble) against the float64 mean
+# of its members' bf16 forwards on the batches it served: the vmapped and
+# the sequential bf16 forwards round apart by 0.022 on the H100 at batch 16
+# (the float32 control without a member: 0.21)
+ENSEMBLE_SERVED_ATOL = 5e-2
+# the members beside the trained fold: its weights plus seeded noise of
+# this share of each tensor's standard deviation
+ENSEMBLE_NOISE = 0.1
+ENSEMBLE_MEMBERS = 4
+# fold-bn: the folded BN_FIRST copy's artifact against the unfolded live
+# model, both float32 with TF32 off (cmrtpu's contract is 1e-5 on the CPU;
+# cuDNN sums in other orders)
+FOLD_BN_ATOL = 1e-4
+# the int8 conv at the flagship's largest 2D conv and a cine 3D conv
+INT8_CASES = {"flagship-2d": ((16, 32, 224, 224), (32, 32, 3, 3)),
+              "cine-3d": ((1, 32, 8, 224, 224), (32, 32, 3, 3, 3))}
+_SERVE_ARTIFACT = """
+import json, sys
+from cmrtpu_torch.cli.serve import main
+from cmrtpu_torch.ops import cuda_kernels
+totals = main(sys.argv[1:])
+loaded = sorted(m for m in sys.modules if m.startswith("cmrtpu_torch.models")
+                or m.split(".")[0] in ("jax", "cmrtpu"))
+print("SERVED " + json.dumps({
+    "studies": totals["studies"], "loaded": loaded,
+    "k1": cuda_kernels.gaussian_blur_2d_cuda.launches,
+    "k2": cuda_kernels.converge_labels_cuda.launches,
+    "cc3d": cuda_kernels.converge_labels_3d_cuda.launches}))
+"""
+
+
+def _extra_batch(data_root, test_patients, cfg):
+    """EXTRA_BATCH model-ready slices of the test patients' original
+    frames, as serving preprocesses them."""
+    slices = []
+    for f in sorted(glob.glob(os.path.join(data_root, "original",
+                                           "*/*frame[0-9][0-9].nii.gz"))):
+        if any(p in f for p in test_patients):
+            img = read_image(f)
+            slices.append(preprocess_model_input(img.array, img.spacing[:2],
+                                                 cfg))
+    x = np.concatenate(slices)[:EXTRA_BATCH]
+    check(x.shape[0] == EXTRA_BATCH, f"extras: {x.shape[0]} slices")
+    return x
+
+
+def _fold_copy(fold, work, name, **overrides):
+    """A copy of ``fold``'s config and model (no predictions) with config
+    ``overrides``; returns its path."""
+    dst = os.path.join(work, name)
+    shutil.copytree(fold, dst, ignore=shutil.ignore_patterns(
+        "pred", "gt", "tensorboard_logs", "*.pt"))
+    path = os.path.join(dst, "config", "config.json")
+    with open(path, encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), **overrides)
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(cfg, fh)
+    return dst
+
+
+def _evaluate_root(root, data_root, rows_wanted, phase):
+    """cli.evaluate_cv on a twin root: one df_eval.csv row per
+    patient-phase; returns its wall s and prediction distances (NaN where
+    a fold found no landmark)."""
+    t0 = time.perf_counter()
+    evaluate_main(["-exp", root, "-data", data_root])
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(root, "df_eval.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    check(len(rows) == rows_wanted,
+          f"{phase}: df_eval.csv has {len(rows)} rows, want {rows_wanted}")
+    return wall_s, [float(r[c] or "nan") for r in rows
+                    for c in ("mdists_ant_gtpred", "mdists_inf_gtpred")]
+
+
+def coords_reference(maps):
+    """cmrtpu's coords combiner in float64 numpy on the K per-rotation
+    maps rotated back ([N, H, W, C] each, the identity first): the
+    thresholded centres, the majority vote, pass-through, the 3 x 3 rescue
+    stamp (numpy's rint rounds half to even) and suppression. Returns the
+    output and, per (n, c), 'pass', 'stamp', 'suppress' or 'none' and the
+    mean coordinate."""
+    k = len(maps)
+    out = np.zeros_like(maps[0])
+    kinds, means = {}, {}
+    n_, h, w, c_ = maps[0].shape
+    for n in range(n_):
+        for c in range(c_):
+            found = []
+            for m in maps:
+                ys, xs = np.nonzero(m[n, ..., c] > 0.5)
+                found.append((ys.mean(), xs.mean()) if len(ys) else None)
+            valid = [f for f in found if f is not None]
+            detected = len(valid) >= (k + 1) // 2
+            if found[0] is not None and detected:
+                out[n, ..., c] = maps[0][n, ..., c]
+                kinds[n, c] = "pass"
+            elif detected:
+                my, mx = np.mean(valid, axis=0)
+                means[n, c] = (my, mx)
+                cy, cx = int(np.rint(my)), int(np.rint(mx))
+                out[n, max(cy - 1, 0):cy + 2, max(cx - 1, 0):cx + 2, c] = 1.0
+                kinds[n, c] = "stamp"
+            else:
+                kinds[n, c] = "suppress" if found[0] is not None else "none"
+    return out, kinds, means
+
+
+def _check_coords(got, maps, phase):
+    """``got`` against ``coords_reference(maps)``: a passed-through map
+    within TTA_F64_ATOL of the identity forward, everything else equal but
+    a stamp whose mean lies within TIE of a .5 tie. Returns the count of
+    each outcome."""
+    want, kinds, means = coords_reference(maps)
+    ties = 0
+    for (n, c), kind in kinds.items():
+        if kind == "pass":
+            check(np.abs(got[n, ..., c] - maps[0][n, ..., c]).max()
+                  <= TTA_F64_ATOL, f"{phase}: ({n}, {c}) did not pass the "
+                  "identity map through")
+            continue
+        near = kind == "stamp" and any(
+            abs(abs(v - np.floor(v)) - 0.5) < TIE for v in means[n, c])
+        ties += near
+        check(near or np.array_equal(got[n, ..., c], want[n, ..., c]),
+              f"{phase}: ({n}, {c}) {kind} differs from the float64 "
+              "reference")
+    return dict({k: sum(v == k for v in kinds.values())
+                 for k in ("pass", "stamp", "suppress", "none")},
+                stamps_near_a_tie=ties)
+
+
+def _coords_combiner(hw):
+    """The coords combiner on the card over designed orbit members (a
+    trained fold's members may all agree): per slice and channel a blob
+    jittered by member, the identity dimmed below 0.5 on slices 0-3,
+    channel 0 (a rescue stamp), members 1-3 dimmed on slices 4-7, channel
+    1 (suppressed), all four on slices 8-9 (nothing), held against the
+    float64 reference."""
+    rng = np.random.default_rng(SEED)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    maps = []
+    centres = rng.uniform(20, min(h, w) - 20, (EXTRA_BATCH, 2, 2))
+    for k in range(4):
+        m = rng.random((EXTRA_BATCH, h, w, 2)).astype(np.float32) * 0.3
+        for n in range(EXTRA_BATCH):
+            for c in range(2):
+                cy, cx = centres[n, c] + rng.uniform(-2, 2, 2)
+                m[n, ..., c] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                                       / 8.0)
+        m = np.clip(m, 0, 1)
+        if k == 0:
+            m[0:4, ..., 0] *= 0.4
+        else:
+            m[4:8, ..., 1] *= 0.4
+        m[8:10] *= 0.4
+        maps.append(m)
+    members = [torch.as_tensor(m, device=DEV) for m in maps]
+    calls = iter(range(4))
+
+    def forward(_x):
+        k = next(calls)
+        return torch.rot90(members[k], k, (-3, -2))
+
+    got = tta_rot90_coords_forward(forward, hw)(torch.zeros(
+        (EXTRA_BATCH, h, w, 1), device=DEV)).cpu().numpy()
+    counts = _check_coords(got, [m.astype(np.float64) for m in maps],
+                           "tta coords combiner")
+    check(counts["stamp"] >= 4 and counts["suppress"] >= 4,
+          f"tta coords combiner: the designed branches did not occur "
+          f"{counts}")
+    return counts
+
+
+def phase_tta(exp, fold, data_root, test_patients, work, x):
+    """tta: the trained fold with TTA 'probs' and 'coords' at batch 16, each
+    held against a float64 recomputation from the four per-rotation
+    forwards of the plain restored model (a control that forgets to
+    rotate the outputs back must fail the probs bound), and the coords
+    combiner over designed members with every branch; forward ms beside
+    the plain forward; cli.serve of each (K2 once per study and head, and
+    once for the warm-up); predict_tta_twin of each through pred_fold and
+    cli.evaluate_cv."""
+    phases = 2 * len(test_patients)
+    plain = Predictor(normalise_config(_fold_config(fold)),
+                      os.path.join(fold, "model"), device=DEV)
+    xt = torch.as_tensor(x, device=DEV)
+    with torch.inference_mode():
+        rot = [torch.rot90(plain.model(torch.rot90(xt, k, (-3, -2))), -k,
+                           (-3, -2)).double().cpu().numpy()
+               for k in range(4)]
+        unrotated = np.mean([plain.model(torch.rot90(xt, k, (-3, -2)))
+                             .double().cpu().numpy() for k in range(4)], 0)
+    figures = {"plain_ms": cuda_ms(lambda: plain._forward(x), 10)}
+    by_path = {}
+    for mode in ("probs", "coords"):
+        tta_fold = _fold_copy(fold, work, f"f0_tta_{mode}", TTA=True,
+                              TTA_MODE=mode)
+        pred = Predictor(normalise_config(_fold_config(tta_fold)),
+                         os.path.join(tta_fold, "model"), device=DEV)
+        got = pred.predict(x).astype(np.float64)
+        if mode == "probs":
+            err = float(np.abs(got - np.mean(rot, axis=0)).max())
+            control = float(np.abs(unrotated - np.mean(rot, axis=0)).max())
+            check(err <= TTA_F64_ATOL < control,
+                  f"tta probs: {err} from the float64 mean (bound "
+                  f"{TTA_F64_ATOL}); the unrotated control {control}")
+            stats = {"max_abs_err": err, "control_unrotated": control}
+        else:
+            stats = {"model": _check_coords(got, rot, "tta coords"),
+                     "combiner": _coords_combiner(x.shape[1:3])}
+        ms = cuda_ms(lambda: pred._forward(x), 10)
+        served = _serve_fold(tta_fold,
+                             os.path.join(work, f"serve_tta_{mode}"),
+                             f"serve-tta-{mode}", {"msk": {0, 1, 2}})
+        by_path[f"serve_tta_{mode}"] = served
+        _reset_all()
+        twin = predict_tta_twin(exp, mode, device=DEV)
+        twin_counts = _counts()
+        check(twin_counts == {"k1": phases, "k2": phases, "cc3d": 0},
+              f"tta twin {mode}: launches {twin_counts} for {phases} "
+              "patient-phases")
+        by_path[f"tta_twin_{mode}"] = twin_counts
+        _check_predictions(os.path.join(twin, "f0"), test_patients)
+        eval_s, dists = _evaluate_root(twin, data_root, phases,
+                                       f"tta twin {mode}")
+        figures[mode] = dict(stats, forward_ms=ms, serve_k2=served["k2"],
+                             evaluate_s=eval_s, mdists_gtpred_mm=dists)
+    log("tta", batch=EXTRA_BATCH, **figures)
+    return by_path
+
+
+def _fold_config(fold):
+    with open(os.path.join(fold, "config", "config.json"),
+              encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def _bn_first_copy(fold, work, x):
+    """A BN_FIRST float32 copy of the trained fold: its convs and its
+    GroupNorm affines as BatchNorm's, running averages from one batch."""
+    cfg = dict(_fold_config(fold), GROUP_NORM=0, BATCH_NORMALISATION=True,
+               BN_FIRST=True, MIXED_PRECISION=False)
+    model = build_model(cfg)
+    state = {k.replace("GroupNorm_0", "BatchNorm_0"): v for k, v in
+             flax_to_state_dict(*load_weights(os.path.join(
+                 fold, "model"))).items()}
+    model.load_state_dict(state, strict=False)
+    model = _calibrate_bn(model.to(DEV), torch.as_tensor(x, device=DEV))
+    dst = os.path.join(work, "f0_bn_first")
+    save_weights(os.path.join(dst, "model"), model)
+    os.makedirs(os.path.join(dst, "config"))
+    with open(os.path.join(dst, "config", "config.json"), "w") as fh:
+        json.dump(cfg, fh)
+    return dst
+
+
+def phase_export(fold, work, x, swap_npz):
+    """export: cli.export of the fold at batch 16, served by cli.serve
+    -artifact in a fresh interpreter that imports no cmrtpu_torch.models
+    (its K2 launches once per study and once for the warm-up), labels
+    equal to the live fold's cli.serve; a control swaps weights.npz for
+    another model's, which must change the output and equal that model's
+    forward; then --fold-bn of a BN_FIRST copy, its artifact against the
+    unfolded model (float32, TF32 off) and served."""
+    by_path = {}
+    art = os.path.join(work, "art")
+    t0 = time.perf_counter()
+    export_main(["-exp", fold, "-out", art, "--batch", str(EXTRA_BATCH),
+                 "--device", DEV])
+    export_s = time.perf_counter() - t0
+    in_dir = os.path.join(work, "art_in")
+    _write_studies(in_dir)
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_ARTIFACT, "-artifact", art, "-in",
+         in_dir, "-out", os.path.join(work, "art_out"), "--device", DEV],
+        env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"export: serving the artifact failed: "
+          f"{proc.stderr[-3000:]}")
+    served = json.loads(next(line for line in proc.stdout.splitlines()
+                             if line.startswith("SERVED "))[7:])
+    check(served["loaded"] == [] and served["studies"] == len(STUDIES),
+          f"export: the artifact's server {served}")
+    by_path["serve_artifact"] = {k: served[k] for k in ("k1", "k2", "cc3d")}
+    check(by_path["serve_artifact"] == {"k1": 0, "k2": len(STUDIES) + 1,
+                                        "cc3d": 0},
+          f"export: the artifact's server launched {served}")
+    serve_main(["-exp", fold, "-in", in_dir, "-out",
+                os.path.join(work, "live_out"), "--device", DEV])
+    for name in STUDIES:
+        stem = name.split(".")[0]
+        a = read_image(os.path.join(work, "art_out", f"{stem}_msk_pred.nrrd"))
+        b = read_image(os.path.join(work, "live_out",
+                                    f"{stem}_msk_pred.nrrd"))
+        check(np.array_equal(a.array, b.array) and np.allclose(
+            a.spacing, b.spacing) and np.allclose(a.origin, b.origin),
+            f"export: {stem} served from the artifact != the live fold's")
+
+    pt2 = os.path.join(art, "forward.pt2")
+    pt2_mb = os.path.getsize(pt2) / 1e6
+    npz_mb = os.path.getsize(os.path.join(art, "weights.npz")) / 1e6
+    with zipfile.ZipFile(pt2) as z:  # tensors saved in the program
+        tensor_mb = sum(i.file_size for i in z.infolist()
+                        if "/data/" in i.filename
+                        and not i.filename.endswith(".json")) / 1e6
+    check(tensor_mb < npz_mb / 100,
+          f"export: forward.pt2 holds {tensor_mb} MB of tensors beside "
+          f"the {npz_mb} MB of weights.npz")
+    fn, meta = load_exported(art, device=DEV)
+    xt = torch.as_tensor(x, device=DEV)
+    with torch.inference_mode():
+        before = fn(load_exported_weights(art, device=DEV), xt)
+        shutil.copyfile(os.path.join(art, "weights.npz"),
+                        os.path.join(work, "weights.keep"))
+        shutil.copyfile(swap_npz, os.path.join(art, "weights.npz"))
+        after = fn(load_exported_weights(art, device=DEV), xt)
+        other = Predictor(_fold_config(fold), os.path.dirname(swap_npz),
+                          device=DEV)._forward(x)
+    moved = float((after - before).abs().max())
+    other_err = float((after - other).abs().max())
+    check(moved > 1e-2 and other_err <= 1e-6,
+          f"export: a swapped weights.npz moved the output by {moved} and "
+          f"lies {other_err} from its model's forward")
+    shutil.copyfile(os.path.join(work, "weights.keep"),
+                    os.path.join(art, "weights.npz"))
+
+    bn_fold = _bn_first_copy(fold, work, x)
+    art_bn = os.path.join(work, "art_bn")
+    export_main(["-exp", bn_fold, "-out", art_bn, "--batch",
+                 str(EXTRA_BATCH), "--fold-bn", "--device", DEV])
+    with _tf32_off(), torch.inference_mode():
+        fn_bn, _ = load_exported(art_bn, device=DEV)
+        folded = fn_bn(load_exported_weights(art_bn, device=DEV), xt)
+        live = Predictor(_fold_config(bn_fold), os.path.join(
+            bn_fold, "model"), device=DEV)._forward(x)
+    bn_err = float((folded - live).abs().max())
+    check(bn_err <= FOLD_BN_ATOL,
+          f"export: the folded artifact lies {bn_err} from the unfolded "
+          f"model (bound {FOLD_BN_ATOL})")
+    check(not any(k.startswith("batch_stats/") for k in
+                  np.load(os.path.join(art_bn, "weights.npz")).files),
+          "export: the folded weights keep batch statistics")
+    by_path["serve_artifact_bn"] = _serve_fold(
+        art_bn, os.path.join(work, "serve_art_bn"), "serve-artifact-bn",
+        {"msk": {0, 1, 2}}, source="-artifact")
+    log("export", export_s=export_s, x_shape=meta["x_shape"],
+        device=meta["device"], forward_pt2_mb=pt2_mb,
+        forward_pt2_tensor_mb=tensor_mb, weights_npz_mb=npz_mb,
+        served=served,
+        swapped_weights_moved=moved, swapped_vs_its_model=other_err,
+        fold_bn_max_abs_err=bn_err,
+        fold_bn_serve_k2=by_path["serve_artifact_bn"]["k2"])
+    return by_path
+
+
+def _noisy_member(fold, dst, seed):
+    """The fold's weights plus seeded noise as ``dst/model``; returns the
+    model dir."""
+    params, stats = load_weights(os.path.join(fold, "model"))
+    rng = np.random.default_rng(seed)
+    noisy = {}
+    for key, arr in _flatten(params).items():
+        noisy[key] = (arr + rng.normal(0.0, ENSEMBLE_NOISE * float(arr.std())
+                                       + 1e-6, arr.shape)).astype(arr.dtype)
+    model_dir = os.path.join(dst, "model")
+    save_weights(model_dir, flax_to_state_dict(_unflatten(noisy), stats))
+    return model_dir
+
+
+def _ensemble_root(fold, work):
+    """exp/ts with f0 the trained fold and f1.. its noisy copies, each with
+    FOLD k (the cohort's 4 folds, so the soup twin is a whole CV)."""
+    root = os.path.join(work, "ens", "ts")
+    cfg = _fold_config(fold)
+    for k in range(ENSEMBLE_MEMBERS):
+        dst = os.path.join(root, f"f{k}")
+        os.makedirs(os.path.join(dst, "config"))
+        if k == 0:
+            shutil.copytree(os.path.join(fold, "model"),
+                            os.path.join(dst, "model"),
+                            ignore=shutil.ignore_patterns("*.pt"))
+        else:
+            _noisy_member(fold, dst, SEED + k)
+        with open(os.path.join(dst, "config", "config.json"), "w") as fh:
+            json.dump(dict(cfg, FOLD=k, EXP_PATH=dst,
+                           MODEL_PATH=os.path.join(dst, "model")), fh)
+    return root
+
+
+def _recording(served):
+    """A wrapper of ``EnsemblePredictor._forward`` that appends each
+    call's input and its output (float64, on the host) to ``served``."""
+    def wrap(forward):
+        def wrapped(self, x):
+            out = forward(self, x)
+            served.append((np.array(x), out.double().cpu()))
+            return out
+        return wrapped
+    return wrap
+
+
+def phase_ensemble(fold, data_root, work, x):
+    """ensemble: the trained fold and three noisy copies as a CV root.
+    EnsemblePredictor's one vmapped forward (float32) against the mean of
+    the members' Predictor forwards; its ms against four sequential
+    forwards; cli.serve -ensemble, every batch its engine forwarded held
+    against the mean of the members' bf16 forwards on that batch (each
+    bound with a control without the last member, which must fail it);
+    soup_experiment and cli.evaluate_cv on the soup root."""
+    root = _ensemble_root(fold, work)
+    dirs = [os.path.join(root, f"f{k}", "model")
+            for k in range(ENSEMBLE_MEMBERS)]
+
+    def mean_and_members(cfg):
+        ens = EnsemblePredictor(cfg, dirs, device=DEV)
+        members = [Predictor(cfg, d, device=DEV) for d in dirs]
+        with torch.inference_mode():
+            outs = [m._forward(x).double() for m in members]
+            return ens, members, ens._forward(x).double(), outs
+
+    with _tf32_off():
+        _, _, got, outs = mean_and_members(dict(_fold_config(fold),
+                                                MIXED_PRECISION=False))
+    want = torch.stack(outs).mean(0)
+    err = float((got - want).abs().max())
+    control = float((torch.stack(outs[:-1]).mean(0) - got).abs().max())
+    check(err <= ENSEMBLE_ATOL < control,
+          f"ensemble: the f32 ensemble lies {err} from its members' mean "
+          f"(bound {ENSEMBLE_ATOL}); the control without a member {control}")
+    ens, members, got16, outs16 = mean_and_members(_fold_config(fold))
+    bf16_err = float((got16 - torch.stack(outs16).mean(0)).abs().max())
+    batched_ms = cuda_ms(lambda: ens._forward(x), 5)
+    sequential_ms = cuda_ms(lambda: [m._forward(x) for m in members], 5)
+    served = []
+    with _patched(EnsemblePredictor, "_forward", _recording(served)):
+        by_path = {"serve_ensemble": _serve_fold(
+            root, os.path.join(work, "serve_ens"), "serve-ensemble",
+            {"msk": {0, 1, 2}}, source="-ensemble")}
+    # the warm-up and a study's Z slices in batches of BATCHSIZE
+    batches = 1 + len(STUDIES) * -(-Z // int(_fold_config(fold)["BATCHSIZE"]))
+    check(len(served) == batches, f"ensemble: the served engine forwarded "
+          f"{len(served)} batches, want {batches}")
+    served_err = served_control = 0.0
+    with torch.inference_mode():
+        for xs, out in served:
+            ref = torch.stack([m._forward(xs).double().cpu()
+                               for m in members])
+            served_err = max(served_err,
+                             float((out - ref.mean(0)).abs().max()))
+            served_control = max(served_control,
+                                 float((out - ref[:-1].mean(0)).abs().max()))
+    check(served_err <= ENSEMBLE_SERVED_ATOL < served_control,
+          f"ensemble: cli.serve -ensemble lies {served_err} from its "
+          f"members' bf16 mean (bound {ENSEMBLE_SERVED_ATOL}); the control "
+          f"without a member {served_control}")
+    _reset_all()
+    t0 = time.perf_counter()
+    soup_root = soup_experiment(root, device=DEV)
+    soup_s = time.perf_counter() - t0
+    folds = ENSEMBLE_MEMBERS
+    by_path["soup_pred_fold"] = _counts()
+    check(by_path["soup_pred_fold"] == {"k1": 4 * folds, "k2": 4 * folds,
+                                        "cc3d": 0},
+          f"soup: launches {by_path['soup_pred_fold']} for {folds} folds of "
+          "4 patient-phases")
+    eval_s, dists = _evaluate_root(soup_root, data_root, 4 * folds, "soup")
+    log("ensemble", members=ENSEMBLE_MEMBERS, batch=EXTRA_BATCH,
+        f32_max_abs_err=err, f32_mean_abs_err=float(
+            (got - want).abs().mean()), control_without_a_member=control,
+        bf16_max_abs_err=bf16_err, served_max_abs_err=served_err,
+        served_control_without_a_member=served_control,
+        batched_ms=batched_ms, sequential_ms=sequential_ms,
+        serve_k2=by_path["serve_ensemble"]["k2"], soup_s=soup_s,
+        soup_evaluate_s=eval_s, soup_mdists_gtpred_mm=dists)
+    return by_path
+
+
+def phase_int8(exp, fold, data_root, work, x):
+    """int8: the int8 conv against its float64 plain version, bit for bit,
+    at the flagship's largest 2D conv and a cine 3D conv (timed beside the
+    plain version and a bf16 cuDNN conv); quantize_fold on the fold's
+    training slices, pred_fold and cli.evaluate_cv of the twin; the twin's
+    |delta prob| against the float fold; cli.export --int8 served through
+    -artifact; forward ms int8 against bf16 at batch 16 (recorded, not
+    gated)."""
+    from cmrtpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+
+    gen = torch.Generator(DEV).manual_seed(SEED)
+    convs = {}
+    for name, (shape, kshape) in INT8_CASES.items():
+        q = torch.randint(-127, 128, shape, dtype=torch.int8, device=DEV,
+                          generator=gen)
+        w = torch.randint(-127, 128, kshape, dtype=torch.int8,
+                          device=DEV, generator=gen)
+        got, want = int8_conv(q, w), int8_conv_plain(q, w)
+        check(torch.equal(got, want), f"int8 {name}: the int8 conv != its "
+              "float64 plain version")
+        conv = F.conv2d if len(shape) == 4 else F.conv3d
+        qb, wb = q.bfloat16(), w.bfloat16()
+        convs[name] = {
+            "shape": list(shape), "kernel": list(kshape),
+            "ms": cuda_ms(lambda: int8_conv(q, w), 5),
+            "plain_ms": cuda_ms(lambda: int8_conv_plain(q, w), 2),
+            "bf16_cudnn_ms": cuda_ms(lambda: conv(qb, wb, padding="same"), 5)}
+    x_train, _, _, _ = get_trainings_files(
+        os.path.join(data_root, "2D"), 0,
+        os.path.join(data_root, "df_kfold.csv"))
+    t0 = time.perf_counter()
+    twin = quantize_fold(fold, x_train, batch=EXTRA_BATCH, device=DEV)
+    quantize_s = time.perf_counter() - t0
+    qcfg = _fold_config(twin)
+    check(qcfg["QUANT_INT8"] is True, "int8: the twin's config")
+    test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+    phases = 2 * len(test)
+    _reset_all()
+    pred_fold(qcfg, device=DEV)
+    by_path = {"int8_pred_fold": _counts()}
+    check(by_path["int8_pred_fold"] == {"k1": phases, "k2": phases,
+                                        "cc3d": 0},
+          f"int8: pred_fold launches {by_path['int8_pred_fold']}")
+    _check_predictions(twin, test)
+    eval_s, dists = _evaluate_root(os.path.dirname(twin), data_root, phases,
+                                   "int8")
+    floatp = Predictor(_fold_config(fold), os.path.join(fold, "model"),
+                       device=DEV)
+    twinp = Predictor(qcfg, os.path.join(twin, "model"), device=DEV)
+    delta = np.abs(twinp.predict(x) - floatp.predict(x))
+    check(np.isfinite(delta).all(), "int8: non-finite twin outputs")
+    int8_ms = cuda_ms(lambda: twinp._forward(x), 10)
+    bf16_ms = cuda_ms(lambda: floatp._forward(x), 10)
+    # torch._int_mm has no vmap batching rule: an ensemble of int8 twins
+    # runs it once per member, with a warning; timed here with the twin
+    # twice. Its distance from the twin is logged, not held: the batched
+    # GroupNorm sums in another order, and one flipped int8 step in this
+    # 2-epoch twin moves a probability by up to 0.2 (0.21 at 64^2 on the
+    # CPU)
+    twin_model = os.path.join(twin, "model")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ens8 = EnsemblePredictor(qcfg, [twin_model, twin_model], device=DEV)
+        with torch.inference_mode():
+            ens8_out = ens8._forward(x)
+            ens8_err = float((ens8_out - twinp._forward(x)).abs().max())
+    fallback = any("_int_mm" in str(w.message) for w in caught)
+    check(bool(torch.isfinite(ens8_out).all()),
+          "int8: the int8 ensemble's output is not finite")
+    ens8_ms = cuda_ms(lambda: ens8._forward(x), 5)
+    art = os.path.join(work, "art_int8")
+    calib = os.path.join(work, "calib")
+    _write_studies(calib)
+    export_main(["-exp", fold, "-out", art, "--batch", str(EXTRA_BATCH),
+                 "--int8", "--calib", calib, "--device", DEV])
+    check(np.load(os.path.join(art, "weights.npz"))[
+        "params/DownBlock_0/ConvBlock_0/QuantConv_0/kernel_q"].dtype
+        == np.int8, "int8: the exported weights are not int8")
+    by_path["serve_artifact_int8"] = _serve_fold(
+        art, os.path.join(work, "serve_art_int8"), "serve-artifact-int8",
+        {"msk": {0, 1, 2}}, source="-artifact")
+    log("int8", convs=convs, quantize_fold_s=quantize_s,
+        calib_slices=len(x_train), twin_max_abs_dprob=float(delta.max()),
+        twin_mean_abs_dprob=float(delta.mean()), int8_forward_ms=int8_ms,
+        bf16_forward_ms=bf16_ms, int8_ensemble_of_2_ms=ens8_ms,
+        int8_ensemble_of_2_max_abs_from_twin=ens8_err,
+        int8_vmap_falls_back_per_member=fallback, evaluate_s=eval_s,
+        mdists_gtpred_mm=dists,
+        serve_k2=by_path["serve_artifact_int8"]["k2"])
+    return by_path
+
+
+def phase_serving_extras(exp, fold, data_root, test_patients, work):
+    """Slice 5's serving extras on the trained fold: tta, export,
+    ensemble, int8. Returns their launches by path."""
+    cfg = normalise_config(_fold_config(fold))
+    x = _extra_batch(data_root, test_patients, cfg)
+    by_path = phase_tta(exp, fold, data_root, test_patients, work, x)
+    ens_paths = phase_ensemble(fold, data_root, work, x)
+    by_path.update(phase_export(
+        fold, work, x, os.path.join(work, "ens", "ts", "f1", "model",
+                                    "model.npz")))
+    by_path.update(ens_paths)
+    by_path.update(phase_int8(exp, fold, data_root, work, x))
+    return by_path
+
+
 def _ms(us):
     return None if us is None else us / 1e3
 
@@ -2957,11 +3601,9 @@ def main():
     with open(FLAGSHIP, encoding="utf-8") as fh:
         cfg = json.load(fh)
     model = phase_forward(cfg)
-    kernels.gaussian_blur_2d_cuda.launches = 0
-    by_path = {"serve": {"k2": phase_serve(cfg, model),
-                         "k1": kernels.gaussian_blur_2d_cuda.launches}}
-    check(by_path["serve"]["k1"] == 0,
-          "serve: K1 launched on the serving path")
+    check(kernels.converge_labels_3d_cuda.launches == 0,
+          "forward: the 3D CC kernel launched")
+    by_path = {"serve": phase_serve(cfg, model)}
     train_paths, flagship_timing, cine_cc = phase_train(cfg)
     by_path.update(train_paths)
     kernels.converge_labels_3d_cuda.launches = 0

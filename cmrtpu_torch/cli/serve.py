@@ -4,12 +4,15 @@
 [--device cuda] [--watch] [--poll 2.0] [--stats <file.jsonl>]
 [--max-studies N]``
 
-Counterpart of ``cmrtpu/cli/serve.py`` for a trained fold (config/config.json
-+ model/model.npz). Restores once, then streams every ``*.nii.gz`` /
-``*.nii`` / ``*.nrrd`` study in ``-in`` through the model and writes
-``<stem>_msk_pred.nrrd`` in each study's original geometry into ``-out``,
-with per-study latency records in ``<stem>.done.json`` markers. Prints the
-totals as one JSON line.
+or ``-artifact <export_dir>`` (a ``cmrtpu_torch.cli.export`` output, served
+without the model code) or ``-ensemble <exp_root>`` (every fold of a CV
+root as one vmapped average-probability ensemble) in place of ``-exp``.
+
+Counterpart of ``cmrtpu/cli/serve.py``. Restores once, then streams every
+``*.nii.gz`` / ``*.nii`` / ``*.nrrd`` study in ``-in`` through the model and
+writes ``<stem>_<head>_pred.nrrd`` in each study's original geometry into
+``-out``, with per-study latency records in ``<stem>.done.json`` markers.
+Prints the totals as one JSON line.
 """
 
 import argparse
@@ -24,12 +27,14 @@ def main(argv=None):
                     "(PyTorch + CUDA)")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("-artifact", action="store",
-                     help="serving artifact dir (not ported yet)")
+                     help="serving artifact dir (cmrtpu_torch.cli.export "
+                          "output)")
     src.add_argument("-exp", action="store",
                      help="trained fold dir (config/config.json + model/)")
     src.add_argument("-ensemble", action="store",
-                     help="experiment root for ensemble serving (not ported "
-                          "yet)")
+                     help="timestamped experiment root (exp/<EXP>/<ts>): "
+                          "serve all fold checkpoints as one vmapped "
+                          "average-probability ensemble")
     parser.add_argument("-in", dest="in_dir", action="store", required=True,
                         help="directory of input studies (nii/nii.gz/nrrd)")
     parser.add_argument("-out", dest="out_dir", action="store", required=True,
@@ -46,23 +51,23 @@ def main(argv=None):
     parser.add_argument("--max-studies", type=int, default=None,
                         help="stop after N studies (drain/smoke runs)")
     args = parser.parse_args(argv)
-    if args.artifact:
-        parser.error("-artifact: exported-artifact serving is not ported to "
-                     "cmrtpu_torch yet (ROADMAP 5.3); use -exp <fold_dir>")
-    if args.ensemble:
-        parser.error("-ensemble: ensemble serving is not ported to "
-                     "cmrtpu_torch yet (ROADMAP 5.2); use -exp <fold_dir>")
     print(f"given parameters: {args}")
     logging.basicConfig(level=logging.INFO)
 
     from cmrtpu_torch.predict.serving import ServingEngine, serve_directory
 
-    cfg_path = os.path.join(args.exp, "config", "config.json")
-    with open(cfg_path, encoding="utf-8") as fh:
-        config = json.load(fh)
-    engine = ServingEngine(config=config,
-                           model_path=os.path.join(args.exp, "model"),
-                           device=args.device)
+    if args.artifact:
+        engine = ServingEngine(artifact_dir=args.artifact, device=args.device)
+    elif args.ensemble:
+        engine = ServingEngine(ensemble_root=args.ensemble,
+                               device=args.device)
+    else:
+        cfg_path = os.path.join(args.exp, "config", "config.json")
+        with open(cfg_path, encoding="utf-8") as fh:
+            config = json.load(fh)
+        engine = ServingEngine(config=config,
+                               model_path=os.path.join(args.exp, "model"),
+                               device=args.device)
     try:
         totals = serve_directory(engine, args.in_dir, args.out_dir,
                                  watch=args.watch, poll_s=args.poll,

@@ -205,6 +205,11 @@ def get_model(config: Dict, supervision: bool = False) -> nn.Module:
     variant = str(C.get(config, "MODEL_VARIANT", "unet")).lower()
     if variant in ("unet", ""):
         return build_model(config, supervision=supervision)
+    if C.get(config, "QUANT_INT8", False) and variant != "unet_2p1d":
+        # cmrtpu's quantize_model cannot calibrate a hybrid (no quant_mode,
+        # cmrtpu/predict/quantize.py:50), so no hybrid twin exists
+        raise ValueError(f"MODEL_VARIANT={variant!r} has no int8 twin: int8 "
+                         "PTQ covers the UNet family (plain MODEL_VARIANT)")
     if variant == "unet_2p1d":
         return build_model(config, supervision=supervision, factorized=True)
     return build_hybrid_model(config, variant=variant,

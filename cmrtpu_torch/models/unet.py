@@ -29,11 +29,13 @@ Ported: the plain 2D and 3D U-Net with GroupNorm, BatchNorm (flax's, train
 and eval mode) or no norm, per-level pools clamped where an axis runs out,
 the upsample and the transpose-conv decoders, single- or multi-head
 outputs, the (2+1)D blocks (``factorized``: FACTORIZED_3D, MODEL_VARIANT
-unet_2p1d) and deep supervision. In train mode dropout draws its masks
-from an explicit ``torch.Generator`` passed to ``forward`` (flax draws
-them from the step's dropout key). int8 and weight standardisation raise
-``NotImplementedError`` naming their ROADMAP item; the hybrids are in
-``hybrids.py``.
+unet_2p1d), deep supervision and the int8 twin of post-training
+quantization (``QUANT_INT8``: every ConvBlock's conv is a ``QuantConv``;
+``cmrtpu_torch/predict/quantize.py`` writes its weights). In train mode
+dropout draws its masks from an explicit ``torch.Generator`` passed to
+``forward`` (flax draws them from the step's dropout key). Weight
+standardisation raises ``NotImplementedError`` (ROADMAP skip list); the
+hybrids are in ``hybrids.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.ops.int8_conv import quant_conv
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -234,6 +237,34 @@ class BatchNorm(nn.Module):
                 + _channel(self.bias, x))
 
 
+class QuantConv(nn.Module):
+    """cmrtpu's int8 ``QuantConv`` (``cmrtpu/models/unet.py:129``): the
+    block input quantized per input channel by ``act_scale``, an int8
+    kernel ``kernel_q`` [O, C, *k] with per-output-channel ``w_scale``, an
+    int32 'SAME' conv, and ``y * w_scale + bias`` in float32, cast to
+    ``dtype`` (``ops/int8_conv.py``). Serving only: every tensor is a
+    buffer, nothing trains."""
+
+    def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel_q", torch.zeros(
+            filters, in_ch, *f_size, dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(filters))
+        self.register_buffer("act_scale", torch.ones(in_ch))
+        self.register_buffer("bias", torch.zeros(filters))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_conv(x, self.kernel_q, self.w_scale, self.act_scale,
+                          self.bias, self.dtype)
+
+
+# ConvBlock.quant_mode: the float conv, the float conv recording the
+# block input's per-channel max-abs (calibration), or the int8 QuantConv
+QUANT_MODES = ("", "calib", "int8")
+
+
 class ConvBlock(nn.Module):
     """Conv + norm + activation with the reference's ordering switch.
 
@@ -247,19 +278,35 @@ class ConvBlock(nn.Module):
     ``f_size[1:]`` over [B * T, C, H, W] (t folded into the batch), then
     the activation, then ``Conv_1``, a (t, 1, 1) conv from ``filters`` to
     ``filters``; the norm and the activation follow as in the plain
-    block."""
+    block.
+
+    ``quant_mode`` (cmrtpu's): '' is the float conv; 'int8' replaces it by
+    ``QuantConv_0`` (the norm stays float); 'calib' runs the float conv
+    and keeps the running per-input-channel max-abs of the block's input
+    in ``calib_amax`` (float32 [C], on the input's device), which
+    ``predict/quantize.py:calibrate`` reads. Any quant_mode builds the
+    unfactorized conv, as in cmrtpu."""
 
     def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...],
                  activation: str = "relu", batch_norm: bool = True,
                  bn_first: bool = False, group_norm: int = 0,
-                 factorized: bool = False,
+                 factorized: bool = False, quant_mode: str = "",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode {quant_mode!r}: expected one of "
+                             f"{QUANT_MODES}")
         self.act = _ACTIVATIONS[activation]
         self.bn_first = bn_first
         self.dtype = dtype
-        self.factorized = factorized and len(f_size) == 3 and f_size[0] > 1
-        if self.factorized:
+        self.quant_mode = quant_mode
+        self.calib_amax: Optional[torch.Tensor] = None
+        self.factorized = (factorized and len(f_size) == 3 and f_size[0] > 1
+                           and not quant_mode)
+        if quant_mode == "int8":
+            self.QuantConv_0 = QuantConv(in_ch, filters, tuple(f_size),
+                                         dtype)
+        elif self.factorized:
             self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(f_size[1:]),
                                     padding="same")
             self.Conv_1 = nn.Conv3d(filters, filters, (f_size[0], 1, 1),
@@ -285,6 +332,12 @@ class ConvBlock(nn.Module):
         return getattr(self, self.norm_name)(y.to(wide_dtype(self.dtype)))
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant_mode == "int8":
+            return self.QuantConv_0(x)
+        if self.quant_mode == "calib":
+            amax = x.float().abs().amax(dim=(0, *range(2, x.dim())))
+            self.calib_amax = amax if self.calib_amax is None \
+                else torch.maximum(self.calib_amax, amax)
         if not self.factorized:
             return _conv(self.Conv_0, x, self.dtype)
         b, c, t, h, w = x.shape
@@ -383,6 +436,7 @@ class UNet(nn.Module):
                  logit_softcap=None, use_upsample: bool = True,
                  heads: Sequence[Tuple[str, int, str]] = (),
                  factorized: bool = False, supervision: bool = False,
+                 quant_mode: str = "",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if len(f_size) != len(m_pool) or len(f_size) not in _CONV:
@@ -401,7 +455,8 @@ class UNet(nn.Module):
         self.act = _ACTIVATIONS[activation]
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
-                  group_norm=group_norm, factorized=factorized, dtype=dtype)
+                  group_norm=group_norm, factorized=factorized,
+                  quant_mode=quant_mode, dtype=dtype)
         ch, skips = in_channels, []
         for level in range(depth):
             f = filters * 2 ** level
@@ -559,8 +614,15 @@ def build_model(config: Dict, supervision: bool = False,
     if ndims not in _CONV:
         raise ValueError(f"DIM {C.get(config, 'DIM')}: the U-Net is 2D or "
                          "3D")
-    if C.get(config, "QUANT_INT8", False):
-        _not_ported("the int8 twin (QUANT_INT8)", "5.4")
+    quant = bool(C.get(config, "QUANT_INT8", False))
+    factorized = bool(factorized or C.get(config, "FACTORIZED_3D", False))
+    if quant and factorized:
+        # cmrtpu's quantize_model refuses these (cmrtpu/predict/
+        # quantize.py:377-390): the twin's blocks are unfactorized
+        raise ValueError(
+            "int8 PTQ does not support factorized (2+1)D models "
+            "(MODEL_VARIANT='unet_2p1d' / FACTORIZED_3D=True); serve the "
+            "factorized model in float")
     if C.get(config, "WEIGHT_STANDARDISATION", False):
         _not_ported("WEIGHT_STANDARDISATION (a closed dead-end)", "skip list")
     if C.get(config, "BN_BF16", False) and C.get(config, "MIXED_PRECISION"):
@@ -588,7 +650,9 @@ def build_model(config: Dict, supervision: bool = False,
         logit_softcap=C.get(config, "LOGIT_SOFTCAP", None),
         use_upsample=bool(C.get(config, "USE_UPSAMPLE", True)),
         heads=tuple(tuple(h) for h in C.get(config, "HEADS", ()) or ()),
-        factorized=bool(factorized or C.get(config, "FACTORIZED_3D", False)),
+        factorized=factorized,
         supervision=supervision,
+        # the serving-only twin that predict/quantize.py writes
+        quant_mode="int8" if quant else "",
         dtype=dtype,
     )

@@ -7,6 +7,9 @@ the inference entry points ``pred_fold`` (one fold's test patients),
 ``cmrtpu.predict.predictor`` imports jax at module level, so its numpy-only
 functions are re-implemented here over the port's own copies of the host
 modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
+The model code is imported where a ``Predictor`` is built, so a process
+that serves an exported artifact through ``predict/serving.py`` never
+loads ``cmrtpu_torch.models``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ import torch
 from cmrtpu_torch import config as C
 from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
-from cmrtpu_torch.models.hybrids import get_model
 from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.connected_components import (clean_prediction_2d_cc,
                                                    clean_prediction_3d_cc)
@@ -93,27 +95,32 @@ class Predictor:
     """Restored model + batched forward on an explicit device. The model
     is MODEL_VARIANT's, with the deep-supervision branch when the weights
     hold one (cmrtpu's Predictor builds the model without it and flax
-    ignores the branch's weights)."""
+    ignores the branch's weights). With ``TTA`` the forward is the rot90
+    orbit's (``predict/tta.py``, by ``TTA_MODE``), so ``pred_fold``,
+    ``cli.predict`` and the twins inherit it."""
 
     def __init__(self, config: Dict, model_path: Optional[str] = None,
                  device="cuda"):
+        from cmrtpu_torch.models.hybrids import get_model
+
         self.config = C.normalise_config(config)
-        if C.get(self.config, "TTA", False):
-            raise NotImplementedError(
-                "TTA is not ported to cmrtpu_torch yet (ROADMAP 5.1)")
         self.device = resolve_device(device)
         model_path = model_path or C.get(self.config, "MODEL_PATH")
         self.model = get_model(self.config,
                                supervision=_supervised(model_path))
         load_weights_for_model(model_path, self.model, self.config)
         self.model.to(self.device).eval()
+        self._apply = self.model
+        if C.get(self.config, "TTA", False):
+            from cmrtpu_torch.predict.tta import tta_forward_from_config
+            self._apply = tta_forward_from_config(self.model, self.config)
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray):
         """[N, H, W, C] float32 -> [N, H, W, classes] probabilities (a dict
         of them per head for a HEADS model), left on the device (the call
         returns before the device finishes)."""
-        return self.model(torch.as_tensor(x, device=self.device))
+        return self._apply(torch.as_tensor(x, device=self.device))
 
     def predict(self, x: np.ndarray, to_host: bool = True):
         """Batched forward, padded to a multiple of ``_BUCKET`` and trimmed

@@ -3,8 +3,9 @@ fixed-batch forward on an explicit device and writes predictions back in the
 original image geometry, with per-stage latency records and an idempotent
 directory loop — counterpart of ``cmrtpu/predict/serving.py``.
 
-Only the live-checkpoint engine (config + ``model.npz``) is ported; the
-exported-artifact and ensemble engines raise. File names, the
+The engine serves a live checkpoint (config + ``model.npz``), an exported
+artifact (``predict/export.py``: no model code is imported) or a CV root's
+folds as one vmapped ensemble (``predict/ensemble.py``). File names, the
 ``<stem>.done.json`` marker protocol and the latency-record keys are those of
 the reference, so the two servers share worklists and outputs.
 """
@@ -28,7 +29,8 @@ from cmrtpu_torch.utils.io_utils import ensure_dir
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.predict.predictor import (Predictor, _head_outputs,
                                             cc_clean_fn,
-                                            preprocess_model_input, to_numpy)
+                                            preprocess_model_input,
+                                            resolve_device, to_numpy)
 
 
 def _flat_pred_heads(cfg: Dict, preds):
@@ -53,33 +55,57 @@ def _stem(path: str) -> str:
 
 
 class ServingEngine:
-    """Restore-once inference engine over a trained fold's checkpoint.
+    """Restore-once inference engine over a serving artifact, a CV root or
+    a trained fold's checkpoint.
 
-    ``config`` + ``model_path``: the live restore. ``device``: where the
-    forward and the CC filter run; ``'cuda'`` raises when CUDA is missing.
-    ``warmup``: run the forward (and the CC filter) once at init, so the
-    first study pays no set-up."""
+    ``artifact_dir``: a ``cmrtpu_torch.cli.export`` output; its program
+    runs without the model code, its embedded config (``config`` entries
+    override it) drives preprocessing and heads, and its ``x_shape`` fixes
+    the batch. ``ensemble_root``: every fold checkpoint of a timestamped
+    experiment root served as ONE vmapped average-probability ensemble at
+    ``BATCHSIZE``. ``config`` + ``model_path``: the live restore.
+    ``device``: where the forward and the CC filter run; ``'cuda'`` raises
+    when CUDA is missing. ``warmup``: run the forward (and the CC filter)
+    once at init, so the first study pays no set-up."""
 
     def __init__(self, artifact_dir: Optional[str] = None,
                  config: Optional[Dict] = None,
                  model_path: Optional[str] = None, warmup: bool = True,
                  ensemble_root: Optional[str] = None, device="cuda"):
         t0 = time.perf_counter()
-        if artifact_dir:
-            raise NotImplementedError(
-                "serving an exported artifact is not ported to cmrtpu_torch "
-                "yet (ROADMAP 5.3); serve the fold checkpoint")
+        if artifact_dir and ensemble_root:
+            raise ValueError("pass an artifact_dir OR an ensemble_root")
+        self.device = resolve_device(device)
         if ensemble_root:
-            raise NotImplementedError(
-                "ensemble serving is not ported to cmrtpu_torch yet "
-                "(ROADMAP 5.2)")
-        if config is None:
-            raise ValueError("need a config (and model_path)")
-        predictor = Predictor(config, model_path, device=device)
-        self.config = predictor.config
-        self.device = predictor.device
-        self.batch = max(int(C.get(self.config, "BATCHSIZE", 8) or 8), 1)
-        self._forward = predictor._forward
+            from cmrtpu_torch.predict.ensemble import EnsemblePredictor
+            ens = EnsemblePredictor.from_exp_root(ensemble_root, config,
+                                                  device=self.device)
+            self.config = ens.config
+            self.batch = max(int(C.get(self.config, "BATCHSIZE", 8) or 8), 1)
+            self._forward = ens._forward
+            self.n_members = ens.n_members
+        elif artifact_dir:
+            from cmrtpu_torch.predict.export import (load_exported,
+                                                     load_exported_weights)
+            fn, meta = load_exported(artifact_dir, device=self.device)
+            self.config = C.normalise_config(dict(meta["config"],
+                                                  **(config or {})))
+            weights = load_exported_weights(artifact_dir, device=self.device)
+            self.batch = int(meta["x_shape"][0])
+
+            @torch.inference_mode()
+            def forward(x: np.ndarray):
+                return fn(weights, torch.as_tensor(x, device=self.device))
+
+            self._forward = forward
+        else:
+            if config is None:
+                raise ValueError("need an artifact_dir, an ensemble_root or "
+                                 "a config")
+            predictor = Predictor(config, model_path, device=self.device)
+            self.config = predictor.config
+            self.batch = max(int(C.get(self.config, "BATCHSIZE", 8) or 8), 1)
+            self._forward = predictor._forward
         self._dim = tuple(C.get(self.config, "DIM"))
         self._cc = cc_clean_fn(self.config)
         if warmup:
@@ -94,7 +120,7 @@ class ServingEngine:
         self._totals = {"studies": 0, "slices": 0, "total_s": 0.0}
         logging.info("serving engine ready in %.1fs (batch=%d, device=%s, "
                      "source=%s)", self.init_s, self.batch, self.device,
-                     model_path or "config")
+                     artifact_dir or ensemble_root or model_path or "config")
 
     def predict_slices(self, x: np.ndarray):
         """Forward a [N, H, W, C] batch in ``self.batch``-row chunks (last

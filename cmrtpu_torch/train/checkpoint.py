@@ -20,6 +20,10 @@ trunk ``params/unet_2d/DownBlock_0/...``. The torch modules of
   ``.../bias``                        ``....bias``
   batch_stats ``.../mean``            ``....running_mean``
   batch_stats ``.../var``             ``....running_var``
+  ``.../QuantConv_0/kernel_q`` int8   ``....QuantConv_0.kernel_q`` int8
+  HWIO, DHWIO                         OIHW, OIDHW (the int8 twin)
+  ``.../QuantConv_0/{w_scale,         the same names, as they are
+  act_scale}``
 
 flax's ``ConvTranspose`` does not flip its kernel (``transpose_kernel``
 False) and torch's transposed convolution, the gradient of a convolution,
@@ -56,7 +60,9 @@ WEIGHTS_NAME = "model.npz"
 STATE_NAME = "state.pt"
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
-             "mean": "running_mean", "var": "running_var"}
+             "mean": "running_mean", "var": "running_var",
+             "kernel_q": "kernel_q", "w_scale": "w_scale",
+             "act_scale": "act_scale"}
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -85,7 +91,10 @@ _KERNEL_NDIMS = (4, 5)
 
 
 def _kind(module: str) -> str:
-    """'conv_t', 'conv' or 'norm' by the flax module name, '' otherwise."""
+    """'conv_t', 'conv', 'qconv' (the int8 twin's QuantConv) or 'norm' by
+    the flax module name, '' otherwise."""
+    if module.startswith("QuantConv"):
+        return "qconv"
     if module.startswith("ConvTranspose"):
         return "conv_t"
     if module.startswith("Conv") or module == "head" \
@@ -103,10 +112,11 @@ def _flip_spatial(arr: np.ndarray, rank: int) -> np.ndarray:
 def flax_to_state_dict(params: Dict, batch_stats: Dict = None
                        ) -> Dict[str, torch.Tensor]:
     """Nested flax trees (numpy leaves) -> torch ``state_dict``. A conv
-    kernel [*k, I, O] becomes [O, I, *k]; a transposed one is flipped on
-    its spatial axes and becomes [I, O, *k]. A leaf that is not a conv's,
-    a norm's or a bias (a kernel of another rank, a scale outside a norm)
-    raises."""
+    kernel [*k, I, O] becomes [O, I, *k] (an int8 ``kernel_q`` too, its
+    dtype kept); a transposed one is flipped on its spatial axes and
+    becomes [I, O, *k]. A leaf that is not a conv's, a norm's, a
+    QuantConv's or a bias (a kernel of another rank, a scale outside a
+    norm) raises."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in {**_flatten(params),
                       **_flatten(batch_stats or {})}.items():
@@ -116,12 +126,16 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
             (leaf == "kernel" and conv and arr.ndim in _KERNEL_NDIMS)
             or (leaf == "scale" and kind == "norm" and arr.ndim == 1)
             or (leaf == "bias" and kind and arr.ndim == 1)
-            or (leaf in ("mean", "var") and kind == "norm" and arr.ndim == 1))
+            or (leaf in ("mean", "var") and kind == "norm" and arr.ndim == 1)
+            or (leaf == "kernel_q" and kind == "qconv"
+                and arr.ndim in _KERNEL_NDIMS and arr.dtype == np.int8)
+            or (leaf in ("w_scale", "act_scale") and kind == "qconv"
+                and arr.ndim == 1))
         if not valid:
             raise ValueError(
                 f"{'/'.join(path)} {arr.shape}: not a leaf of the U-Nets "
                 "and hybrids that cmrtpu_torch ports")
-        if leaf == "kernel":
+        if leaf in ("kernel", "kernel_q"):
             rank = arr.ndim - 2
             if kind == "conv_t":
                 arr = _flip_spatial(arr, rank).transpose(
@@ -152,6 +166,14 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
             else:  # [O, I, *k] -> [*k, I, O]
                 arr = arr.transpose(*range(2, rank + 2), 1, 0)
             params[(*module, "kernel")] = np.ascontiguousarray(arr)
+        elif leaf == "kernel_q" and kind == "qconv" \
+                and arr.ndim in _KERNEL_NDIMS:
+            rank = arr.ndim - 2  # [O, I, *k] -> [*k, I, O], int8 kept
+            params[(*module, "kernel_q")] = np.ascontiguousarray(
+                arr.transpose(*range(2, rank + 2), 1, 0))
+        elif leaf in ("w_scale", "act_scale") and kind == "qconv" \
+                and arr.ndim == 1:
+            params[(*module, leaf)] = arr
         elif leaf == "weight" and kind == "norm" and arr.ndim == 1:
             params[(*module, "scale")] = arr
         elif leaf == "bias" and kind and arr.ndim == 1:
@@ -300,7 +322,10 @@ class AsyncCheckpointWriter:
 
 def load_weights(model_path: str) -> Tuple[Dict, Dict]:
     """Returns (params, batch_stats) nested numpy trees from a model.npz
-    file or its directory."""
+    file or its directory. An int8 twin written before cmrtpu's round 4
+    stored a scalar ``act_scale``; it is broadcast to the per-input-channel
+    vector of its ``kernel_q``, as cmrtpu's ``load_weights`` does
+    (``cmrtpu/train/checkpoint.py:74-82``)."""
     path = model_path if model_path.endswith(".npz") \
         else os.path.join(model_path, WEIGHTS_NAME)
     params, stats = {}, {}
@@ -309,6 +334,12 @@ def load_weights(model_path: str) -> Tuple[Dict, Dict]:
             prefix, rest = key.split("/", 1)
             target = params if prefix == "params" else stats
             target[tuple(rest.split("/"))] = blobs[key]
+    for key, val in list(params.items()):
+        if key[-1] == "act_scale" and np.size(val) == 1:
+            kernel = params.get(key[:-1] + ("kernel_q",))
+            if kernel is not None:
+                params[key] = np.full((kernel.shape[-2],),
+                                      float(np.ravel(val)[0]), np.float32)
     return _unflatten(params), _unflatten(stats)
 
 

@@ -119,3 +119,81 @@ def test_foreign_leaf_is_rejected():
     with pytest.raises(ValueError, match="not a leaf"):
         flax_to_state_dict({"ConvBlock_0": {"Conv_0": {
             "kernel_q": np.zeros((3, 3, 1, 4), np.int8)}}})
+
+
+def _int8_twin_trees(cfg, seed):
+    """cmrtpu's int8 twin of a seeded float model: calibrated on one
+    random batch and quantized by cmrtpu's own quantize_variables."""
+    from cmrtpu.predict.quantize import calibrate, quantize_variables
+
+    model = jax_build_model(cfg)
+    variables = jax.tree_util.tree_map(np.asarray, dict(init_variables(
+        model, cfg, jax.random.key(seed, impl="threefry2x32"))))
+    x = np.random.default_rng(seed).standard_normal(
+        (2, 32, 32, 1)).astype(np.float32)
+    qvars = quantize_variables(model, variables,
+                               calibrate(model, variables, [x]))
+    return jax.tree_util.tree_map(np.asarray, qvars), x
+
+
+@pytest.mark.parametrize("norm", sorted(CONFIGS))
+def test_int8_twin_npz_round_trips_cmrtpu_port_cmrtpu(norm, tmp_path):
+    """An int8 twin's model.npz (int8 kernel_q, float32 w_scale, act_scale,
+    bias) written by cmrtpu loads into the port's twin, is written back by
+    the port, and cmrtpu reads that file back to the same arrays and
+    dtypes, byte for byte."""
+    cfg = dict(CONFIGS[norm], QUANT_INT8=True)
+    qvars, _ = _int8_twin_trees(CONFIGS[norm], 7)
+    a, b, c = (str(tmp_path / n) for n in "abc")
+    jax_ckpt.save_weights(a, qvars["params"], qvars.get("batch_stats"))
+    model = load_weights_for_model(a, build_model(cfg), cfg)
+    assert model.DownBlock_0.ConvBlock_0.QuantConv_0.kernel_q.dtype \
+        == torch.int8
+    save_weights(b, model)
+    _assert_same_npz(_npz(a), _npz(b))
+    params, stats = jax_ckpt.load_weights(b)
+    jax_ckpt.save_weights(c, params, stats)
+    _assert_same_npz(_npz(a), _npz(c))
+    for key, arr in _npz(a).items():
+        assert arr.tobytes() == _npz(c)[key].tobytes(), key
+
+
+def test_scalar_act_scale_loads_as_cmrtpu_loads_it(tmp_path):
+    """A twin written before cmrtpu's round 4 stored a scalar act_scale;
+    the port's load_weights broadcasts it to the per-input-channel vector
+    of its kernel_q exactly as cmrtpu's does."""
+    from cmrtpu_torch.train.checkpoint import load_weights
+
+    qvars, _ = _int8_twin_trees(CONFIGS["gn"], 8)
+    from flax import traverse_util
+    flat = traverse_util.flatten_dict(qvars["params"])
+    legacy = {k: (np.float32(v.max()) if k[-1] == "act_scale" else v)
+              for k, v in flat.items()}
+    jax_ckpt.save_weights(str(tmp_path), traverse_util.unflatten_dict(legacy),
+                          qvars.get("batch_stats"))
+    want = traverse_util.flatten_dict(jax_ckpt.load_weights(
+        str(tmp_path))[0])
+    got = traverse_util.flatten_dict(load_weights(str(tmp_path))[0])
+    assert sorted(want) == sorted(got)
+    scales = [k for k in want if k[-1] == "act_scale"]
+    assert scales
+    for k in want:
+        assert np.asarray(want[k]).dtype == got[k].dtype, k
+        np.testing.assert_array_equal(np.asarray(want[k]), got[k])
+    for k in scales:
+        assert got[k].shape == (flat[k[:-1] + ("kernel_q",)].shape[-2],)
+    cfg = dict(CONFIGS["gn"], QUANT_INT8=True)
+    load_weights_for_model(str(tmp_path), build_model(cfg), cfg)
+
+
+@pytest.mark.parametrize("leaf", ["kernel_q_float", "kernel_q_rank3",
+                                  "scale_in_qconv", "w_scale_2d"])
+def test_unknown_int8_leaf_is_rejected(leaf):
+    """The bridge still raises for any leaf it does not know, inside a
+    QuantConv_0 too."""
+    bad = {"kernel_q_float": ("kernel_q", np.zeros((3, 3, 1, 4), np.float32)),
+           "kernel_q_rank3": ("kernel_q", np.zeros((3, 1, 4), np.int8)),
+           "scale_in_qconv": ("scale", np.ones(4, np.float32)),
+           "w_scale_2d": ("w_scale", np.ones((1, 4), np.float32))}[leaf]
+    with pytest.raises(ValueError, match="not a leaf"):
+        flax_to_state_dict({"ConvBlock_0": {"QuantConv_0": dict([bad])}})

@@ -24,6 +24,9 @@ import cmrtpu_torch.cli.predict_4d, cmrtpu_torch.train.keras_import
 import cmrtpu_torch.data.analytics, cmrtpu_torch.eval.file_metrics
 import cmrtpu_torch.cli.make_dataset, cmrtpu_torch.tools.full_cv_demo
 import cmrtpu_torch.tools.cine_quality_demo, cmrtpu_torch.ops.cuda_kernels
+import cmrtpu_torch.cli.export, cmrtpu_torch.predict.tta
+import cmrtpu_torch.predict.ensemble, cmrtpu_torch.predict.quantize
+import cmrtpu_torch.predict.export, cmrtpu_torch.ops.int8_conv
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
 banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu",

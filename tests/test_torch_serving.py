@@ -204,17 +204,28 @@ def test_cuda_without_cuda_raises(fold_dir, monkeypatch):
 
 
 def test_unported_sources_raise(fold_dir, in_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP 5.3"):
+    """The artifact, ensemble and TTA sources are ported now
+    (tests/test_torch_export.py, test_torch_ensemble.py, test_torch_tta.py);
+    what cannot be served raises: a directory with no artifact, a cmrtpu
+    (StableHLO) artifact, a root with no fold, both sources at once."""
+    with pytest.raises(FileNotFoundError):
         ServingEngine(artifact_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 5.2"):
+    (tmp_path / "forward.stablehlo").write_bytes(b"")
+    with pytest.raises(ValueError, match="cmrtpu_torch.cli.export"):
+        ServingEngine(artifact_dir=str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="no fold configs"):
         ServingEngine(ensemble_root=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 5.1"):
-        ServingEngine(config={**CFG, "TTA": True},
-                      model_path=os.path.join(fold_dir, "model"),
-                      device="cpu")
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="OR an ensemble_root"):
+        ServingEngine(artifact_dir=str(tmp_path),
+                      ensemble_root=str(tmp_path), device="cpu")
+    engine = ServingEngine(config={**CFG, "TTA": True},
+                           model_path=os.path.join(fold_dir, "model"),
+                           device="cpu")
+    assert engine.predict_slices(np.zeros((2, 32, 32, 1), np.float32)
+                                 ).shape == (2, 32, 32, 2)
+    with pytest.raises(ValueError, match="cmrtpu_torch.cli.export"):
         serve_main(["-artifact", str(tmp_path), "-in", in_dir,
-                    "-out", str(tmp_path / "o")])
+                    "-out", str(tmp_path / "o"), "--device", "cpu"])
 
 
 def test_cli_serves_a_directory(fold_dir, in_dir, tmp_path, capsys):
