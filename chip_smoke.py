@@ -130,7 +130,22 @@ Run from the root of a checkout. Phases, one line each:
 Inside phase 16's cohort, after cache-dtype: supervision — the flagship
 through Trainer(cfg, supervision=True).fit_cached for one epoch, K1 once
 per train and eval step, the model.npz restored through Predictor with its
-branch and equal to Trainer.predict.
+branch and equal to Trainer.predict; then slice 6's sharded-cache —
+sharded_cache_config.json at its widths (EPOCHS 2) through cli.train
+(chained pred_fold) and cli.evaluate_cv: K1 once per train step, per eval
+batch (the tail's too) and per patient-phase, K2 once per patient-phase;
+every gradient the rule reads bf16-representable (the control without
+GRAD_ALLREDUCE_DTYPE not); with CACHE_RESHUFFLE_EPOCHS 1 the caches on the
+card equal the host caches permuted by the loop rng's draws, byte for byte;
+the warm step beside the flagship's; and stream — the flagship through
+cli.train -inmemory false (the streamed loop): K1 (7 + 2) times an epoch and
+once per patient-phase, K2 once per patient-phase; in process one streamed
+epoch against one device-cached epoch from the same weights and draws
+within STREAM_PARITY_RTOL (a control with one batch perturbed outside it);
+STREAM_ECHO 2 two steps per upload with differing draws; pinned staging
+and a side copy stream; at STREAM_ECHO 1 and 2, from the host cache and
+without it: streamed against cached step ms, bytes and copy ms per batch,
+producer ms, the step's wait for its copy and the idle share.
 Inside phase 7, after evaluate: cc3d-cli — a copy of the flagship fold
 with CC_FILTER '3d' through cli.predict and cli.serve: the 3D kernel once
 per patient-phase, study and warm-up, K2 never, each cleaned volume equal
@@ -173,7 +188,8 @@ cli.evaluate_cv of the twin, its |delta prob| against the float fold,
 cli.export --int8 served through -artifact, forward ms int8 against bf16.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
-resume, resume-exact and ema phases' runs, supervision, train_3d, the
+resume, resume-exact and ema phases' runs, supervision, the sharded and
+streamed CLI runs, train_3d, the
 train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
 predict_4d, predict_4d_3d, override_twin and the serving extras' paths),
 the card's name and power limit, and, last, the result line
@@ -244,6 +260,7 @@ from cmrtpu_torch.train import device_cache
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
 from cmrtpu_torch.train.optimizers import get_optimizer
 from cmrtpu_torch.train.steps import TrainState
+from cmrtpu_torch.train.streaming import StreamedLoop
 from cmrtpu_torch.train.trainer import Trainer, init_model
 
 SEED = 0
@@ -929,6 +946,34 @@ def _time_steps(cfg, data_root, steps=12, warm=3):
     return _time_loop(loop, steps, warm)
 
 
+def _device_ms_by_kernel(fn, host=True):
+    """``fn()`` under torch.profiler, synchronized: device ms by kernel
+    (empty when the profiler saw no device time; host-device copies, which
+    may overlap kernels on a side stream, are not kernels) and the wall
+    ms. ``host`` False records the device's activity only, which keeps a
+    long window's trace small."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = self_device_us(evt)
+        # user annotations (Optimizer.step#Adam.step) span the kernels they
+        # launch on the device timeline: counting them would count twice
+        annotation = getattr(evt, "is_user_annotation", False) \
+            or evt.key.startswith("Optimizer.")
+        if dev_us > 0 and evt.device_type.name == "CUDA" and not annotation \
+                and not evt.key.startswith("Memcpy"):
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    return by_kernel, wall_ms
+
+
 def _time_loop(loop, steps=12, warm=3):
     """Median train-step time over warm steps of the cached loop (CUDA
     events around each step), then a torch.profiler window of 4 steps:
@@ -956,7 +1001,7 @@ def _time_loop(loop, steps=12, warm=3):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            loop.hist_match(imgs)
+            loop.hist_match(imgs, loop.x_train)
             end.record()
             torch.cuda.synchronize()
             match_times.append(start.elapsed_time(end))
@@ -964,24 +1009,13 @@ def _time_loop(loop, steps=12, warm=3):
                  "match_candidates_per_step": loop._quota,
                  "match_gate_p": loop._gate_p}
 
-    from torch.profiler import ProfilerActivity, profile
     window = 4
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def profiled():
         for s in range(window):
             loop.train_step(idx[s % len(idx)])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for evt in prof.key_averages():
-        dev_us = self_device_us(evt)
-        # user annotations (Optimizer.step#Adam.step) span the kernels they
-        # launch on the device timeline: counting them would count twice
-        annotation = getattr(evt, "is_user_annotation", False) \
-            or evt.key.startswith("Optimizer.")
-        if dev_us > 0 and evt.device_type.name == "CUDA" and not annotation:
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
+
+    by_kernel, wall_ms = _device_ms_by_kernel(profiled)
     busy_ms = sum(by_kernel.values())
     if not busy_ms:  # the profiler saw no device time: not measured
         return {"step_ms_median": step_ms, "timed_steps": steps,
@@ -1974,9 +2008,10 @@ def phase_optimizers(cfg):
               f"{r['full_step_rel_l2']} (relative L2) from the CPU's")
 
 
-def phase_trainer_features(cfg):
-    """resume, resume-exact, ema and cache-dtype on one phantom cohort at
-    the flagship's widths. Returns the kernels' launches by path."""
+def phase_trainer_features(cfg, flagship_timing, card):
+    """resume, resume-exact, ema, cache-dtype, supervision, sharded-cache
+    and stream on one phantom cohort at the flagship's widths. Returns the
+    kernels' launches by path."""
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as work:
         data_root = os.path.join(work, "data")
@@ -1991,8 +2026,367 @@ def phase_trainer_features(cfg):
         phase_cache_dtype(cfg, gen)
         by_path.update(phase_supervision(
             cfg, work, gen, DataGenerator(x_val, y_val, config=cfg)))
+        by_path.update(phase_sharded_cache(data_root, work, gen,
+                                           flagship_timing, card))
+        by_path.update(phase_stream(cfg, data_root, work, card))
     check(not _loaded_foreign(), f"trainer: loaded {_loaded_foreign()}")
     return by_path
+
+
+# -- slice 6: the sharded cache on one card and host streaming --------------
+
+SHARDED_TEMPLATE = os.path.join(TEMPLATES, "sharded_cache_config.json")
+# stream: one streamed epoch against one device-cached epoch from the same
+# weights, data order and draws (SHUFFLE false, bf16 storage), as the
+# relative L2 norm of the difference of the parameters' changes over the
+# norm of the cached epoch's change. Measured on an H100 (700 W) 9.0e-5
+# (cuDNN's weight-gradient reductions reorder; on the CPU 0), the control
+# with batch 0's images perturbed 0.86 (PERF.md): the bound keeps ~11x over
+# the reading
+STREAM_PARITY_RTOL = 1e-3
+# the control's perturbation: noise of this std on batch 0's images (MinMax
+# images lie in [0, 1])
+STREAM_CONTROL_NOISE = 0.05
+
+
+def _cohort_steps(batch):
+    """(train steps, full eval batches, eval batches with the remainder)
+    of one epoch of the phantom cohort's fold 0 (6 + 2 patients x 2
+    frames x Z slices)."""
+    n_train, n_val = 6 * 2 * Z, 2 * 2 * Z
+    return n_train // batch, n_val // batch, -(-n_val // batch)
+
+
+def _cli_launch_checks(tag, k1, k2, chained, per_fold, phases):
+    """K1 once per train and eval step of the fit and once per
+    patient-phase of the chained pred_fold, K2 once per patient-phase, the
+    3D kernel never. Returns the two paths' launches."""
+    check(chained["k1_before"] == per_fold and chained["k2_before"] == 0
+          and chained["k1"] == chained["k2"] == phases
+          and k1 == per_fold + phases and k2 == phases,
+          f"{tag}: K1 {k1}, K2 {k2} (spans {chained}); want K1 {per_fold} "
+          f"+ {phases}, K2 {phases}")
+    check(kernels.converge_labels_3d_cuda.launches == 0,
+          f"{tag}: the 3D CC kernel launched")
+    return {f"{tag}:train": {"k1": chained["k1_before"],
+                             "k2": chained["k2_before"]},
+            f"{tag}:pred_fold": {"k1": chained["k1"], "k2": chained["k2"]}}
+
+
+def _history_rows(fold, epochs):
+    with open(os.path.join(fold, "history.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    check(len(rows) == epochs and all(
+        np.isfinite(float(r[k])) for r in rows for k in ("loss", "val_loss")),
+        f"{fold}: history {rows}")
+    return [{k: float(r[k]) for k in ("loss", "val_loss")} for r in rows]
+
+
+def _grads_bf16(cfg, gen):
+    """Whether every gradient the optimizer rule read in one step of the
+    cached loop is bfloat16-representable, and a function taking the
+    loop's next step."""
+    loop, idx = _loop(cfg, gen)
+    loop.train_step(idx[0])
+    representable = all(torch.equal(p.grad, p.grad.bfloat16().float())
+                        for p in loop.trainer.model.parameters())
+    i = iter(range(10 ** 6))
+    return representable, lambda: loop.train_step(idx[next(i) % len(idx)])
+
+
+def _paired_step_ms(name_a, step_a, name_b, step_b, rounds=6, reps=8):
+    """Interleaved warm-step medians of two steps, ABBA order, ``reps``
+    timed steps an arm a round: each arm's per-round medians and the
+    per-round differences a - b, resolved when every round's difference
+    has one sign."""
+    ms = {name_a: [], name_b: []}
+    order = ((name_a, step_a), (name_b, step_b))
+    for r in range(rounds):
+        for name, step in (order if r % 2 == 0 else order[::-1]):
+            ms[name].append(_warm_step_ms(step, reps=reps, warm=1))
+    diffs = [a - b for a, b in zip(ms[name_a], ms[name_b])]
+    out = {f"{name}_ms": v for name, v in ms.items()}
+    out.update({f"{name}_ms_median": float(np.median(v))
+                for name, v in ms.items()})
+    return dict(out, diff_ms=diffs, diff_ms_median=float(np.median(diffs)),
+                resolved=all(d > 0 for d in diffs)
+                or all(d < 0 for d in diffs))
+
+
+def phase_sharded_cache(data_root, work, gen, flagship_timing, card):
+    """sharded_cache_config.json at its widths (BatchNorm, bf16, CACHE_DTYPE
+    bfloat16, CACHE_SHARDED, GRAD_ALLREDUCE_DTYPE bfloat16), EPOCHS 2,
+    through cli.train (chained pred_fold) and cli.evaluate_cv: K1 once per
+    train step, per eval batch (the remainder's too) and per patient-phase,
+    K2 once per patient-phase. Then in process: every gradient the rule
+    reads is bf16-representable (the control without the key is not);
+    with CACHE_RESHUFFLE_EPOCHS 1 the caches on the card after the
+    reshuffle equal the packed host caches permuted by the loop rng's own
+    draws, byte for byte (the control, the unpermuted cache, differs); the
+    step with and without the cast in interleaved rounds; the warm step
+    beside the flagship's."""
+    with open(SHARDED_TEMPLATE, encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), EPOCHS=2, FOLDS=[0])
+    exp, k1, k2, chained, wall_s = _train_cli(cfg, data_root, work,
+                                              "sharded")
+    batch = int(cfg["BATCHSIZE"])
+    train_steps, _, eval_steps = _cohort_steps(batch)
+    test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+    phases = 2 * len(test)
+    paths = _cli_launch_checks("sharded", k1, k2, chained,
+                               2 * (train_steps + eval_steps), phases)
+    fold = os.path.join(exp, "f0")
+    history = _history_rows(fold, 2)
+    _check_predictions(fold, test)
+    t0 = time.perf_counter()
+    evaluate_main(["-exp", exp, "-data", data_root])
+    evaluate_s = time.perf_counter() - t0
+    with open(os.path.join(exp, "df_eval.csv"), newline="") as fh:
+        df = list(csv.DictReader(fh))
+    dists = [float(r[c] or "nan") for r in df
+             for c in ("mdists_ant_gtpred", "mdists_inf_gtpred")]
+    check(len(df) == phases and np.isfinite(dists).any(),
+          f"sharded: df_eval {len(df)} rows, distances {dists}")
+
+    grads_bf16, cast_step = _grads_bf16(cfg, gen)
+    control_bf16, uncast_step = _grads_bf16(
+        {k: v for k, v in cfg.items() if k != "GRAD_ALLREDUCE_DTYPE"}, gen)
+    check(grads_bf16 and not control_bf16,
+          f"sharded: gradients bf16-representable {grads_bf16}, without "
+          f"GRAD_ALLREDUCE_DTYPE {control_bf16}")
+    cast = _paired_step_ms("with_cast", cast_step, "without_cast",
+                           uncast_step)
+    del cast_step, uncast_step
+
+    rcfg = dict(cfg, CACHE_RESHUFFLE_EPOCHS=1)
+    loop = DeviceCachedLoop(Trainer(rcfg, device="cuda"), gen)
+    n = loop.n_train
+    # the reshuffle comes before the second epoch's indices
+    for _ in range(2):
+        loop.run_train_epoch()
+    draws = np.random.default_rng(int(cfg["SEED"]))
+    draws.permutation(n)
+    perm = torch.from_numpy(draws.permutation(n))
+    host_x, host_y = device_cache.pack_arrays(gen._cache_x, gen._cache_y,
+                                              rcfg)
+    card_x, card_y = loop.x_train.cpu(), loop.y_train.cpu()
+    reshuffled = (card_x.dtype == torch.bfloat16
+                  and torch.equal(card_x, host_x[perm])
+                  and torch.equal(card_y, host_y[perm]))
+    unpermuted = torch.equal(card_x, host_x)
+    check(reshuffled and not unpermuted,
+          f"sharded: the reshuffled cache equals the host cache under the "
+          f"rng's permutation: {reshuffled}; unpermuted: {unpermuted}")
+    del loop
+
+    timing = _time_loop(DeviceCachedLoop(Trainer(cfg, device="cuda"), gen))
+    log("sharded-cache", card=card, train_steps=2 * train_steps,
+        eval_steps=2 * eval_steps, k1_launches=k1, k2_launches=k2,
+        train_wall_s=wall_s, pred_fold_wall_s=chained["wall_s"],
+        evaluate_cv_s=evaluate_s, mdists_gtpred_mm=dists, history=history,
+        grads_bf16=grads_bf16, control_grads_bf16=control_bf16,
+        cast_step_ms_paired=cast,
+        reshuffled_rows=n,
+        flagship_step_ms_median=flagship_timing["step_ms_median"],
+        flagship_idle_share=flagship_timing.get("idle_share"), **timing)
+    return paths
+
+
+class _Perturbed:
+    """A generator whose batch 0 carries noise on its images (the stream
+    phase's control)."""
+
+    def __init__(self, gen, std):
+        self.gen, self.std, self.masks = gen, std, gen.masks
+
+    def __len__(self):
+        return len(self.gen)
+
+    def on_epoch_end(self):
+        self.gen.on_epoch_end()
+
+    def raw_batch(self, i):
+        x, y = self.gen.raw_batch(i)
+        if i == 0:
+            noise = torch.from_numpy(np.random.default_rng(SEED).normal(
+                0.0, self.std, tuple(x.shape)).astype(np.float32))
+            x = (x.float() + noise).to(x.dtype)
+        return x, y
+
+
+def _params(trainer):
+    return [p.detach().clone() for p in trainer.model.parameters()]
+
+
+def _rel_change_diff(start, a, b):
+    """||(a - start) - (b - start)|| / ||b - start|| over all parameters."""
+    diff = sum(float((x - y).double().square().sum()) for x, y in zip(a, b))
+    change = sum(float((y - s).double().square().sum())
+                 for s, y in zip(start, b))
+    return (diff / change) ** 0.5
+
+
+def _streamed_epoch_figures(cfg, gen, echo, cached_ms):
+    """One timed and one profiled streamed epoch of ``gen`` at STREAM_ECHO
+    ``echo`` (the kernels are warm from the parity runs). Per batch: bytes,
+    the copy's ms (events on the copy stream), the producer's ms (host
+    clock in its thread), the step's ms per optimizer step (events, the
+    wait for its copy included), how long the step waited for its copy,
+    the share of each copy that lies inside the union of every step's
+    compute interval on the main stream (from the end of its wait for
+    its copy to its last launch), and which steps, counted back from the
+    copy's own, each copy overlapped (up to PREFETCH_DEPTH steps run in
+    flight). The device's idle share is that of the profiled epoch: its
+    busy time over its own wall time."""
+    loop = StreamedLoop(Trainer(dict(cfg, STREAM_ECHO=echo), device="cuda"),
+                        gen)
+    loop.timeline = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run_train_epoch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    line = loop.timeline
+    loop.timeline = None
+    base = line[0]["step_start"]
+
+    def at(event):  # ms since the first step's start, on the device
+        return base.elapsed_time(event)
+
+    copies = [(at(r["copy_start"]), at(r["copy_end"])) for r in line]
+    steps = [(at(r["step_start"]), at(r["step_end"])) for r in line]
+    computes = [(at(r["compute_start"]), at(r["step_end"])) for r in line]
+
+    def overlap(a, b):
+        return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+    # the compute intervals are disjoint (one stream runs them in order)
+    inside = [sum(overlap(c, s) for s in computes) / max(c[1] - c[0], 1e-9)
+              for c in copies]
+    offsets = {}
+    for k, c in enumerate(copies):
+        for j, s in enumerate(computes):
+            if overlap(c, s) > 0:
+                offsets[k - j] = offsets.get(k - j, 0) + 1
+    by_kernel, profiled_ms = _device_ms_by_kernel(loop.run_train_epoch,
+                                                  host=False)
+    busy_ms = sum(by_kernel.values())
+    pinned = all(b.is_pinned() for b in loop.put_ahead.host_buffers())
+    side = loop.put_ahead.stream.cuda_stream != \
+        torch.cuda.default_stream().cuda_stream
+    check(pinned and side, f"stream: staged host buffers pinned {pinned}, "
+          f"copies on a side stream {side}")
+    mb = float(np.median([r["bytes"] for r in line])) / 1e6
+    copy_ms = float(np.median([c1 - c0 for c0, c1 in copies]))
+    return {"echo": echo, "batches": len(line), "epoch_wall_ms": wall_ms,
+            "step_ms_median": float(np.median(
+                [(s1 - s0) / echo for s0, s1 in steps])),
+            "cached_step_ms_median": cached_ms,
+            "batch_mb": mb, "copy_ms_median": copy_ms,
+            "copy_gb_s": mb / copy_ms,
+            "copy_wait_ms_median": float(np.median(
+                [max(0.0, c1 - s0) for (_, c1), (s0, _) in
+                 zip(copies, steps)])),
+            "producer_ms_median": float(np.median(
+                [r["producer_ms"] for r in line])),
+            "copy_share_inside_steps": inside,
+            "copy_overlaps_by_step_offset": {
+                str(k): v for k, v in sorted(offsets.items())},
+            "device_busy_ms_per_epoch": busy_ms if busy_ms else None,
+            "idle_share": 1.0 - busy_ms / profiled_ms if busy_ms else None,
+            "profiled_epoch_wall_ms": profiled_ms,
+            "figures_s": time.perf_counter() - t0}
+
+
+def phase_stream(cfg, data_root, work, card):
+    """The flagship through cli.train -inmemory false (the streamed loop,
+    chained pred_fold), EPOCHS 2: K1 (7 x STREAM_ECHO + 2) times an epoch
+    (the streamed eval drops the remainder) and once per patient-phase, K2
+    once per patient-phase. Then in process, through the in-memory host
+    cache with a tiny DEVICE_CACHE_LIMIT_GB: one streamed epoch against one
+    device-cached epoch (within STREAM_PARITY_RTOL; a control with batch 0
+    perturbed must exceed it); STREAM_ECHO 2 takes two steps per upload
+    with differing augmentation draws; the staged host buffers are pinned
+    and the copies run on a side stream; figures at STREAM_ECHO 1 and 2,
+    for the in-memory and the -inmemory false generator."""
+    t0 = time.perf_counter()
+    seconds = {}
+    scfg = dict(cfg, EPOCHS=2, FOLDS=[0])
+    exp, k1, k2, chained, wall_s = _train_cli(
+        scfg, data_root, work, "stream", args=["-inmemory", "false"])
+    batch = int(cfg["BATCHSIZE"])
+    train_steps, full_eval, _ = _cohort_steps(batch)
+    test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+    phases = 2 * len(test)
+    paths = _cli_launch_checks("stream", k1, k2, chained,
+                               2 * (train_steps + full_eval), phases)
+    fold = os.path.join(exp, "f0")
+    history = _history_rows(fold, 2)
+    _check_predictions(fold, test)
+
+    x_tr, y_tr, _, _ = get_trainings_files(
+        os.path.join(data_root, "2D"), 0,
+        os.path.join(data_root, "df_kfold.csv"))
+    pcfg = dict(cfg, SHUFFLE=False, STREAM_DTYPE="bfloat16",
+                CACHE_DTYPE="bfloat16", DEVICE_CACHE_LIMIT_GB=1e-6)
+    ordered = DataGenerator(x_tr, y_tr, config=pcfg)
+    start = _params(Trainer(pcfg, device="cuda"))
+    after = {}
+    for name, make, data in (
+            ("cached", DeviceCachedLoop, ordered),
+            ("streamed", StreamedLoop, ordered),
+            ("control", StreamedLoop,
+             _Perturbed(ordered, STREAM_CONTROL_NOISE))):
+        trainer = Trainer(pcfg, device="cuda")
+        make(trainer, data).run_train_epoch()
+        after[name] = _params(trainer)
+    parity = _rel_change_diff(start, after["streamed"], after["cached"])
+    control = _rel_change_diff(start, after["control"], after["cached"])
+    check(parity <= STREAM_PARITY_RTOL < control,
+          f"stream: streamed vs cached {parity}, control {control}, bound "
+          f"{STREAM_PARITY_RTOL}")
+    seconds["cli_and_parity"] = time.perf_counter() - t0
+
+    draws = []
+
+    def record(draw):
+        def wrapped(generator, config, n):
+            params = draw(generator, config, n)
+            draws.append(params)
+            return params
+        return wrapped
+
+    echo_loop = StreamedLoop(Trainer(dict(pcfg, STREAM_ECHO=2),
+                                     device="cuda"), ordered)
+    kernels.gaussian_blur_2d_cuda.launches = 0
+    with _patched(device_cache, "draw_params", record):
+        echo_loop.run_train_epoch()
+    torch.cuda.synchronize()
+    echo_k1 = kernels.gaussian_blur_2d_cuda.launches
+    same = [all(torch.equal(draws[i][k], draws[i + 1][k]) for k in
+                ("rot_k", "shift", "gd_factors"))
+            for i in range(0, len(draws), 2)]
+    check(echo_k1 == 2 * train_steps and len(draws) == 2 * train_steps
+          and echo_loop.trainer.state.step == 2 * train_steps
+          and not any(same),
+          f"stream: STREAM_ECHO 2 took {echo_loop.trainer.state.step} "
+          f"steps, K1 {echo_k1}, {len(draws)} draws, echoes equal {same}")
+    seconds["echo"] = time.perf_counter() - t0 - seconds["cli_and_parity"]
+
+    cached_ms = _time_loop(DeviceCachedLoop(Trainer(pcfg, device="cuda"),
+                                            ordered))["step_ms_median"]
+    disk = DataGenerator(x_tr, y_tr, config=pcfg, in_memory=False)
+    figures = {f"{source}-echo{echo}": _streamed_epoch_figures(
+        pcfg, data, echo, cached_ms)
+        for source, data in (("memory", ordered), ("disk", disk))
+        for echo in (1, 2)}
+    log("stream", card=card, train_steps=2 * train_steps,
+        eval_steps=2 * full_eval, k1_launches=k1, k2_launches=k2,
+        train_wall_s=wall_s, pred_fold_wall_s=chained["wall_s"],
+        history=history, parity_rel=parity, control_rel=control,
+        parity_bound=STREAM_PARITY_RTOL, echo_k1=echo_k1,
+        phase_s=dict(seconds, total=time.perf_counter() - t0), **figures)
+    return paths
 
 
 # -- slice 4: the 3D cine U-Net and CC_FILTER '3d' --------------------------
@@ -3619,7 +4013,7 @@ def main():
     phase_forward(dict(cfg, USE_UPSAMPLE=False), phase="forward-transpose",
                   bf16_max=BF16_T_MAX_ATOL, bf16_mean=BF16_T_MEAN_ATOL)
     by_path.update(phase_variants(flagship_timing))
-    by_path.update(phase_trainer_features(cfg))
+    by_path.update(phase_trainer_features(cfg, flagship_timing, smi))
     phase_optimizers(cfg)
     with open(CINE, encoding="utf-8") as fh:
         cine = json.load(fh)

@@ -16,12 +16,16 @@ Layer map, entry points first:
   predict/predictor.py         Predictor, preprocessing, thresholding, CC_FILTER
   cli/train.py                 training CLI (-cfg <json> -data <root>)
   train/fold.py                run_experiment, train_fold
-  train/trainer.py             Trainer: epoch/callback loop, fit_cached
+  train/trainer.py             Trainer: epoch/callback loop, fit_cached, fit_streamed
   train/callbacks.py           checkpoint, LR plateau, early stop, TB, CSV
-  train/device_cache.py        dataset on the card; gather-augment-target-step
+  train/device_cache.py        dataset on the card (replicated or sharded, one
+                               shard); the fused gather-augment-target-step
+  train/streaming.py           StreamedLoop: packed host batches, STREAM_ECHO
+  train/manual_collectives.py  GRAD_ALLREDUCE_DTYPE: gradients cast and back
+  parallel/prefetch.py         numpy_prefetch thread; PutAhead pinned copies
   train/steps.py               TrainState: train_step / eval_step
   train/losses.py, optimizers.py, eval/detection.py   loss, Adam, loc_mm
-  pipeline/generator.py        host stage (DataGenerator), finalize_batch
+  pipeline/generator.py        host stage and batch API (DataGenerator), finalize_batch
   pipeline/augment.py          draw_params / apply_params on the card
   pipeline/histmatch.py        Var.1 histogram matching (binned, exact), quota gate
   data/dataset.py              slice names, fold lists

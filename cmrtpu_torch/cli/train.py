@@ -10,7 +10,9 @@ holds ``2D/`` and ``df_kfold.csv``; every fold of FOLDS trains in turn into
 cuda and a missing card raises unless ``--device cpu`` is given.
 ``-resume <run_dir>`` re-enters an existing timestamped run: each fold
 restores its full train state and continues its epoch count, and a
-completed fold is skipped.
+completed fold is skipped. ``-inmemory false`` keeps no host cache: each
+fold then trains from packed host-streamed batches
+(``cmrtpu_torch/train/streaming.py``).
 """
 
 import argparse
@@ -27,7 +29,9 @@ def main(argv=None):
                         help="path to the data-root folder (2D/, df_kfold.csv)")
     parser.add_argument("-inmemory", action="store", default=None,
                         help="cache the deterministic preprocessing in RAM "
-                             "(the only path ported; false raises)")
+                             "and hold the dataset on the card (default); "
+                             "false streams packed host batches to the "
+                             "card instead")
     parser.add_argument("-resume", action="store", default=None,
                         help="path to an existing timestamped run "
                              "(exp/<EXP>/<ts>) to resume after a crash: "

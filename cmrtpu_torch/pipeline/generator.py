@@ -1,22 +1,28 @@
-"""Training data: the deterministic host stage and the on-device tail of the
-stochastic stage — counterpart of ``cmrtpu/pipeline/generator.py``.
+"""Training data: the deterministic host stage, its batches and the tail of
+the stochastic stage — counterpart of ``cmrtpu/pipeline/generator.py``.
 
-  1. ``DataGenerator`` runs the reference's deterministic "fix" stage once
-     per file in a thread pool (load -> resample -> clip -> normalise) and
-     keeps the result padded to DIM in two contiguous arrays, ``_cache_x``
-     and ``_cache_y``, which the device-resident loop uploads once
-     (ref: __fix_preprocessing__, src/data/Generators.py:283-344).
-  2. ``finalize_batch`` is the tail of the stochastic stage on the card:
+  1. ``DataGenerator`` runs the reference's deterministic "fix" stage
+     (load -> resample -> clip -> normalise) per file in a thread pool. In
+     memory (``CACHE_IN_MEMORY``, the default) it keeps the result padded to
+     DIM in two contiguous arrays, ``_cache_x`` and ``_cache_y``, which the
+     device-resident loop uploads once (ref: __fix_preprocessing__,
+     src/data/Generators.py:283-344); otherwise it computes rows on demand.
+  2. Its batch API is cmrtpu's: ``len`` (full batches), ``on_epoch_end``
+     (the epoch order from ``np.random.default_rng(SEED)``), ``fixed_rows``,
+     ``raw_batch`` (a batch of the deterministic stage packed in
+     ``STREAM_DTYPE`` for the streamed loop, ``train/streaming.py``) and
+     ``__getitem__`` (a finalized batch: host histogram matching, then
+     augmentation from the generator's own ``torch.Generator`` and
+     ``finalize_batch`` on the card).
+  3. ``finalize_batch`` is the tail of the stochastic stage on the card:
      per-example re-normalise, label -> binary channels and the Gaussian
      heatmap targets (K1) (ref: __preprocess_one_image__, :371-395), or per
      HEADS entry binary channels (+ K1 heatmaps) or a one-hot.
 
-The batches themselves are assembled on the card by
-``cmrtpu_torch/train/device_cache.py``, which also does the histogram
-matching of HIST_MATCHING with AUGMENT; host streaming is not ported
-(ROADMAP 6.3). A HEADS config reads one label map per head (the first from
-the y file list, the others by HEAD_MASK_RULES on the file name) and caches
-them stacked as [N, n_heads, *DIM].
+The cached loops (``train/device_cache.py``) assemble their batches on the
+card, histogram matching included. A HEADS config reads one label map per
+head (the first from the y file list, the others by HEAD_MASK_RULES on the
+file name) and keeps them stacked as [N, n_heads, *DIM].
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from cmrtpu_torch.io import MedicalImage, read_image
 from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.gaussian import smooth_heatmap_targets
 from cmrtpu_torch.pipeline import transforms as T
+from cmrtpu_torch.pipeline.histmatch import match_2d_on_nd
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -121,31 +128,35 @@ def finalize_batch(imgs: torch.Tensor, msks: torch.Tensor, config: Dict,
 
 
 class DataGenerator:
-    """The deterministic stage of cmrtpu's DataGenerator with its in-memory
-    padded cache: ``_cache_x`` [N, *DIM] float32 images and ``_cache_y``
+    """cmrtpu's DataGenerator: the deterministic stage, in memory as the
+    padded cache ``_cache_x`` [N, *DIM] float32 images and ``_cache_y``
     [N, *DIM] float32 label maps ([N, n_heads, *DIM] with HEADS; the images
-    again without masks). DIM is a 2D slice's [H, W] or a cine volume's
-    [T, H, W]; RESAMPLE resamples a volume in plane, keeping its t axis
-    (cmrtpu means to, but its call fails on the volume's geometry)."""
+    again without masks), or on demand with ``in_memory`` False; and its
+    batch API. DIM is a 2D slice's [H, W] or a cine volume's [T, H, W];
+    RESAMPLE resamples a volume in plane, keeping its t axis (cmrtpu means
+    to, but its call fails on the volume's geometry). ``device`` is where
+    ``__getitem__`` augments and finalizes."""
 
     def __init__(self, x: Sequence[str], y: Optional[Sequence[str]] = None,
                  config: Optional[Dict] = None,
-                 in_memory: Optional[bool] = None):
+                 in_memory: Optional[bool] = None, device="cuda"):
         config = config or {}
         if y is not None:
             assert len(x) == len(y), "len(X) != len(Y)"
         self.in_memory = C.get(config, "CACHE_IN_MEMORY", True) \
             if in_memory is None else in_memory
-        if not self.in_memory:
-            raise NotImplementedError(
-                "training without the in-memory cache (host streaming) is "
-                "not ported to cmrtpu_torch yet (ROADMAP 6.3)")
         self.images = list(x)
         self.labels = list(y) if y is not None else None
         self.masks = y is not None
         self.config = config
 
         self.scaler = C.get(config, "SCALER", "MinMax")
+        self.augment = bool(C.get(config, "AUGMENT", False))
+        self.hist_matching = bool(C.get(config, "HIST_MATCHING", False))
+        self.shuffle = bool(C.get(config, "SHUFFLE", True))
+        self.seed = int(C.get(config, "SEED", 42))
+        self.batchsize = int(C.get(config, "BATCHSIZE", 32))
+        self.device = device
         self.resample = C.get(config, "RESAMPLE", False)
         self.spacing = list(C.get(config, "SPACING", [1.25, 1.25]))
         self.dim = tuple(C.get(config, "DIM", [256, 256]))
@@ -169,14 +180,20 @@ class DataGenerator:
             assert len(self.head_mask_rules) == len(self.heads), (
                 "HEAD_MASK_RULES must have one [find, replace] entry per head")
 
+        self._rng = np.random.default_rng(self.seed)
+        self._generator = None  # __getitem__'s augmentation draws
+        self.indices = np.arange(len(self.images))
+        self._raw_y_uint8 = None  # raw_batch's mask packing, decided once
+        self._warned_u8 = False   # one-shot STREAM_DTYPE uint8 warning
         self._cache_x = self._cache_y = None
-        if self.images:
+        if self.in_memory and self.images:
             with ThreadPoolExecutor(max_workers=self.max_workers) as pool:
-                cache: List = list(pool.map(self._fix_preprocessing,
-                                            range(len(self.images))))
+                fixed = list(pool.map(self._fix_preprocessing,
+                                      range(len(self.images))))
             self._cache_x = np.stack([T.pad_and_crop(img, self.dim)
-                                      for img, _ in cache])
-            self._cache_y = np.stack([self._pad_y(msk) for _, msk in cache])
+                                      for img, _ in fixed])
+            self._cache_y = np.stack([self._pad_y(msk) for _, msk in fixed])
+        self.on_epoch_end()
 
     def _pad_y(self, msk: np.ndarray) -> np.ndarray:
         """pad/crop a target to DIM; a head stack pads per head."""
@@ -225,6 +242,139 @@ class DataGenerator:
         else:
             msk_nda = msks[0].array
         return img_nda.astype(np.float32), msk_nda.astype(np.float32)
+
+    # -- the batch API (ref: BaseGenerator, Generators.py:136-173) ----------
+    def __len__(self) -> int:
+        """Full batches only: floor(N / BATCHSIZE)."""
+        return len(self.indices) // self.batchsize
+
+    def on_epoch_end(self) -> None:
+        """The next epoch's order: a permutation from the generator's rng
+        with SHUFFLE, else the file order."""
+        self.indices = np.arange(len(self.images))
+        if self.shuffle:
+            self._rng.shuffle(self.indices)
+
+    def fixed_rows(self, idxs) -> Tuple[np.ndarray, np.ndarray]:
+        """The padded deterministic-stage rows of the given example ids:
+        the cache's rows in memory, else computed on demand in the thread
+        pool (the per-host sharded upload's loader)."""
+        idxs = np.asarray(idxs, dtype=int)
+        if self._cache_x is not None:
+            return self._cache_x[idxs], self._cache_y[idxs]
+        with ThreadPoolExecutor(max_workers=self.max_workers) as pool:
+            pairs = list(pool.map(self._fix_preprocessing, idxs.tolist()))
+        return (np.stack([T.pad_and_crop(img, self.dim) for img, _ in pairs]),
+                np.stack([self._pad_y(msk) for _, msk in pairs]))
+
+    def _batch_ids(self, index: int) -> np.ndarray:
+        return self.indices[index * self.batchsize:
+                            (index + 1) * self.batchsize]
+
+    def _hist_match_element(self, idx: int) -> np.ndarray:
+        """Example ``idx`` matched (unpadded, on the host) against a random
+        example drawn from the generator's rng, then padded (ref:
+        Generators.py:350-358); a reference volume gives one slice. Both
+        are decoded again: the padded cache does not hold the unpadded
+        rows."""
+        img_nda, _ = self._fix_preprocessing(idx)
+        ref2d, _ = self._fix_preprocessing(
+            int(self._rng.integers(len(self.images))))
+        if ref2d.ndim == 3 and ref2d.shape[0] > 4:
+            border = 2
+            ref2d = ref2d[int(self._rng.integers(border,
+                                                 ref2d.shape[0] - border))]
+        elif ref2d.ndim == 3:
+            ref2d = ref2d[ref2d.shape[0] // 2]
+        return T.pad_and_crop(match_2d_on_nd(img_nda, ref2d), self.dim)
+
+    def __getitem__(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batch ``index`` finalized, as cmrtpu's ``__getitem__``: with
+        HIST_MATCHING and AUGMENT each example is matched on the host with
+        probability 0.1 (draws from the generator's rng); then on
+        ``device`` the augmentation (draws from the generator's own
+        ``torch.Generator``, seeded with SEED) and ``finalize_batch``.
+        Returns (x [B, *DIM, 1], y [B, *DIM, C]) on ``device``."""
+        idxs = self._batch_ids(index)
+        hist_on = self.augment and self.hist_matching
+        if self._cache_x is not None:
+            imgs, msks = self._cache_x[idxs], self._cache_y[idxs]  # copies
+            if hist_on:
+                hits = self._rng.random(len(idxs)) < 0.1
+                for pos in np.nonzero(hits)[0]:
+                    imgs[pos] = self._hist_match_element(int(idxs[pos]))
+        else:
+            rows_x, rows_y = [], []
+            for idx in idxs:
+                img_nda, msk_nda = self._fix_preprocessing(int(idx))
+                if hist_on and self._rng.random() < 0.1:
+                    rows_x.append(self._hist_match_element(int(idx)))
+                else:
+                    rows_x.append(T.pad_and_crop(img_nda, self.dim))
+                rows_y.append(self._pad_y(msk_nda))
+            imgs, msks = np.stack(rows_x), np.stack(rows_y)
+        dev = _resolve_device(self.device)
+        imgs = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+        msks = torch.from_numpy(np.ascontiguousarray(msks)).to(dev)
+        if self.augment:
+            from cmrtpu_torch.pipeline.augment import (apply_params,
+                                                       draw_params)
+            if self._generator is None:
+                self._generator = torch.Generator(dev).manual_seed(self.seed)
+            imgs, msks = apply_params(
+                draw_params(self._generator, self.config, imgs.shape[0]),
+                imgs, msks)
+        return finalize_batch(imgs, msks, self.config, masks=self.masks)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def raw_batch(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batch ``index`` of the deterministic stage in its streamed
+        storage dtypes, as host tensors (cmrtpu's ``raw_batch``): images in
+        ``STREAM_DTYPE`` (bfloat16 by round to nearest even, the bits of
+        ml_dtypes' cast; uint8 by per-example affine quantization; float32
+        as they are), masks uint8 when they pack losslessly. The mask
+        decision is made once, from the whole cache in memory or else from
+        the first batch asked for, and holds: a later batch that does not
+        pack raises ``ValueError``."""
+        from cmrtpu_torch.train.device_cache import (_uint8_packable,
+                                                     _warn_if_uint8_unsafe,
+                                                     quantize_images_uint8)
+        idxs = self._batch_ids(index)
+        imgs, msks = self.fixed_rows(idxs)
+        stream_dtype = str(C.get(self.config, "STREAM_DTYPE",
+                                 "bfloat16")).lower()
+        if stream_dtype in ("bfloat16", "bf16"):
+            x = torch.from_numpy(imgs.astype(np.float32, copy=False)).to(
+                torch.bfloat16)
+        elif stream_dtype in ("uint8", "u8"):
+            if not self._warned_u8:
+                _warn_if_uint8_unsafe(self.config, "STREAM_DTYPE")
+                self._warned_u8 = True
+            x = torch.from_numpy(quantize_images_uint8(imgs))
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(imgs))
+        if self._raw_y_uint8 is None:
+            self._raw_y_uint8 = _uint8_packable(
+                self._cache_y if self._cache_y is not None else msks)
+        if self._raw_y_uint8:
+            if self._cache_y is None and not _uint8_packable(msks):
+                raise ValueError(
+                    f"raw_batch({index}): mask values do not pack "
+                    "losslessly to uint8 but an earlier batch did: the "
+                    "dataset mixes exact small-integer and float targets. "
+                    "Keep targets integer-valued, or use "
+                    "CACHE_IN_MEMORY=True so the packing decision sees "
+                    "the whole dataset")
+            msks = msks.astype(np.uint8)
+        return x, torch.from_numpy(np.ascontiguousarray(msks))
+
+
+def _resolve_device(device) -> torch.device:
+    from cmrtpu_torch.predict.predictor import resolve_device
+    return resolve_device(device)
 
 
 def sliceable(generator_cls, x: Sequence[str], y=None,

@@ -17,8 +17,10 @@ Two matchers over [B, H, W] sources and references, one pair per row:
     mapping, skimage's semantics with static shapes.
 
 Neither is a Pallas kernel in the reference (XLA ops there); both stay
-torch ops here. ``hist_quota`` and ``gated_match`` are the replicated
-cached loop's gate (``cmrtpu/train/device_cache.py:391-427``).
+torch ops here. ``hist_quota`` and ``gated_match`` are the cached loops'
+gate (``cmrtpu/train/device_cache.py:391-427``). ``match_2d_on_nd`` is a
+copy of cmrtpu's numpy matcher, which the host-finalized batch
+(``DataGenerator.__getitem__``) uses.
 """
 
 from __future__ import annotations
@@ -26,9 +28,39 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from cmrtpu_torch import config as C
+
+
+def match_histograms(source: np.ndarray, reference: np.ndarray) -> np.ndarray:
+    """Monochannel histogram matching on the host, skimage's quantile
+    mapping (cmrtpu's numpy ``match_histograms``)."""
+    src = np.asarray(source)
+    ref = np.asarray(reference)
+    src_values, src_idx, src_counts = np.unique(src.reshape(-1),
+                                                return_inverse=True,
+                                                return_counts=True)
+    ref_values, ref_counts = np.unique(ref.reshape(-1), return_counts=True)
+    src_quantiles = np.cumsum(src_counts) / src.size
+    ref_quantiles = np.cumsum(ref_counts) / ref.size
+    interp = np.interp(src_quantiles, ref_quantiles, ref_values)
+    return interp[src_idx].reshape(src.shape).astype(np.float32)
+
+
+def match_2d_on_nd(nda: np.ndarray, avg: np.ndarray) -> np.ndarray:
+    """2D matching per slice of a 2D/3D/4D array (ref:
+    Preprocess.py:353-379)."""
+    nda = np.asarray(nda, dtype=np.float32)
+    if nda.ndim == 2:
+        return match_histograms(nda, avg)
+    if nda.ndim == 3:
+        return np.stack([match_histograms(s, avg) for s in nda])
+    if nda.ndim == 4:
+        return np.stack([[match_histograms(s, avg) for s in vol]
+                         for vol in nda])
+    return nda
 
 
 def _binned_cdf(x: torch.Tensor, bins: int, exclude_zeros: bool):
@@ -166,12 +198,15 @@ def gated_match(match_fn: Callable, imgs: torch.Tensor,
 
 
 def draw_match(generator: torch.Generator, batch: int, n_cache: int,
-               quota: int, gate_p: float):
+               quota: int, gate_p: float, first_rows: bool = False):
     """The draws of one step: ``quota`` candidates by a random permutation
-    of the batch, one random cached row for each, and the gates (None when
-    ``gate_p`` is 1), all from ``generator``."""
+    of the batch (the first ``quota`` rows with ``first_rows``, as cmrtpu's
+    sharded and explicit-collectives steps take them), one random cached
+    row for each, and the gates (None when ``gate_p`` is 1), all from
+    ``generator``."""
     dev = generator.device
-    sel = torch.randperm(batch, generator=generator, device=dev)[:quota]
+    sel = torch.arange(quota, device=dev) if first_rows else torch.randperm(
+        batch, generator=generator, device=dev)[:quota]
     ref_idx = torch.randint(0, n_cache, (quota,), generator=generator,
                             device=dev)
     gate = None

@@ -238,19 +238,18 @@ def main(argv=None):
     parser.add_argument("--agc", type=float, default=None,
                         help="adaptive gradient clipping factor (AGC, e.g. "
                              "0.08)")
-    # cmrtpu's arms that the port does not run
     parser.add_argument("--cache-sharded", action="store_true",
-                        help="not ported (ROADMAP 6.2)")
+                        help="the sharded device cache (CACHE_SHARDED) on "
+                             "its one shard (ROADMAP 6.0)")
+    # cmrtpu's arm that the port does not run
     parser.add_argument("--ws", action="store_true",
                         help="not ported (ROADMAP skip list)")
     args = parser.parse_args(argv)
 
-    unported = {"--cache-sharded": args.cache_sharded, "--ws": args.ws}
-    asked = [flag for flag, on in unported.items() if on]
-    if asked:
+    if args.ws:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to cmrtpu_torch yet (see each "
-            "flag's help); run examples/full_cv_demo.py with cmrtpu")
+            "--ws: not ported to cmrtpu_torch (ROADMAP skip list); run "
+            "examples/full_cv_demo.py with cmrtpu")
 
     from cmrtpu_torch import config as C
     from cmrtpu_torch.cli.make_dataset import main as make_dataset_main
@@ -294,7 +293,8 @@ def main(argv=None):
         "BATCH_NORMALISATION": True,
         "GROUP_NORM": 0 if args.bn else args.group_norm,
         "HEAD_BIAS_PRIOR": args.head_prior,
-        "CACHE_DTYPE": args.cache_dtype, "AGC": args.agc,
+        "CACHE_DTYPE": args.cache_dtype, "CACHE_SHARDED": args.cache_sharded,
+        "AGC": args.agc,
     }
     config.update(C.parse_override_pairs(args.set))
     if args.multihead:

@@ -18,7 +18,7 @@ protocol (``trainer.get_lr/set_lr``, ``trainer.stop_training``,
   * TimeBudget          stop after a wall-clock budget
 
 Not ported: the learning-progress ImageWriter, which needs matplotlib
-(ROADMAP 3.11); asking for it warns.
+(ROADMAP 7.2); asking for it warns.
 """
 
 from __future__ import annotations
@@ -391,7 +391,7 @@ def get_callbacks(config: Dict,
         logging.warning(
             "SAVE_LEARNING_PROGRESS_AS_PNG/_AS_TF: the learning-progress "
             "ImageWriter is not ported to cmrtpu_torch (it needs matplotlib, "
-            "ROADMAP 3.11); no progress images are written")
+            "ROADMAP 7.2); no progress images are written")
     return cbs
 
 

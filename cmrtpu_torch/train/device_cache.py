@@ -1,6 +1,6 @@
 """Device-resident training: the dataset lives in the card's memory, each
 step gathers, augments, builds its targets and trains there — counterpart of
-``cmrtpu/train/device_cache.py`` (the replicated single-device path).
+``cmrtpu/train/device_cache.py`` on one card.
 
     upload once -> per epoch: one [steps, B] index matrix -> per step:
         gather -> histogram matching (HIST_MATCHING with AUGMENT) -> augment
@@ -22,14 +22,32 @@ example whole, every frame of a volume alike, as cmrtpu's do.
 bytes) or uint8 (a quarter, per-example affine quantization); masks of
 small non-negative integers are stored as uint8. Every gather casts to
 float32 right after the ``index_select``, the matcher's reference rows
-too. Not ported: the sharded and per-host caches and the
-explicit-collectives step (ROADMAP 6.1, 6.2), which raise.
+too.
+
+``CACHE_SHARDED`` runs cmrtpu's sharded loop over one shard, which holds
+every row (no wrap-padding): each epoch draws one permutation of the rows
+from the loop's rng whatever ``SHUFFLE`` says (as cmrtpu's sharded loop
+does), and ``CACHE_RESHUFFLE_EPOCHS`` k > 0 permutes both caches on the card
+every k epochs with one more draw taken before the epoch's. On one shard
+cmrtpu's sharded eval plan covers the same batches as the replicated eval,
+so the port runs that one. ``CACHE_PER_HOST`` loads the rows through
+``DataGenerator.fixed_rows`` and keeps no host cache.
+``GRAD_ALLREDUCE_DTYPE`` takes the explicit-collectives step
+(``train/manual_collectives.py``). cmrtpu's sharded and explicit-collectives
+steps match histograms for the first rows of the batch, the replicated one
+for a random permutation's; the port does as each does.
+
+The step is a function of ``(data_x, data_y, idxs)`` (``FusedStep``), so
+the streamed loop (``train/streaming.py``) runs the same step with the
+current batch as its cache and ``arange(B)`` as its indices. More than one
+shard or process (a ``MESH_SHAPE`` over several devices) raises: ROADMAP
+6.1, 6.2.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +57,7 @@ from cmrtpu_torch.pipeline.augment import apply_params, draw_params
 from cmrtpu_torch.pipeline.generator import finalize_batch
 from cmrtpu_torch.pipeline.histmatch import (draw_match, gated_match,
                                              hist_match_setup, hist_quota)
+from cmrtpu_torch.train.manual_collectives import make_manual_train_step
 
 
 def _uint8_packable(y: np.ndarray) -> bool:
@@ -113,6 +132,16 @@ def fits_device_cache(config: Dict, x: np.ndarray, y: np.ndarray) -> bool:
     return _packed_nbytes(config, x, y) <= limit_gb * (1 << 30)
 
 
+def per_host_cache(config: Optional[Dict]) -> bool:
+    """True when the sharded cache loads its rows per host
+    (``CACHE_PER_HOST``; its default, on for more than one process, is
+    off on one). The loop, the fold's loop choice and resume all read this
+    one function."""
+    if not bool(C.get(config or {}, "CACHE_SHARDED", False)):
+        return False
+    return bool(C.get(config, "CACHE_PER_HOST", None))
+
+
 def pack_arrays(x: np.ndarray, y: np.ndarray, config: Optional[Dict]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The host cache in its storage dtypes (cmrtpu's ``_pack_arrays``):
@@ -140,23 +169,75 @@ def upload_cache(x: np.ndarray, y: np.ndarray, device: torch.device,
     return xt.to(device), yt.to(device)
 
 
+def upload_cache_sharded_per_host(load_rows: Callable, n_examples: int,
+                                  device: torch.device,
+                                  config: Optional[Dict] = None):
+    """``CACHE_PER_HOST``: the one process owns the one shard, so it loads
+    every row through ``load_rows(ids) -> (x_rows, y_rows)``
+    (``DataGenerator.fixed_rows``) and uploads them; no host cache is
+    kept."""
+    if n_examples <= 0:
+        raise ValueError("per-host sharded upload needs at least one example")
+    x_rows, y_rows = load_rows(np.arange(n_examples))
+    if x_rows.shape[0] != n_examples:
+        raise ValueError(f"load_rows returned {x_rows.shape[0]} rows for "
+                         f"{n_examples} examples")
+    return upload_cache(x_rows, y_rows, device, config)
+
+
+def sharded_eval_plan(n_real: int, n_padded: int, n_shards: int,
+                      local_batch: int):
+    """cmrtpu's coverage plan for evaluating a wrap-padded sharded cache
+    once per real example: full batches take local rows [0, steps *
+    local_batch) of every shard, steps capped by the smallest per-shard
+    real-row count; the real rows left over form the tail. Returns (steps,
+    tail global row ids). On one shard this is the replicated eval's full
+    batches and remainder, which the port runs; more shards are ROADMAP
+    6.1."""
+    local_n = n_padded // n_shards
+    real_per_shard = [max(0, min(local_n, n_real - d * local_n))
+                      for d in range(n_shards)]
+    steps = min(real_per_shard) // local_batch
+    covered = steps * local_batch
+    tail_global = [g for d in range(n_shards)
+                   for r in range(covered, local_n)
+                   if (g := d * local_n + r) < n_real]
+    return steps, tail_global
+
+
+def _gen_examples(gen) -> int:
+    """A generator's example count: its cache's rows, else its files."""
+    cache = getattr(gen, "_cache_x", None)
+    return int(cache.shape[0]) if cache is not None else len(gen.images)
+
+
+def _fixed_rows_of(gen, ids: np.ndarray):
+    """Deterministic-stage rows by id: the cache's, else the loader's."""
+    cache = getattr(gen, "_cache_x", None)
+    if cache is not None:
+        return cache[ids], gen._cache_y[ids]
+    return gen.fixed_rows(ids)
+
+
 def _check_config(cfg: Dict) -> None:
-    for key, what, item in (
-            ("CACHE_SHARDED", "the example-sharded device cache", "6.2"),
-            ("CACHE_PER_HOST", "per-host cache loading", "6.2"),
-            ("GRAD_ALLREDUCE_DTYPE", "the explicit-collectives train step",
-             "6.1")):
-        if C.get(cfg, key, None):
-            raise NotImplementedError(
-                f"{what} ({key}) is not ported to cmrtpu_torch yet (ROADMAP "
-                f"{item}); the port trains on one card")
+    """What needs more than one device raises: the port trains on one."""
+    shape = C.get(cfg, "MESH_SHAPE", None)
+    if shape and int(np.prod([int(s) for s in shape])) > 1:
+        raise NotImplementedError(
+            f"MESH_SHAPE {list(shape)} spans more than one device; "
+            "cmrtpu_torch trains on one card (more than one shard or "
+            "process: ROADMAP 6.1, 6.2)")
 
 
-class DeviceCachedLoop:
-    """Drives epochs over a dataset held in the card's memory for a
-    Trainer, from DataGenerators whose in-memory caches hold the arrays."""
+class FusedStep:
+    """The fused train and eval steps as functions of a cache
+    ``(data_x, data_y)`` on the card and a batch's row ids into it: gather
+    -> histogram matching (HIST_MATCHING with AUGMENT; references from
+    ``data_x``) -> augment -> finalize (K1) -> one optimizer step, the
+    explicit-collectives one under ``GRAD_ALLREDUCE_DTYPE``. Matcher and
+    augmentation draws come from the trainer's loop generator."""
 
-    def __init__(self, trainer, train_gen, val_gen=None):
+    def __init__(self, trainer, masks: bool, first_rows: bool):
         cfg = trainer.config
         _check_config(cfg)
         self.trainer = trainer
@@ -165,92 +246,145 @@ class DeviceCachedLoop:
         self.batch = int(C.get(cfg, "BATCHSIZE", 32) or 0)
         if self.batch <= 0:
             raise ValueError(f"BATCHSIZE must be positive, got {self.batch}")
-        self.rng = np.random.default_rng(int(C.get(cfg, "SEED", 42)))
-        # matcher and augmentation draws, on the card; dropout has the
-        # trainer's other generator
         self.aug_generator = trainer.loop_generator
-        self.shuffle = bool(C.get(cfg, "SHUFFLE", True))
-        if train_gen._cache_x is None:
-            raise ValueError("device-cached training needs examples: the "
-                             "training set is empty")
-        for gen in (train_gen, val_gen):
-            if gen is not None and gen._cache_x is not None and \
-                    not fits_device_cache(cfg, gen._cache_x, gen._cache_y):
-                raise NotImplementedError(
-                    "the dataset exceeds DEVICE_CACHE_LIMIT_GB; training "
-                    "from host-streamed batches is not ported to "
-                    "cmrtpu_torch yet (ROADMAP 6.3)")
-
-        self.x_train, self.y_train = upload_cache(
-            train_gen._cache_x, train_gen._cache_y, self.device, cfg)
-        self.n_train = int(train_gen._cache_x.shape[0])
         self._augment = bool(C.get(cfg, "AUGMENT", False))
-        self._masks = bool(train_gen.masks)
+        self._masks = bool(masks)
         self._match_fn, prob = hist_match_setup(cfg, self._augment)
         self._quota, self._gate_p = hist_quota(prob, self.batch) \
             if self._match_fn is not None else (0, 1.0)
-
-        self.val = None
-        if val_gen is not None and val_gen._cache_x is not None:
-            self.x_val, self.y_val = upload_cache(
-                val_gen._cache_x, val_gen._cache_y, self.device, cfg)
-            self.n_val = int(val_gen._cache_x.shape[0])
-            self._val_masks = bool(val_gen.masks)
-            self.val = True
-        logging.info("device cache: %d train / %s val examples resident on "
-                     "%s", self.n_train, self.n_val if self.val else "no",
-                     self.device)
+        self._manual = bool(C.get(cfg, "GRAD_ALLREDUCE_DTYPE", None))
+        # cmrtpu's sharded and explicit-collectives steps match the first
+        # rows, its replicated step a random permutation's
+        self._first_rows = first_rows or self._manual
+        self._state_step = make_manual_train_step(trainer.state, cfg) \
+            if self._manual else trainer.state.train_step
 
     def _gather(self, data_x, data_y, idxs: torch.Tensor):
         return (data_x.index_select(0, idxs).float(),
                 data_y.index_select(0, idxs).float())
 
-    def hist_match(self, imgs: torch.Tensor) -> torch.Tensor:
-        """Var.1: ceil(prob * B) candidates of the gathered batch, picked by
-        a random permutation, each matched against a random cached row and
+    def hist_match(self, imgs: torch.Tensor, data_x) -> torch.Tensor:
+        """Var.1: ceil(prob * B) candidates of the gathered batch (random or
+        first rows), each matched against a random row of ``data_x`` and
         kept with probability prob * B / ceil(prob * B) (``hist_quota``),
         so prob * B examples a step are matched in expectation."""
         if self._quota == 0:
             return imgs
+        first = {"first_rows": True} if self._first_rows else {}
         sel, ref_idx, gate = draw_match(self.aug_generator, imgs.shape[0],
-                                        self.n_train, self._quota,
-                                        self._gate_p)
-        return gated_match(self._match_fn, imgs, self.x_train, sel, ref_idx,
-                           gate)
+                                        data_x.shape[0], self._quota,
+                                        self._gate_p, **first)
+        return gated_match(self._match_fn, imgs, data_x, sel, ref_idx, gate)
 
-    def train_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """gather -> histogram matching -> augment -> finalize (K1) -> one
-        optimizer step."""
-        imgs, msks = self._gather(self.x_train, self.y_train, idxs)
+    def train_batch(self, data_x, data_y,
+                    idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One train step on rows ``idxs`` of the cache (data_x, data_y)."""
+        imgs, msks = self._gather(data_x, data_y, idxs)
         if self._match_fn is not None:
-            imgs = self.hist_match(imgs)
+            imgs = self.hist_match(imgs, data_x)
         if self._augment:
             params = draw_params(self.aug_generator, self.config,
                                  imgs.shape[0])
             imgs, msks = apply_params(params, imgs, msks)
         x, y = finalize_batch(imgs, msks, self.config, masks=self._masks)
-        return self.trainer.state.train_step(x, y)
+        return self._state_step(x, y)
+
+    def eval_batch(self, data_x, data_y, idxs: torch.Tensor,
+                   masks: bool) -> Dict[str, torch.Tensor]:
+        imgs, msks = self._gather(data_x, data_y, idxs)
+        x, y = finalize_batch(imgs, msks, self.config, masks=masks)
+        return self.trainer.state.eval_step(x, y)
+
+    def _to_host(self, means: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """One device -> host transfer for a dict of 0-d logs."""
+        keys = list(means)
+        values = torch.stack([means[k].float() for k in keys]).tolist()
+        return dict(zip(keys, values))
+
+
+class DeviceCachedLoop(FusedStep):
+    """Drives epochs over a dataset held in the card's memory for a
+    Trainer, from DataGenerators whose in-memory caches hold the arrays
+    (or, with ``CACHE_PER_HOST``, whose ``fixed_rows`` loads them)."""
+
+    def __init__(self, trainer, train_gen, val_gen=None):
+        cfg = trainer.config
+        self.sharded = bool(C.get(cfg, "CACHE_SHARDED", False))
+        self.per_host = per_host_cache(cfg)
+        super().__init__(trainer, getattr(train_gen, "masks", True),
+                         first_rows=self.sharded)
+        self.rng = np.random.default_rng(int(C.get(cfg, "SEED", 42)))
+        self.shuffle = bool(C.get(cfg, "SHUFFLE", True))
+        if not self.per_host and getattr(train_gen, "_cache_x", None) is None:
+            raise ValueError(
+                "device-cached training needs an in-memory DataGenerator "
+                "with examples (CACHE_IN_MEMORY true), or CACHE_SHARDED with "
+                "CACHE_PER_HOST")
+        self.n_train = _gen_examples(train_gen)
+        self.x_train, self.y_train = self._upload(train_gen, self.n_train)
+        self._reshuffle_epochs = int(
+            C.get(cfg, "CACHE_RESHUFFLE_EPOCHS", 0) or 0) \
+            if self.sharded else 0
+        self._epochs_run = 0
+
+        self.val = None
+        if val_gen is not None and (self.per_host or getattr(
+                val_gen, "_cache_x", None) is not None):
+            self.n_val = _gen_examples(val_gen)
+            self._val_masks = bool(getattr(val_gen, "masks", True))
+            self.x_val, self.y_val = self._upload(val_gen, self.n_val)
+            self.val = True
+        logging.info("device cache: %d train / %s val examples resident on "
+                     "%s (%s)", self.n_train,
+                     self.n_val if self.val else "no", self.device,
+                     ("sharded over 1 shard" + (", per-host row loading"
+                                                if self.per_host else ""))
+                     if self.sharded else "replicated")
+
+    def _upload(self, gen, n: int):
+        """A generator's cache on the card: its rows loaded per host
+        (``CACHE_PER_HOST``), else its in-memory cache."""
+        if self.per_host:
+            return upload_cache_sharded_per_host(
+                lambda ids: _fixed_rows_of(gen, ids), n, self.device,
+                self.config)
+        return upload_cache(gen._cache_x, gen._cache_y, self.device,
+                            self.config)
+
+    def train_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """gather -> histogram matching -> augment -> finalize (K1) -> one
+        optimizer step, on rows ``idxs`` of the training cache."""
+        return self.train_batch(self.x_train, self.y_train, idxs)
 
     def eval_step(self, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        imgs, msks = self._gather(self.x_val, self.y_val, idxs)
-        x, y = finalize_batch(imgs, msks, self.config, masks=self._val_masks)
-        return self.trainer.state.eval_step(x, y)
+        return self.eval_batch(self.x_val, self.y_val, idxs, self._val_masks)
 
     def _epoch_indices(self, n: int, shuffle: bool) -> np.ndarray:
         idxs = self.rng.permutation(n) if shuffle else np.arange(n)
         n_batches = n // self.batch
         return idxs[:n_batches * self.batch].reshape(n_batches, self.batch)
 
-    def _to_host(self, means: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """One device -> host transfer for all of an epoch's logs."""
-        keys = list(means)
-        values = torch.stack([means[k].float() for k in keys]).tolist()
-        return dict(zip(keys, values))
+    def _maybe_reshuffle(self) -> None:
+        """CACHE_RESHUFFLE_EPOCHS k > 0 (sharded cache only): before every
+        k-th epoch after the first, one more permutation from the loop's rng
+        (drawn before the epoch's indices) reorders both caches on the card;
+        the old caches are freed before the epoch runs."""
+        if (not self._reshuffle_epochs or self._epochs_run == 0
+                or self._epochs_run % self._reshuffle_epochs):
+            return
+        perm = torch.from_numpy(
+            self.rng.permutation(self.n_train)).to(self.device)
+        self.x_train = self.x_train.index_select(0, perm)
+        self.y_train = self.y_train.index_select(0, perm)
 
     def run_train_epoch(self) -> Dict[str, float]:
-        """One pass over floor(n / B) shuffled batches; the logs are the
-        mean over the steps."""
-        batches = self._epoch_indices(self.n_train, shuffle=self.shuffle)
+        """One pass over floor(n / B) batches (shuffled per SHUFFLE, or
+        always on the sharded cache); the logs are the mean over the
+        steps."""
+        self._maybe_reshuffle()
+        self._epochs_run += 1
+        batches = self._epoch_indices(self.n_train,
+                                      shuffle=self.shuffle or self.sharded)
         if len(batches) == 0:
             raise ValueError(
                 f"device-cached epoch is empty: {self.n_train} examples < "

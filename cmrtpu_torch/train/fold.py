@@ -2,8 +2,10 @@
 src/models/train_model.py).
 
 ``train_fold``: fold paths, the saved config, train and val generators (val
-with AUGMENT and HIST_MATCHING off), the model summary, the callback set,
-the device-resident fit, the chained ``pred_fold`` on the same device and
+with AUGMENT and HIST_MATCHING off; not in memory with ``CACHE_PER_HOST``),
+the model summary, the callback set, the fit (``_picks_device_cache``: the
+device-resident loop when the cache fits DEVICE_CACHE_LIMIT_GB, else packed
+host streaming), the chained ``pred_fold`` on the same device and
 ``fold_complete.json``. cmrtpu logs and swallows any error of the chained
 prediction; here it propagates, so a fault in the prediction path (K1, K2)
 cannot hide behind a fold that reports success.
@@ -14,8 +16,8 @@ another over FOLDS.
 config's EXP_PATH when it lies under this experiment's root, else the
 latest run dir); ``train_fold`` skips a fold whose ``fold_complete.json``
 targets at least EPOCHS, and otherwise restores the fold's full train state
-(``Trainer.restore``) and continues at epoch ``step // floor(n / B)`` with
-``history.csv`` cut to the epochs before it.
+(``Trainer.restore``) and continues at epoch ``step // _steps_per_epoch``
+with ``history.csv`` cut to the epochs before it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from cmrtpu_torch.pipeline.generator import DataGenerator
 from cmrtpu_torch.predict.predictor import pred_fold
 from cmrtpu_torch.train import callbacks as CB
 from cmrtpu_torch.train.callbacks import get_callbacks
+from cmrtpu_torch.train.device_cache import (_gen_examples, fits_device_cache,
+                                             per_host_cache)
 from cmrtpu_torch.train.trainer import Trainer
 from cmrtpu_torch.utils.io_utils import console_and_file_logger
 
@@ -60,12 +64,44 @@ def _truncate_history(path: str, epochs: int) -> List[Dict[str, float]]:
     return rows
 
 
-def _resume_fold(trainer: Trainer, cfg: Dict, n_train: int,
+def _picks_device_cache(cfg: Dict, train_gen) -> bool:
+    """The fold's data loop: device-cached when the per-host cache is asked
+    for or the packed cache fits DEVICE_CACHE_LIMIT_GB, packed host
+    streaming otherwise (a generator without its in-memory cache too).
+    Memoized on the generator: the packability scan walks its whole mask
+    cache."""
+    key = (str(C.get(cfg, "CACHE_DTYPE", "float32")),
+           float(C.get(cfg, "DEVICE_CACHE_LIMIT_GB", 8.0) or 8.0),
+           per_host_cache(cfg))
+    memo = getattr(train_gen, "_picks_cache_memo", None)
+    if memo is not None and memo[0] == key:
+        return memo[1]
+    if per_host_cache(cfg):
+        result = True  # rows load per host: there is no host cache to scan
+    else:
+        result = getattr(train_gen, "_cache_x", None) is not None and \
+            fits_device_cache(cfg, train_gen._cache_x, train_gen._cache_y)
+    train_gen._picks_cache_memo = (key, result)
+    return result
+
+
+def _steps_per_epoch(cfg: Dict, train_gen) -> int:
+    """Optimizer steps one epoch takes in the loop ``train_fold`` picks:
+    floor(n / B) on the card's cache (the one shard of the sharded cache
+    holds the n rows unpadded), ``len(train_gen) * STREAM_ECHO`` streamed."""
+    batch = max(1, int(C.get(cfg, "BATCHSIZE", 32) or 1))
+    if _picks_device_cache(cfg, train_gen):
+        return max(1, _gen_examples(train_gen) // batch)
+    echo = max(1, int(C.get(cfg, "STREAM_ECHO", 1) or 1))
+    return max(1, len(train_gen)) * echo
+
+
+def _resume_fold(trainer: Trainer, cfg: Dict, train_gen,
                  callbacks) -> int:
     """Crash recovery (cmrtpu's ``_resume_fold``): restore the fold's full
     train state from MODEL_PATH (the best-only checkpoint ModelCheckpoint
-    wrote) and continue at epoch ``restored_step // floor(n / B)``, the
-    steps a device-cached epoch takes on one card. history.csv is cut to
+    wrote) and continue at epoch ``restored_step // _steps_per_epoch``,
+    the steps an epoch of the picked loop takes. history.csv is cut to
     the epochs before it and reloaded into ``trainer.history``;
     ModelCheckpoint's best is seeded from those rows, so a worse epoch
     after the resume never overwrites the checkpoint. The epochs between
@@ -79,8 +115,7 @@ def _resume_fold(trainer: Trainer, cfg: Dict, n_train: int,
         logging.warning("RESUME requested but no restorable train state "
                         "under %s (%s); training from scratch", model_path, e)
         return 0
-    batch = max(1, int(C.get(cfg, "BATCHSIZE", 32) or 1))
-    initial_epoch = restored_step // max(1, n_train // batch)
+    initial_epoch = restored_step // _steps_per_epoch(cfg, train_gen)
     hist_path = os.path.join(cfg["EXP_PATH"], "history.csv")
     rows = []
     if os.path.isfile(hist_path) and initial_epoch > 0:
@@ -142,14 +177,16 @@ def train_fold(config: Dict, in_memory: bool = True,
                  len(y_train))
     logging.info("SAX val CMR: %d, SAX val masks: %d", len(x_val), len(y_val))
 
+    if per_host_cache(cfg):
+        in_memory = False  # the loop loads its rows through fixed_rows
     batch_generator = DataGenerator(x_train, y_train, config=cfg,
-                                    in_memory=in_memory)
+                                    in_memory=in_memory, device=device)
     val_config = dict(cfg)
     val_config["AUGMENT"] = False          # no augmentation on validation data
     val_config["AUGMENT_GRID"] = False
     val_config["HIST_MATCHING"] = False
     validation_generator = DataGenerator(x_val, y_val, config=val_config,
-                                         in_memory=in_memory)
+                                         in_memory=in_memory, device=device)
 
     logging.info("Create model")
     trainer = Trainer(cfg, device=device)
@@ -162,12 +199,14 @@ def train_fold(config: Dict, in_memory: bool = True,
     callbacks = get_callbacks(fold_cfg)
     initial_epoch = 0
     if resume:
-        initial_epoch = _resume_fold(trainer, fold_cfg, len(x_train),
+        initial_epoch = _resume_fold(trainer, fold_cfg, batch_generator,
                                      callbacks)
     logging.info("start training")
-    trainer.fit_cached(batch_generator, val_gen=validation_generator,
-                       epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks,
-                       initial_epoch=initial_epoch)
+    fit = trainer.fit_cached if _picks_device_cache(cfg, batch_generator) \
+        else trainer.fit_streamed
+    fit(batch_generator, val_gen=validation_generator,
+        epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks,
+        initial_epoch=initial_epoch)
 
     pred_fold(dict(cfg, EXP_PATH=fold_root), device=trainer.device)
 

@@ -91,17 +91,22 @@ class TrainState:
             logs[name] = fn(y, preds)
         return logs
 
-    def train_step(self, x: torch.Tensor,
-                   y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   grad_transform: Optional[Callable[[nn.Module], None]]
+                   = None) -> Dict[str, torch.Tensor]:
         """One optimizer step on (x [B, H, W, 1], y [B, H, W, C]). The loss
         and the metrics are computed in float32 on the pre-update
-        predictions (a dict of them for a multi-head model); the gradients
-        stay in ``param.grad`` until the next step."""
+        predictions (a dict of them for a multi-head model);
+        ``grad_transform(model)`` may change the gradients in place before
+        the optimizer reads them. The gradients stay in ``param.grad``
+        until the next step."""
         self.model.train()
         preds = self.model(x, generator=self.generator)
         loss = self.loss_fn(y, preds)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if grad_transform is not None:
+            grad_transform(self.model)
         self.optimizer.step()
         if self.ema is not None:
             with torch.no_grad():

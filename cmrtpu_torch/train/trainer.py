@@ -9,7 +9,9 @@ draws from a third (SEED + 1), which the Trainer owns so that a full-state
 checkpoint holds both draw streams' positions: cmrtpu keys these draws on
 the step, which a restore brings back, and the port restores the
 generators' states instead. Logs, callback order and the ``val_``
-prefixing are cmrtpu's, so ``history.csv`` has the same columns.
+prefixing are cmrtpu's, so ``history.csv`` has the same columns. The data
+loops: ``fit_cached`` (the dataset on the card), ``fit_streamed`` (packed
+host batches) and ``fit`` (finalized host batches).
 """
 
 from __future__ import annotations
@@ -288,3 +290,19 @@ class Trainer:
         return self._fit_loop(loop.run_train_epoch,
                               loop.run_eval_epoch if loop.val else None,
                               epochs, callbacks, initial_epoch)
+
+    def fit_streamed(self, train_gen, val_gen=None,
+                     epochs: Optional[int] = None,
+                     callbacks: Optional[List[Callback]] = None,
+                     initial_epoch: int = 0) -> List[Dict[str, float]]:
+        """Train from packed host-streamed batches (see
+        cmrtpu_torch/train/streaming.py): the deterministic stage streams in
+        its storage dtypes, the stochastic stage runs in the step on the
+        card."""
+        from cmrtpu_torch.train.streaming import StreamedLoop
+
+        loop = StreamedLoop(self, train_gen, val_gen)
+        return self._fit_loop(
+            loop.run_train_epoch,
+            loop.run_eval_epoch if val_gen is not None else None,
+            epochs, callbacks, initial_epoch)

@@ -27,6 +27,8 @@ import cmrtpu_torch.tools.cine_quality_demo, cmrtpu_torch.ops.cuda_kernels
 import cmrtpu_torch.cli.export, cmrtpu_torch.predict.tta
 import cmrtpu_torch.predict.ensemble, cmrtpu_torch.predict.quantize
 import cmrtpu_torch.predict.export, cmrtpu_torch.ops.int8_conv
+import cmrtpu_torch.train.streaming, cmrtpu_torch.parallel.prefetch
+import cmrtpu_torch.train.manual_collectives
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
 banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu",

@@ -1,5 +1,4 @@
-"""Every shipped experiment template but the sharded-cache one trains
-through cmrtpu_torch on the CPU, mirroring tests/test_template_configs.py
+"""Every shipped experiment template trains through cmrtpu_torch on the CPU, mirroring tests/test_template_configs.py
 (the same shrink: 32² or the 3D template's [4, 16, 16], depth 2, 4 filters,
 batch 4, f32; every behavioural switch kept).
 
@@ -7,8 +6,8 @@ Per template: one step of the port's device-resident loop from label maps
 of the template's own rank (histogram matching, augmentation, targets and
 BatchNorm or GroupNorm as the template sets them) gives a finite loss; and
 one train step on a fixed batch from cmrtpu's initial weights, dropout 0,
-gives cmrtpu's loss within rel 1e-5. The sharded-cache template raises
-``NotImplementedError`` naming its ROADMAP item."""
+gives cmrtpu's loss within rel 1e-5. The sharded-cache template runs the
+sharded loop on its one shard with the explicit-collectives step."""
 
 import glob
 import json
@@ -34,8 +33,7 @@ torch.set_num_threads(1)
 TEMPLATES = sorted(glob.glob(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "exp",
     "template_cfgs", "*.json")))
-NOT_PORTED = {"sharded_cache_config.json": "ROADMAP 6.2"}
-PORTED = [p for p in TEMPLATES if os.path.basename(p) not in NOT_PORTED]
+PORTED = TEMPLATES
 
 
 def _shrunk(path):
@@ -66,7 +64,8 @@ def test_every_ported_template_is_covered():
     names = {os.path.basename(p) for p in PORTED}
     assert names == {"cine_3d_config.json", "example_config.json",
                      "gaus_sigma2_config.json", "gaus_sigma4_config.json",
-                     "histmatch_config.json", "multihead_config.json"}
+                     "histmatch_config.json", "multihead_config.json",
+                     "sharded_cache_config.json"}
 
 
 @pytest.mark.parametrize("path", PORTED,
@@ -82,6 +81,7 @@ def test_template_trains_and_matches_cmrtpu(path):
     gen = types.SimpleNamespace(_cache_x=xs, _cache_y=ys, masks=True)
     loop = DeviceCachedLoop(trainer, gen)
     assert (loop._match_fn is not None) == bool(cfg["HIST_MATCHING"])
+    assert loop.sharded == bool(cfg.get("CACHE_SHARDED"))
     logs = loop.train_step(torch.arange(4))
     assert np.isfinite(float(logs["loss"]))
     assert trainer.state.step == 1
@@ -103,13 +103,3 @@ def test_template_trains_and_matches_cmrtpu(path):
     assert float(logs["loss"]) == pytest.approx(
         float(np.asarray(ref_logs["loss"])), rel=1e-5)
 
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_templates_raise(name):
-    cfg = _shrunk(os.path.join(os.path.dirname(TEMPLATES[0]), name))
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[name]):
-        trainer = Trainer(cfg, device="cpu")
-        gen = types.SimpleNamespace(
-            _cache_x=np.zeros((4, 32, 32), np.float32),
-            _cache_y=np.zeros((4, 32, 32), np.float32), masks=True)
-        DeviceCachedLoop(trainer, gen)

@@ -19,7 +19,8 @@
   HEADS and histogram matching train: tests/test_torch_{batchnorm,heads,
   histmatch}.py; the optimizers, AGC, EMA, cache dtypes, RESUME and the
   LR schedules: tests/test_torch_{optimizers,ema,cache_dtype,resume,
-  callbacks}.py).
+  callbacks}.py; the sharded cache, the explicit-collectives step and
+  host streaming: tests/test_torch_{sharded_cache,streaming}.py).
 """
 
 import csv
@@ -48,7 +49,7 @@ from cmrtpu_torch.cli.train import main as train_main
 from cmrtpu_torch.data.dataset import slice_file_name
 from cmrtpu_torch.io import MedicalImage, write_image
 from cmrtpu_torch.models.hybrids import get_model
-from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
+from cmrtpu_torch.pipeline.generator import finalize_batch
 from cmrtpu_torch.predict.predictor import Predictor
 from cmrtpu_torch.train import trainer as port_trainer
 from cmrtpu_torch.train.checkpoint import (flax_to_state_dict,
@@ -294,23 +295,3 @@ def test_unsupported_trainer_keys_raise(extra, error):
     with pytest.raises(error):
         Trainer({**CFG, **extra}, device="cpu")
 
-
-@pytest.mark.parametrize("extra", [
-    {"CACHE_SHARDED": True},
-    {"CACHE_PER_HOST": True}, {"GRAD_ALLREDUCE_DTYPE": "bfloat16"},
-    {"DEVICE_CACHE_LIMIT_GB": 1e-9},
-], ids=["sharded", "per-host", "allreduce", "cache-limit"])
-def test_unsupported_loop_keys_raise(extra):
-    trainer = Trainer({**CFG, **extra}, device="cpu")
-    gen = types.SimpleNamespace(_cache_x=np.zeros((4, 32, 32), np.float32),
-                                _cache_y=np.zeros((4, 32, 32), np.float32),
-                                masks=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceCachedLoop(trainer, gen)
-
-
-@pytest.mark.parametrize("extra", [{"CACHE_IN_MEMORY": False}],
-                         ids=["streaming"])
-def test_unsupported_generator_keys_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataGenerator(["a_img.nrrd"], ["a_msk.nrrd"], config={**CFG, **extra})
