@@ -43,11 +43,22 @@ Run from the root of a checkout. Phases, one line each:
                  10 slices) is sliced by the cmrtpu_torch.cli.make_dataset
                  entry point; the flagship config (EPOCHS 2) trains fold 0
                  through cmrtpu_torch.cli.train, which chains pred_fold. K1
-                 must launch exactly once per train and eval step and once
-                 per patient-phase of pred_fold, K2 exactly once per
-                 patient-phase; pred/, gt/ and _cmr files must stand in the
-                 cohort's geometry, and the model.npz must serve; then warm
-                 train steps are timed (CUDA events) and profiled;
+                 must launch exactly once per sample batch (train_fold
+                 finalizes batch 0 of the train and of the val generator
+                 for the ImageWriter first, whatever the SAVE flags say),
+                 train and eval step and once per patient-phase of
+                 pred_fold, K2 exactly once per patient-phase; pred/, gt/
+                 and _cmr files must stand in the cohort's geometry, and
+                 the model.npz must serve; the ImageWriter the template
+                 asks for warns once, naming matplotlib, and runs no
+                 forward where matplotlib is missing (it draws epoch 0's
+                 two batches where it is not); then warm train steps are
+                 timed (CUDA events) and profiled; one line of the host
+                 stage (the generators' builds and GLOBAL_TIMER's
+                 generator/fix_preprocess and generator/batch stages)
+                 beside the fold's wall s; profile — three warm steps
+                 under profiling.trace, each in annotate("train_step"): the
+                 Chrome trace names the range three times and K1's kernel;
   8. predict   — cmrtpu_torch.cli.predict on the fold rewrites every output
                  with exactly one launch of each kernel per patient-phase;
   9. evaluate  — cmrtpu_torch.cli.evaluate_cv writes df_eval.csv: one row
@@ -72,7 +83,8 @@ Run from the root of a checkout. Phases, one line each:
                  and multihead at its own widths, EPOCHS 2 and FOLDS [0],
                  through cli.train (chained pred_fold) and cli.evaluate_cv,
                  with exact launch counts (K1: none for Base and Var.1, one
-                 per train and eval step and patient-phase otherwise; K2:
+                 per sample batch, train and eval step and patient-phase
+                 otherwise; K2:
                  one per patient-phase and head); one line per template of
                  warm step ms beside the flagship's GroupNorm step, the
                  matcher's ms per step (Var.1), pred_fold ms per
@@ -84,8 +96,9 @@ Run from the root of a checkout. Phases, one line each:
                  with EPOCHS 2, then cli.train -resume <run> with EPOCHS 4:
                  the restored state bit-equal to the one saved at the best
                  epoch, history.csv's earlier rows byte-equal, epochs 0-3,
-                 fold_complete.json targeting 4, K1 once per train and eval
-                 step retrained and per patient-phase, K2 4; a third call
+                 fold_complete.json targeting 4, K1 once per sample batch
+                 (drawn before the restore), train and eval step retrained
+                 and per patient-phase, K2 4; a third call
                  skips the fold (no launch, no file changed); the ms of a
                  full-state save, synchronous and as the async submit;
  17. resume-exact — float32, SHUFFLE false, augmentation and dropout on:
@@ -132,14 +145,16 @@ through Trainer(cfg, supervision=True).fit_cached for one epoch, K1 once
 per train and eval step, the model.npz restored through Predictor with its
 branch and equal to Trainer.predict; then slice 6's sharded-cache —
 sharded_cache_config.json at its widths (EPOCHS 2) through cli.train
-(chained pred_fold) and cli.evaluate_cv: K1 once per train step, per eval
-batch (the tail's too) and per patient-phase, K2 once per patient-phase;
+(chained pred_fold) and cli.evaluate_cv: K1 once per sample batch, train
+step, eval batch (the tail's too) and patient-phase, K2 once per
+patient-phase;
 every gradient the rule reads bf16-representable (the control without
 GRAD_ALLREDUCE_DTYPE not); with CACHE_RESHUFFLE_EPOCHS 1 the caches on the
 card equal the host caches permuted by the loop rng's draws, byte for byte;
 the warm step beside the flagship's; and stream — the flagship through
-cli.train -inmemory false (the streamed loop): K1 (7 + 2) times an epoch and
-once per patient-phase, K2 once per patient-phase; in process one streamed
+cli.train -inmemory false (the streamed loop): K1 twice for the sample
+batches, (7 + 2) times an epoch and once per patient-phase, K2 once per
+patient-phase; in process one streamed
 epoch against one device-cached epoch from the same weights and draws
 within STREAM_PARITY_RTOL (a control with one batch perturbed outside it);
 STREAM_ECHO 2 two steps per upload with differing draws; pinned staging
@@ -186,12 +201,23 @@ bit against its float64 plain version at [16, 32, 224, 224] and [1, 32,
 8, 224, 224], quantize_fold on the fold's training slices, pred_fold and
 cli.evaluate_cv of the twin, its |delta prob| against the float fold,
 cli.export --int8 served through -artifact, forward ms int8 against bf16.
+Then slice 7's ab-tools on the same experiment, each tool's main(argv)
+with --device cuda: predict_ab --set CC_FILTER=3d (K1 and the 3D kernel
+once per patient-phase), tta_ab --mode coords and int8_ab --calib-studies
+4 (K1 and K2 once per patient-phase), and soup_ab on a 4-member CV root of
+the fold and its noisy copies whose test splits are predicted first; each
+path's launches exact and each printed mean equal to the mean read back
+from the two df_eval.csv files the tool names. After phase 7: quickstart —
+the port's synthetic quickstart (--epochs 3 --patients 4 --tta --int8) on
+the card with exact launches, then analyze_results, its summary.csv held
+against numpy's statistics of the df_eval.csv.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
 resume, resume-exact and ema phases' runs, supervision, the sharded and
 streamed CLI runs, train_3d, the
 train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
-predict_4d, predict_4d_3d, override_twin and the serving extras' paths),
+predict_4d, predict_4d_3d, override_twin, the serving extras' paths, the
+A/B tools' and the quickstart's),
 the card's name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises,
 which exits non-zero without a result line; so does a host without CUDA.
@@ -202,6 +228,8 @@ import contextlib
 import copy
 import csv
 import glob
+import importlib.util
+import io
 import types
 import warnings
 import zipfile
@@ -251,17 +279,21 @@ from cmrtpu_torch.predict.quantize import quantize_fold
 from cmrtpu_torch.predict.tta import (predict_tta_twin,
                                       tta_rot90_coords_forward)
 from cmrtpu_torch.cli.export import main as export_main
+from cmrtpu_torch.tools import (analyze_results, int8_ab, predict_ab,
+                                soup_ab, synthetic_quickstart, tta_ab)
 from cmrtpu_torch.tools.cine_quality_demo import generate_cine_cohort
 from cmrtpu_torch.tools.full_cv_demo import _write_seg_slices, generate_cohort
 from cmrtpu_torch.train.checkpoint import (_flatten, _unflatten,
                                            flax_to_state_dict, load_weights,
                                            save_weights)
+from cmrtpu_torch.train import callbacks as train_callbacks
 from cmrtpu_torch.train import device_cache
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
 from cmrtpu_torch.train.optimizers import get_optimizer
 from cmrtpu_torch.train.steps import TrainState
 from cmrtpu_torch.train.streaming import StreamedLoop
 from cmrtpu_torch.train.trainer import Trainer, init_model
+from cmrtpu_torch.utils import profiling
 
 SEED = 0
 TEMPLATES = os.path.join("exp", "template_cfgs")
@@ -1077,8 +1109,14 @@ def phase_train(cfg):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         data_root = os.path.join(work, "data")
         _make_dataset(data_root)
-        exp, launches, k2_launches, chained, wall_s = _train_cli(
-            cfg, data_root, work, "flagship")
+        profiling.GLOBAL_TIMER.reset()
+        writer_calls, builds = [], []
+        with _patched(train_callbacks.ImageWriter, "on_epoch_end",
+                      _counting_forwards(writer_calls)), \
+                _patched(DataGenerator, "__init__", _timed(builds)):
+            exp, launches, k2_launches, chained, wall_s = _train_cli(
+                cfg, data_root, work, "flagship")
+        stages = profiling.GLOBAL_TIMER.summary()
         fold = os.path.join(exp, "f0")
         with open(os.path.join(fold, "history.csv")) as fh:
             rows = list(csv.DictReader(fh))
@@ -1098,17 +1136,18 @@ def phase_train(cfg):
         test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
         check(len(test) == 2, f"train: fold 0 tests {test}")
         phases = 2 * len(test)
-        # K1: one launch per train and eval step, then one per
-        # patient-phase in the chained pred_fold; K2 only in pred_fold
-        check(chained["k1_before"] == train_steps + eval_steps
+        samples = _sample_launches(cfg)
+        # K1: one launch per sample batch, train and eval step, then one
+        # per patient-phase in the chained pred_fold; K2 only in pred_fold
+        check(chained["k1_before"] == samples + train_steps + eval_steps
               and chained["k2_before"] == 0,
               f"train: {chained['k1_before']} K1 and {chained['k2_before']} "
-              f"K2 launches for {train_steps} train and {eval_steps} eval "
-              "steps")
+              f"K2 launches for {samples} sample batches, {train_steps} "
+              f"train and {eval_steps} eval steps")
         check(chained["k1"] == chained["k2"] == phases,
               f"train: the chained pred_fold launched K1 {chained['k1']} and "
               f"K2 {chained['k2']} times for {phases} patient-phases")
-        check(launches == train_steps + eval_steps + phases
+        check(launches == samples + train_steps + eval_steps + phases
               and k2_launches == phases,
               f"train: {launches} K1 and {k2_launches} K2 launches in all")
         check(len(chained["phases"]) == phases,
@@ -1122,10 +1161,14 @@ def phase_train(cfg):
         served = pred.predict(x)
         check(served.shape == (4, 224, 224, 2) and np.isfinite(served).all(),
               f"train: the trained model serves {served.shape}")
+        images = _check_image_writer(fold, writer_calls)
         timing = _time_steps(cfg, data_root)
         log("train", train_steps=train_steps, eval_steps=eval_steps,
-            k1_launches=launches, k2_launches=k2_launches, wall_s=wall_s,
-            history=history, **timing)
+            sample_batches=samples, k1_launches=launches,
+            k2_launches=k2_launches, wall_s=wall_s, history=history,
+            image_writer=images, **timing)
+        _log_host_stage(stages, builds, wall_s, chained["wall_s"])
+        phase_profile(cfg, data_root, work)
         predicted = phase_predict(fold, data_root, test, mtimes)
         evaluate_s = phase_evaluate(exp, data_root, phases)
         # main resets the 3D kernel's count after its own phase: the 2D
@@ -1137,6 +1180,7 @@ def phase_train(cfg):
                                               work)
         twin_paths = phase_override_twin(exp, data_root, test, work)
         extra_paths = phase_serving_extras(exp, fold, data_root, test, work)
+        extra_paths.update(phase_ab_tools(exp, fold, data_root, test, work))
     log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
         chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
         chained_patient_phases=chained["phases"],
@@ -1382,6 +1426,7 @@ def phase_variants(flagship_timing):
                                                       tag)
             batch = int(cfg["BATCHSIZE"])
             steps = 2 * (6 * 2 * Z // batch) + 2 * -(-(2 * 2 * Z) // batch)
+            steps += _sample_launches(cfg)
             want_k1 = (steps + phases) if blurs else 0
             check(k1 == want_k1 and k2 == phases * heads,
                   f"variants {tag}: K1 {k1} (want {want_k1}), K2 {k2} "
@@ -1559,6 +1604,18 @@ def _steps_per_epoch(cfg):
     return 6 * 2 * Z // int(cfg["BATCHSIZE"])
 
 
+def _sample_launches(cfg, n_train=6 * 2 * Z, n_val=2 * 2 * Z):
+    """K1 launches of train_fold's sample batches for the ImageWriter,
+    drawn whatever the SAVE flags say: batch 0 of the train and of the val
+    generator, each finalized once where both hold a full batch; with GAUS
+    one launch a batch (one per sigmoid head with HEADS), else none."""
+    batch = int(cfg["BATCHSIZE"])
+    if not cfg.get("GAUS") or n_train < batch or n_val < batch:
+        return 0
+    heads = cfg.get("HEADS") or ()
+    return 2 * (sum(str(h[2]) != "softmax" for h in heads) if heads else 1)
+
+
 def _save_ms(cfg, model_dir, reps=5):
     """A full-state ModelCheckpoint save of the flagship trainer after one
     step: synchronous (host clock, the files on disk), and the async
@@ -1602,14 +1659,15 @@ def phase_resume(cfg, data_root, work):
     restored state equals the one saved at the best epoch bit for bit, the
     history keeps the first run's rows before the restore point byte for
     byte and holds epochs 0-3, fold_complete.json targets 4, and the
-    kernels launch exactly once per train and eval step retrained and per
-    patient-phase; a third call with the same EPOCHS skips the fold: no
+    kernels launch exactly once per sample batch (drawn before the
+    restore), train and eval step retrained and patient-phase; a third
+    call with the same EPOCHS skips the fold: no
     launch, no file changed. Then the ms of a full-state save."""
     cfg = dict(cfg, EPOCHS=2, FOLDS=[0])
     exp, k1, k2, chained, _ = _train_cli(cfg, data_root, work, "resume")
     fold = os.path.join(exp, "f0")
-    per_epoch = _epoch_launches(cfg)
-    check(k1 == 2 * per_epoch + 4 and k2 == 4,
+    per_epoch, samples = _epoch_launches(cfg), _sample_launches(cfg)
+    check(k1 == samples + 2 * per_epoch + 4 and k2 == 4,
           f"resume: first run K1 {k1}, K2 {k2}")
     model_dir = os.path.join(fold, "model")
     saved = torch.load(os.path.join(model_dir, "state.pt"),
@@ -1643,9 +1701,11 @@ def phase_resume(cfg, data_root, work):
     with open(os.path.join(fold, "fold_complete.json")) as fh:
         marker = json.load(fh)
     check(marker["epochs_target"] == 4, f"resume: marker {marker}")
-    check(r_k1 == per_epoch * retrained + 4 and r_k2 == 4
+    # the sample batches are drawn before the restore
+    want = samples + per_epoch * retrained + 4
+    check(r_k1 == want and r_k2 == 4
           and r_chained["k1"] == r_chained["k2"] == 4,
-          f"resume: K1 {r_k1} (want {per_epoch * retrained + 4}), K2 {r_k2}")
+          f"resume: K1 {r_k1} (want {want}), K2 {r_k2}")
     before = _files(exp)
     _, s_k1, s_k2, _, _ = _train_cli(dict(cfg, EPOCHS=4), data_root, work,
                                      "resume-skip", ["-resume", exp],
@@ -1734,8 +1794,10 @@ def phase_resume_exact(cfg, data_root, work):
         loss={k: [float(r["loss"]) for r in v] for k, v in rows.items()},
         val_loss={k: [float(r["val_loss"]) for r in v]
                   for k, v in rows.items()})
-    check(a_k1 == 3 * per_epoch + 4 and a_k2 == 4 and
-          b_k1 == (3 - restore_epoch) * per_epoch + 4 and b_k2 == 4,
+    samples = _sample_launches(cfg)
+    check(a_k1 == samples + 3 * per_epoch + 4 and a_k2 == 4 and
+          b_k1 == samples + (3 - restore_epoch) * per_epoch + 4
+          and b_k2 == 4,
           f"resume-exact: K1 {a_k1} straight, {b_k1} resumed; K2 {a_k2} "
           f"straight, {b_k2} resumed")
     check(b_err <= RESUME_EXACT_RTOL,
@@ -1793,7 +1855,8 @@ def phase_ema(cfg, data_root, work, gen):
               for n, t in state["ema"].items()),
           "ema: the shadow equals the live weights")
     check(chained["k1"] == chained["k2"] == 4
-          and k1 == 2 * _epoch_launches(cfg) + 4 and k2 == 4,
+          and k1 == _sample_launches(cfg) + 2 * _epoch_launches(cfg) + 4
+          and k2 == 4,
           f"ema: K1 {k1}, K2 {k2}, pred_fold {chained}")
     times = {}
     for name, c in (("ema", ema_cfg), ("no_ema", cfg)):
@@ -2058,9 +2121,10 @@ def _cohort_steps(batch):
 
 
 def _cli_launch_checks(tag, k1, k2, chained, per_fold, phases):
-    """K1 once per train and eval step of the fit and once per
-    patient-phase of the chained pred_fold, K2 once per patient-phase, the
-    3D kernel never. Returns the two paths' launches."""
+    """K1 ``per_fold`` times before the chained pred_fold (the sample
+    batches and the fit's steps) and once per patient-phase in it, K2 once
+    per patient-phase, the 3D kernel never. Returns the two paths'
+    launches."""
     check(chained["k1_before"] == per_fold and chained["k2_before"] == 0
           and chained["k1"] == chained["k2"] == phases
           and k1 == per_fold + phases and k2 == phases,
@@ -2117,7 +2181,8 @@ def phase_sharded_cache(data_root, work, gen, flagship_timing, card):
     """sharded_cache_config.json at its widths (BatchNorm, bf16, CACHE_DTYPE
     bfloat16, CACHE_SHARDED, GRAD_ALLREDUCE_DTYPE bfloat16), EPOCHS 2,
     through cli.train (chained pred_fold) and cli.evaluate_cv: K1 once per
-    train step, per eval batch (the remainder's too) and per patient-phase,
+    sample batch, train step, eval batch (the remainder's too) and
+    patient-phase,
     K2 once per patient-phase. Then in process: every gradient the rule
     reads is bf16-representable (the control without the key is not);
     with CACHE_RESHUFFLE_EPOCHS 1 the caches on the card after the
@@ -2133,8 +2198,9 @@ def phase_sharded_cache(data_root, work, gen, flagship_timing, card):
     train_steps, _, eval_steps = _cohort_steps(batch)
     test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
     phases = 2 * len(test)
-    paths = _cli_launch_checks("sharded", k1, k2, chained,
-                               2 * (train_steps + eval_steps), phases)
+    paths = _cli_launch_checks(
+        "sharded", k1, k2, chained,
+        _sample_launches(cfg) + 2 * (train_steps + eval_steps), phases)
     fold = os.path.join(exp, "f0")
     history = _history_rows(fold, 2)
     _check_predictions(fold, test)
@@ -2300,8 +2366,9 @@ def _streamed_epoch_figures(cfg, gen, echo, cached_ms):
 
 def phase_stream(cfg, data_root, work, card):
     """The flagship through cli.train -inmemory false (the streamed loop,
-    chained pred_fold), EPOCHS 2: K1 (7 x STREAM_ECHO + 2) times an epoch
-    (the streamed eval drops the remainder) and once per patient-phase, K2
+    chained pred_fold), EPOCHS 2: K1 twice for the sample batches, (7 x
+    STREAM_ECHO + 2) times an epoch (the streamed eval drops the
+    remainder) and once per patient-phase, K2
     once per patient-phase. Then in process, through the in-memory host
     cache with a tiny DEVICE_CACHE_LIMIT_GB: one streamed epoch against one
     device-cached epoch (within STREAM_PARITY_RTOL; a control with batch 0
@@ -2318,8 +2385,9 @@ def phase_stream(cfg, data_root, work, card):
     train_steps, full_eval, _ = _cohort_steps(batch)
     test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
     phases = 2 * len(test)
-    paths = _cli_launch_checks("stream", k1, k2, chained,
-                               2 * (train_steps + full_eval), phases)
+    paths = _cli_launch_checks(
+        "stream", k1, k2, chained,
+        _sample_launches(scfg) + 2 * (train_steps + full_eval), phases)
     fold = os.path.join(exp, "f0")
     history = _history_rows(fold, 2)
     _check_predictions(fold, test)
@@ -3963,6 +4031,340 @@ def phase_serving_extras(exp, fold, data_root, test_patients, work):
     return by_path
 
 
+# -- slice 7: the ImageWriter, profiling, the A/B tools, the quickstart -----
+
+# an A/B tool's printed means against the means read back from the
+# df_eval.csv files it names: the same float64 numbers (printed by
+# repr in its JSON line), summed in another order
+AB_MEAN_ATOL = 1e-9
+# analyze_results' summary.csv against numpy on the same cells
+SUMMARY_RTOL = 1e-12
+
+
+class _Warnings(logging.Handler):
+    """The root logger's records of WARNING and above while active."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def _counting_forwards(calls):
+    """A wrapper of ``ImageWriter.on_epoch_end`` that appends (epoch, the
+    trainer's forwards in the call, the warnings logged in it) to
+    ``calls`` (train_fold sets the root logger's handlers up itself, so
+    the warnings are caught inside the call)."""
+    def wrap(orig):
+        def on_epoch_end(self, trainer, epoch, logs):
+            n = [0]
+            real = trainer.predict
+
+            def counted(x):
+                n[0] += 1
+                return real(x)
+            trainer.predict = counted
+            try:
+                with _Warnings() as warned:
+                    orig(self, trainer, epoch, logs)
+            finally:
+                del trainer.predict
+            calls.append((epoch, n[0],
+                          [r.getMessage() for r in warned.records]))
+        return on_epoch_end
+    return wrap
+
+
+def _timed(walls):
+    """A wrapper of ``DataGenerator.__init__`` that appends its wall s."""
+    def wrap(orig):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            orig(self, *args, **kwargs)
+            walls.append(time.perf_counter() - t0)
+        return __init__
+    return wrap
+
+
+def _check_image_writer(fold, calls):
+    """The flagship template sets SAVE_LEARNING_PROGRESS_AS_TF (frequency
+    5), so the CLI fold built an ImageWriter, called after both epochs.
+    Without matplotlib (this card's host has none) exactly one warning
+    names it and the epoch-0 call runs no forward; with it, epoch 0 draws
+    both sample batches."""
+    check([c[0] for c in calls] == [0, 1],
+          f"image writer: called after epochs {calls}")
+    forwards = [c[1] for c in calls]
+    mentions = [m for c in calls for m in c[2] if "matplotlib" in m]
+    if importlib.util.find_spec("matplotlib") is None:
+        check(len(mentions) == 1 and forwards == [0, 0],
+              f"image writer without matplotlib: warnings {mentions}, "
+              f"forwards by epoch {forwards}")
+    else:
+        check(not mentions and forwards == [2, 0] and all(
+            os.path.exists(os.path.join(fold, "figures",
+                                        f"epoch0000_{b}.png"))
+            for b in ("train", "val")),
+            f"image writer: warnings {mentions}, forwards {forwards}")
+    return {"forwards_by_epoch": forwards, "matplotlib_warnings": mentions}
+
+
+def _log_host_stage(stages, builds, fold_wall_s, pred_fold_wall_s):
+    """The host stage's share of the flagship CLI fold: the train and val
+    generators' builds (the deterministic stage of every slice in a
+    thread pool; wall s) and the sample batches (``generator/batch``),
+    beside the fold's wall s without its chained pred_fold, whose own
+    generator builds are reported apart. ``generator/fix_preprocess`` sums
+    the pool's threads."""
+    fit_wall = fold_wall_s - pred_fold_wall_s
+    host = sum(builds[:2]) + stages.get("generator/batch", {}).get(
+        "total_s", 0.0)
+    log("host-stage", fold_wall_s=fold_wall_s, fit_wall_s=fit_wall,
+        pred_fold_wall_s=pred_fold_wall_s,
+        generator_builds_s=builds[:2],
+        pred_fold_generator_builds_s=sum(builds[2:]),
+        stages=stages, host_stage_s=host,
+        host_share_of_fit=host / fit_wall,
+        host_share_of_fold=(host + sum(builds[2:])) / fold_wall_s)
+
+
+def phase_profile(cfg, data_root, work):
+    """profile: three warm flagship steps of the device-cached loop under
+    ``profiling.trace``, each inside ``annotate("train_step")``: the Chrome
+    trace written under the work dir names the range three times and K1's
+    kernel."""
+    x_tr, y_tr, _, _ = get_trainings_files(
+        os.path.join(data_root, "2D"), 0,
+        os.path.join(data_root, "df_kfold.csv"))
+    loop = DeviceCachedLoop(Trainer(cfg, device="cuda"),
+                            DataGenerator(x_tr, y_tr, config=cfg))
+    idx = torch.from_numpy(loop._epoch_indices(loop.n_train, True)).cuda()
+    for s in range(2):
+        loop.train_step(idx[s])
+    torch.cuda.synchronize()
+    log_dir = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        for s in range(3):
+            with profiling.annotate("train_step"):
+                loop.train_step(idx[s % len(idx)])
+    wall_s = time.perf_counter() - t0
+    path = os.path.join(log_dir, "trace.json")
+    check(os.path.isfile(path), f"profile: no trace at {path}")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    host_ranges = [e for e in events if e.get("name") == "train_step"
+                   and e.get("cat") != "gpu_user_annotation"]
+    device_ranges = [e for e in events if e.get("name") == "train_step"
+                     and e.get("cat") == "gpu_user_annotation"]
+    blur = [e for e in events if "gaussian_blur_kernel" in str(e.get("name"))]
+    check(len(host_ranges) == 3, f"profile: the trace names train_step "
+          f"{len(host_ranges)} times on the host, want 3")
+    check(len(blur) >= 3, f"profile: K1's kernel appears {len(blur)} times "
+          "in the trace, want one per step")
+    log("profile", trace_bytes=os.path.getsize(path), events=len(events),
+        wall_s=wall_s, train_step_ranges=len(host_ranges),
+        device_ranges=len(device_ranges), k1_kernel_events=len(blur),
+        k1_kernel=str(blur[0].get("name"))[:80],
+        k1_device_us=[e.get("dur") for e in blur])
+
+
+def _csv_mean(path, col):
+    """The NaN-skipping mean of a csv column read back with csv (an empty
+    or non-numeric cell skipped)."""
+    vals = []
+    with open(path, newline="") as fh:
+        for row in csv.DictReader(fh):
+            try:
+                v = float(row[col])
+            except (TypeError, ValueError):
+                continue
+            if not np.isnan(v):
+                vals.append(v)
+    return float(np.mean(vals)) if vals else float("nan")
+
+
+def _run_tool(main_fn, argv):
+    """``main_fn(argv)`` with every kernel's count from 0 and its standard
+    output captured (and echoed): (result, counts, wall s, output)."""
+    _reset_all()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    print(buf.getvalue(), end="", flush=True)
+    return result, counts, wall_s, buf.getvalue()
+
+
+def _hold_ab(tag, printed, rows):
+    """The tool's printed JSON line: each mean equal to the mean read back
+    from the df_eval.csv it names (AB_MEAN_ATOL, NaN only where both are);
+    each csv holds ``rows`` rows. Returns the means and the worst gap."""
+    line = json.loads([ln for ln in printed.splitlines()
+                       if ln.startswith('{"means"')][-1])
+    worst = 0.0
+    for name, path in line["df_eval"].items():
+        with open(path, newline="") as fh:
+            n = sum(1 for _ in csv.DictReader(fh))
+        check(n == rows, f"{tag}: {path} has {n} rows, want {rows}")
+        for col, got in line["means"][name].items():
+            want = _csv_mean(path, col)
+            if np.isnan(got) or np.isnan(want):
+                check(np.isnan(got) and np.isnan(want),
+                      f"{tag}: {name} {col} printed {got}, csv {want}")
+                continue
+            worst = max(worst, abs(got - want))
+            check(abs(got - want) <= AB_MEAN_ATOL,
+                  f"{tag}: {name} {col} printed {got}, csv {want}")
+    return line["means"], worst
+
+
+def phase_ab_tools(exp, fold, data_root, test_patients, work):
+    """ab-tools: the four A/B tools' ``main(argv)`` with --device cuda on
+    the trained flagship experiment: predict_ab --set CC_FILTER=3d (the 3D
+    kernel and K1 once per patient-phase), tta_ab --mode coords and
+    int8_ab --calib-studies 4 (K1 and K2 once per patient-phase), and
+    soup_ab on a 4-member CV root of the fold and its noisy copies, each
+    member's test split predicted first (K1 and K2 once per patient-phase
+    of each). Each path's launches exact; each printed mean equal to the
+    mean read back from the two df_eval.csv files the tool names."""
+    phases = 2 * len(test_patients)
+    base = ["-exp", exp, "-data", data_root]
+    cuda = ["--device", DEV]
+    by_path = {}
+    runs = (("ab:predict_ab_cc3d", predict_ab.main,
+             base + ["--set", "CC_FILTER=3d", "--suffix", "cc3d"],
+             {"k1": phases, "k2": 0, "cc3d": phases}),
+            ("ab:tta_ab_coords", tta_ab.main, base + ["--mode", "coords"],
+             {"k1": phases, "k2": phases, "cc3d": 0}),
+            ("ab:int8_ab", int8_ab.main, base + ["--calib-studies", "4"],
+             {"k1": phases, "k2": phases, "cc3d": 0}))
+    figures = {}
+    for tag, main_fn, argv, want in runs:
+        _, counts, wall_s, printed = _run_tool(main_fn, argv + cuda)
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        means, worst = _hold_ab(tag, printed, phases)
+        by_path[tag] = counts
+        figures[tag] = {"wall_s": wall_s, "means": means,
+                        "worst_mean_gap": worst}
+    root = _ensemble_root(fold, os.path.join(work, "ab"))
+    _reset_all()
+    for k in range(ENSEMBLE_MEMBERS):
+        pred_fold(_fold_config(os.path.join(root, f"f{k}")), device=DEV)
+    members = 4 * ENSEMBLE_MEMBERS  # each fold tests 2 patients x ED/ES
+    by_path["ab:members_pred_fold"] = _counts()
+    want = {"k1": members, "k2": members, "cc3d": 0}
+    check(by_path["ab:members_pred_fold"] == want,
+          f"ab members: launches {by_path['ab:members_pred_fold']}")
+    _, counts, wall_s, printed = _run_tool(soup_ab.main,
+                                           ["-exp", root, "-data", data_root]
+                                           + cuda)
+    check(counts == want, f"ab:soup_ab: launches {counts}, want {want}")
+    means, worst = _hold_ab("ab:soup_ab", printed, members)
+    by_path["ab:soup_ab"] = counts
+    figures["ab:soup_ab"] = {"wall_s": wall_s, "means": means,
+                             "worst_mean_gap": worst}
+    log("ab-tools", mean_atol=AB_MEAN_ATOL, launches=by_path, **figures)
+    return by_path
+
+
+def _check_summary(df_eval, summary_csv):
+    """analyze_results' summary.csv against numpy on df_eval.csv's cells:
+    every poster metric present, its mean, sample SD (ddof 1) and n."""
+    with open(df_eval, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    with open(summary_csv, newline="") as fh:
+        got = {r["metric"]: r for r in csv.DictReader(fh)}
+    want = 0
+    for label, col in analyze_results.METRIC_MAP:
+        vals = []
+        for r in rows:
+            try:
+                v = float(r.get(col, ""))
+            except ValueError:
+                continue
+            if not np.isnan(v):
+                vals.append(v)
+        if not vals:
+            continue
+        want += 1
+        r = got.get(label)
+        check(r is not None and int(r["n"]) == len(vals),
+              f"summary: {label} row {r}, n {len(vals)}")
+        for key, ref in (("mean", np.mean(vals)),
+                         ("sd", np.std(vals, ddof=1) if len(vals) > 1
+                          else float("nan"))):
+            value = float(r[key]) if r[key] else float("nan")
+            check((np.isnan(ref) and np.isnan(value))
+                  or abs(value - ref) <= SUMMARY_RTOL * max(abs(ref), 1e-300),
+                  f"summary: {label} {key} {value}, numpy {ref}")
+    check(want > 0 and len(got) == want,
+          f"summary: {len(got)} rows, want {want}")
+    return want
+
+
+def phase_quickstart(work):
+    """quickstart: the port's synthetic quickstart on the card (--epochs 3
+    --patients 4 --tta --int8; 64², depth 3, 16 filters, BatchNorm, batch
+    32, its defaults otherwise), then analyze_results on its df_eval.csv.
+    K1 once per train and eval step, sample batch and patient-phase of the
+    three pred_folds (plain, TTA, int8), K2 once per patient-phase of
+    each; the plain, TTA and int8 df_eval.csv one row per patient-phase;
+    summary.csv equal to numpy's statistics of the csv."""
+    root = os.path.join(work, "quickstart")
+    epochs = 3
+    out, counts, wall_s, _ = _run_tool(synthetic_quickstart.main, [
+        "--root", root, "--epochs", str(epochs), "--patients", "4",
+        "--tta", "--int8", "--device", DEV])
+    with open(os.path.join(root, "df_kfold.csv"), newline="") as fh:
+        fold0 = [r for r in csv.DictReader(fh) if r["fold"] == "0"]
+    n_train = sum(r["modality"] == "train" for r in fold0)
+    n_test = sum(r["modality"] == "test" for r in fold0)
+    test = {r["patient"] for r in fold0 if r["modality"] == "test"}
+    cfg = synthetic_quickstart.quickstart_config(root, epochs, 64)
+    batch = cfg["BATCHSIZE"]
+    phases = 2 * len(test)
+    k1 = epochs * (n_train // batch + -(-n_test // batch)) \
+        + _sample_launches(cfg, n_train, n_test) + 3 * phases
+    want = {"k1": k1, "k2": 3 * phases, "cc3d": 0}
+    check(counts == want, f"quickstart: launches {counts}, want {want}")
+    for path in (out["df_eval"], out["tta"]["df_eval"]["tta"],
+                 out["int8"]["df_eval"]["int8"]):
+        with open(path, newline="") as fh:
+            n = sum(1 for _ in csv.DictReader(fh))
+        check(n == phases, f"quickstart: {path} has {n} rows")
+    t0 = time.perf_counter()
+    analysis, _, _, _ = _run_tool(analyze_results.main,
+                                  ["--df", out["df_eval"]])
+    analyze_s = time.perf_counter() - t0
+    summary = os.path.join(os.path.dirname(out["df_eval"]), "figures",
+                           "summary.csv")
+    metrics = _check_summary(out["df_eval"], summary)
+    log("quickstart", wall_s=wall_s, analyze_s=analyze_s, launches=counts,
+        train_slices=n_train, test_slices=n_test, patient_phases=phases,
+        means=out["means"], sd=out["sd"],
+        tta_means=out["tta"]["means"], int8_means=out["int8"]["means"],
+        summary_metrics=metrics, figures=analysis["figures"])
+    return {"quickstart": counts}
+
+
+# the paths that run CC_FILTER '3d' and so launch the 3D CC kernel
+CC3D_PATHS = ("predict_cli_3d", "serve_3d", "predict_4d_3d", "override_twin",
+              "ab:predict_ab_cc3d")
+
+
 def _ms(us):
     return None if us is None else us / 1e3
 
@@ -4000,6 +4402,8 @@ def main():
     by_path = {"serve": phase_serve(cfg, model)}
     train_paths, flagship_timing, cine_cc = phase_train(cfg)
     by_path.update(train_paths)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quick_") as work:
+        by_path.update(phase_quickstart(work))
     kernels.converge_labels_3d_cuda.launches = 0
     phase_train_f32(cfg)
     with open(os.path.join(TEMPLATES, "example_config.json"),
@@ -4027,10 +4431,13 @@ def main():
         train, val, cohort = _cine_cohort(work)
         by_path.update(phase_train_3d(train, val, cohort, work))
         by_path.update(phase_train_hybrid(cine, train, val, work))
-    # every path but cli.predict and cli.serve with CC_FILTER '3d' (counted
-    # by their own entries) ran without the 3D kernel
+    # every path but those with CC_FILTER '3d' (counted by their own
+    # entries) ran without the 3D kernel
     check(kernels.converge_labels_3d_cuda.launches == 0,
           "the 3D CC kernel launched on a path without CC_FILTER '3d'")
+    launched = sorted(p for p, n in by_path.items() if n.get("cc3d"))
+    check(launched == sorted(CC3D_PATHS),
+          f"the 3D CC kernel launched on {launched}, want {CC3D_PATHS}")
 
     h2, h1, p1 = k2["random-0.55"], k1["main-s2"], k1["pred-s2"]
     stacked, c1 = k2["landmark-like"], k1_3d["cine-s2"]

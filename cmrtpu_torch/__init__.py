@@ -38,6 +38,10 @@ Layer map, entry points first:
   ops/cuda_kernels.py          nvcc build, ctypes binding, launch counters
   csrc/gaussian_blur.cu        K1, separable Gaussian blur (sm_90a)
   csrc/cc_labels.cu            K2, connected-component labels (sm_90a)
+  tools/                       the A/B tools, the quickstart, analyze_results,
+                               the demos
+  utils/profiling.py           StageTimer, GLOBAL_TIMER, trace, annotate
+  visualization/               figures (matplotlib imported where drawn)
   config.py, io/, native/, ops/resample.py, pipeline/transforms.py,
   predict/postprocess.py, utils/   copies of cmrtpu's host modules
 """

@@ -42,6 +42,7 @@ from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.gaussian import smooth_heatmap_targets
 from cmrtpu_torch.pipeline import transforms as T
 from cmrtpu_torch.pipeline.histmatch import match_2d_on_nd
+from cmrtpu_torch.utils.profiling import GLOBAL_TIMER
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -202,7 +203,13 @@ class DataGenerator:
         return T.pad_and_crop(msk, self.dim)
 
     def _fix_preprocessing(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        """load -> resample -> clip -> normalise one example (float32)."""
+        """load -> resample -> clip -> normalise one example (float32),
+        timed as the ``generator/fix_preprocess`` stage."""
+        with GLOBAL_TIMER.stage("generator/fix_preprocess"):
+            return self._fix_preprocessing_impl(idx)
+
+    def _fix_preprocessing_impl(self, idx: int
+                                ) -> Tuple[np.ndarray, np.ndarray]:
         img = load_masked_img(self.images[idx], mask=self.masking_image,
                               masking_values=self.masking_values,
                               replace=self.replace_wildcard)
@@ -276,10 +283,12 @@ class DataGenerator:
         example drawn from the generator's rng, then padded (ref:
         Generators.py:350-358); a reference volume gives one slice. Both
         are decoded again: the padded cache does not hold the unpadded
-        rows."""
-        img_nda, _ = self._fix_preprocessing(idx)
-        ref2d, _ = self._fix_preprocessing(
-            int(self._rng.integers(len(self.images))))
+        rows. Where cmrtpu reads its cache, that decode is not a
+        ``generator/fix_preprocess`` stage (it counts in the batch's)."""
+        fixed = self._fix_preprocessing_impl if self._cache_x is not None \
+            else self._fix_preprocessing
+        img_nda, _ = fixed(idx)
+        ref2d, _ = fixed(int(self._rng.integers(len(self.images))))
         if ref2d.ndim == 3 and ref2d.shape[0] > 4:
             border = 2
             ref2d = ref2d[int(self._rng.integers(border,
@@ -294,7 +303,12 @@ class DataGenerator:
         probability 0.1 (draws from the generator's rng); then on
         ``device`` the augmentation (draws from the generator's own
         ``torch.Generator``, seeded with SEED) and ``finalize_batch``.
-        Returns (x [B, *DIM, 1], y [B, *DIM, C]) on ``device``."""
+        Returns (x [B, *DIM, 1], y [B, *DIM, C]) on ``device``; timed as
+        the ``generator/batch`` stage."""
+        with GLOBAL_TIMER.stage("generator/batch"):
+            return self._getitem_impl(index)
+
+    def _getitem_impl(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
         idxs = self._batch_ids(index)
         hist_on = self.augment and self.hist_matching
         if self._cache_x is not None:

@@ -1,1 +1,2 @@
-"""One-off measurement scripts of cmrtpu_torch, run as modules on a card."""
+"""Scripts of cmrtpu_torch, run as modules: the A/B tools, the quickstart
+and analyze_results, the demos and the measurement scripts."""

@@ -14,11 +14,15 @@ protocol (``trainer.get_lr/set_lr``, ``trainer.stop_training``,
                         :154-164, :230-243, :308-384)
   * TensorBoardLogger   scalars incl. learning rate       (ref LRTensorBoard :167-174)
   * HistoryCSV          epoch metrics to history.csv
+  * ImageWriter         pred-vs-gt overlays of fixed sample batches as
+                        PNGs and TB images (ref CustomImageWritertf2
+                        :386-536); ``feed_inputs_4_tensorboard`` draws the
+                        batches (ref: :117-151)
   * WeightsSaver        weights every n epochs            (ref: :804-840)
   * TimeBudget          stop after a wall-clock budget
 
-Not ported: the learning-progress ImageWriter, which needs matplotlib
-(ROADMAP 7.2); asking for it warns.
+The ImageWriter draws with matplotlib. Where it is missing (the card's
+host), the writer warns once and writes nothing; training goes on.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import math
 import os
 import time
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.train import checkpoint as ckpt
@@ -337,6 +343,88 @@ class WeightsSaver(Callback):
             self._writer.flush()
 
 
+class ImageWriter(Callback):
+    """Pred-vs-gt overlays of fixed sample batches every ``frequency``
+    epochs (epoch 0 first), written as
+    ``<image_dir>/epoch{e:04d}_{name}.png`` and, with ``to_tensorboard``,
+    as TB image summaries under ``tb_dir`` (ref CustomImageWritertf2
+    :386-536 / ImageSaver :661). ``sample_batches`` are host numpy
+    (name, x, y) triples; the whole x is predicted, the first ``samples``
+    rows are drawn, a multi-head prediction as its heads' channels
+    concatenated in HEADS order. A failed render warns once, then logs at
+    debug. Without matplotlib the writer warns once, naming it, and runs
+    no forward from then on."""
+
+    def __init__(self, image_dir: str, sample_batches: List,
+                 frequency: int = 2, samples: int = 4,
+                 to_tensorboard: bool = False, tb_dir: Optional[str] = None):
+        self.image_dir = image_dir
+        self.sample_batches = sample_batches
+        self.frequency = max(1, frequency)
+        self.samples = samples
+        self.to_tensorboard = to_tensorboard
+        self.tb_dir = tb_dir or image_dir
+        self._writer = None
+        self._warned = False
+        self._disabled = False
+
+    def _renderer(self):
+        """``save_prediction_overlays``, or None (with the one warning)
+        where matplotlib does not import."""
+        try:
+            from cmrtpu_torch.visualization.visualize import (
+                pyplot, save_prediction_overlays)
+            pyplot()
+        except ImportError as e:
+            self._disabled = True
+            logging.warning(
+                "SAVE_LEARNING_PROGRESS_AS_PNG/_AS_TF: matplotlib does not "
+                "import (%s); no learning-progress images are written, "
+                "training goes on", e)
+            return None
+        return save_prediction_overlays
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        if epoch % self.frequency or self._disabled:
+            return
+        render = self._renderer()
+        if render is None:
+            return
+        for name, x, y in self.sample_batches:
+            preds = trainer.predict(x)
+            if isinstance(preds, dict):
+                heads = [h[0] for h in (trainer.config.get("HEADS") or ())] \
+                    or sorted(preds)
+                preds = np.concatenate([np.asarray(preds[h]) for h in heads],
+                                       axis=-1)
+            preds = np.asarray(preds)
+            out = os.path.join(self.image_dir, f"epoch{epoch:04d}_{name}.png")
+            try:
+                render(x[:self.samples], y[:self.samples],
+                       preds[:self.samples], out)
+                if self.to_tensorboard:
+                    self._tb_image(name, out, epoch)
+            except Exception as e:
+                level = logging.DEBUG if self._warned else logging.WARNING
+                logging.log(level, "learning-progress image rendering failed"
+                            " (batch '%s', epoch %d): %s", name, epoch, e)
+                self._warned = True
+
+    def _tb_image(self, name: str, png_path: str, epoch: int) -> None:
+        import matplotlib.image as mpimg
+        from cmrtpu_torch.utils.tfevents import EventWriter
+        if self._writer is None:
+            self._writer = EventWriter(self.tb_dir, filename_suffix=".images")
+        rgb = (mpimg.imread(png_path)[..., :3] * 255).astype(np.uint8)
+        self._writer.add_image(name, rgb, epoch)
+        self._writer.flush()
+
+    def on_train_end(self, trainer):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+
 class TimeBudget(Callback):
     """Stop training once the wall clock since on_train_begin reaches
     ``budget_s`` seconds (the set-up of the first epoch counts)."""
@@ -356,10 +444,12 @@ class TimeBudget(Callback):
             trainer.stop_training = True
 
 
-def get_callbacks(config: Dict,
+def get_callbacks(config: Dict, sample_batches: Optional[List] = None,
                   use_optimizer_changer: bool = False) -> List[Callback]:
     """The reference callback set from config (ref: get_callbacks,
-    src/utils/KerasCallbacks.py:20-115), in cmrtpu's order."""
+    src/utils/KerasCallbacks.py:20-115), in cmrtpu's order; an ImageWriter
+    over ``sample_batches`` when SAVE_LEARNING_PROGRESS_AS_PNG or _AS_TF
+    asks for one."""
     model_path = C.get(config, "MODEL_PATH", "temp/models")
     tb_path = C.get(config, "TENSORBOARD_PATH", "temp/tf_log")
     monitor = C.get(config, "MONITOR_FUNCTION", "loss")
@@ -386,13 +476,41 @@ def get_callbacks(config: Dict,
         cbs.append(EarlyStopping(
             monitor=monitor,
             patience=C.get(config, "EARLY_STOPPING_PATIENCE", 25), mode=mode))
-    if (C.get(config, "SAVE_LEARNING_PROGRESS_AS_PNG", False)
-            or C.get(config, "SAVE_LEARNING_PROGRESS_AS_TF", False)):
-        logging.warning(
-            "SAVE_LEARNING_PROGRESS_AS_PNG/_AS_TF: the learning-progress "
-            "ImageWriter is not ported to cmrtpu_torch (it needs matplotlib, "
-            "ROADMAP 7.2); no progress images are written")
+    to_tb = C.get(config, "SAVE_LEARNING_PROGRESS_AS_TF", False)
+    if sample_batches and (
+            C.get(config, "SAVE_LEARNING_PROGRESS_AS_PNG", False) or to_tb):
+        cbs.append(ImageWriter(
+            os.path.join(C.get(config, "EXP_PATH", "tmp"), "figures"),
+            sample_batches,
+            frequency=C.get(config, "SAVE_LEARNING_PROGRESS_FREQUENCY", 2),
+            to_tensorboard=to_tb, tb_dir=tb_path))
     return cbs
+
+
+def feed_inputs_4_tensorboard(config: Dict, batch_generator=None,
+                              validation_generator=None,
+                              samples: int = 4) -> List:
+    """Fixed sample batches for the ImageWriter, the first
+    min(BATCHSIZE, ``samples``) rows of batch 0 of each generator given
+    (ref: feed_inputs_4_tensorboard, src/utils/KerasCallbacks.py:117-151):
+    [("gen_train", x, y), ("gen_val", x, y)] as host numpy."""
+    samples = min(C.get(config, "BATCHSIZE", 32), samples)
+    feeds: List = []
+    for name, gen in (("gen_train", batch_generator),
+                      ("gen_val", validation_generator)):
+        if gen is None:
+            continue
+        x, y = gen[0]
+        feeds.append((name, host_numpy(x)[:samples],
+                      None if y is None else host_numpy(y)[:samples]))
+    logging.info("feed 4 Tensorboard is ready")
+    return feeds
+
+
+def host_numpy(a) -> np.ndarray:
+    """A batch (a tensor on any device, or an array) as host numpy."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") \
+        else np.asarray(a)
 
 
 def seed_best_from_history(cb: ModelCheckpoint, history) -> None:

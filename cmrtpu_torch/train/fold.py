@@ -3,7 +3,8 @@ src/models/train_model.py).
 
 ``train_fold``: fold paths, the saved config, train and val generators (val
 with AUGMENT and HIST_MATCHING off; not in memory with ``CACHE_PER_HOST``),
-the model summary, the callback set, the fit (``_picks_device_cache``: the
+the model summary, the ImageWriter's sample batches (batch 0 of each
+generator, drawn as cmrtpu draws them), the callback set, the fit (``_picks_device_cache``: the
 device-resident loop when the cache fits DEVICE_CACHE_LIMIT_GB, else packed
 host streaming), the chained ``pred_fold`` on the same device and
 ``fold_complete.json``. cmrtpu logs and swallows any error of the chained
@@ -194,9 +195,18 @@ def train_fold(config: Dict, in_memory: bool = True,
     with open(os.path.join(fold_root, "model_summary.txt"), "w") as fh:
         fh.write(model_summary(trainer.model) + "\n")
 
+    # the ImageWriter's fixed train/val batches, drawn as cmrtpu draws them:
+    # always, before any resume (with HIST_MATCHING the train batch moves
+    # the generator's rng, so every later epoch order depends on it)
+    sample_batches = None
+    if len(batch_generator) and len(validation_generator):
+        sample_batches = [
+            (name, *(CB.host_numpy(a) for a in gen[0])) for name, gen in
+            (("train", batch_generator), ("val", validation_generator))]
+
     fold_cfg = dict(cfg)
     fold_cfg["EXP_PATH"] = fold_root  # per-fold artifacts under f<k>/
-    callbacks = get_callbacks(fold_cfg)
+    callbacks = get_callbacks(fold_cfg, sample_batches=sample_batches)
     initial_epoch = 0
     if resume:
         initial_epoch = _resume_fold(trainer, fold_cfg, batch_generator,

@@ -10,8 +10,12 @@
   with NaN rows, and ``finetune_with_sgd`` over host batches.
 """
 
+import builtins
+import glob
+import logging
 import math
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -201,3 +205,166 @@ def test_finetune_with_sgd_keeps_the_better_checkpoint(tmp_path):
     assert open(tmp_path / "model" / "model.npz", "rb").read() == before
     rows = open(tmp_path / "history.csv").read().splitlines()
     assert [r.split(",")[0] for r in rows[1:]] == ["1", "2"]
+
+
+# -- the learning-progress ImageWriter ----------------------------------------
+
+class _FakeTrainer:
+    """The ImageWriter's view of a trainer: ``config`` and ``predict``,
+    here fixed arrays (per head for a HEADS config) counted per call."""
+
+    def __init__(self, config, n, hw=24):
+        self.config = config
+        self.calls = 0
+        rng = np.random.default_rng(3)
+        heads = config.get("HEADS")
+        self._out = {h[0]: rng.random((n, hw, hw, h[1])).astype(np.float32)
+                     for h in heads} if heads else \
+            rng.random((n, hw, hw, 2)).astype(np.float32)
+
+    def predict(self, x):
+        self.calls += 1
+        return self._out
+
+
+def _batches(n=6, hw=24, channels=2):
+    rng = np.random.default_rng(0)
+    return [(name, rng.normal(size=(n, hw, hw, 1)).astype(np.float32),
+             (rng.random((n, hw, hw, channels)) > 0.8).astype(np.float32))
+            for name in ("train", "val")]
+
+
+def _event_payloads(tb_dir):
+    """Each record of the image event file with the event's wall time
+    (its first field, 9 bytes) cut off."""
+    (path,) = glob.glob(os.path.join(tb_dir, "*.images"))
+    data, out, i = open(path, "rb").read(), [], 0
+    while i < len(data):
+        (n,) = struct.unpack("<Q", data[i:i + 8])
+        out.append(data[i + 12:i + 12 + n][9:])
+        i += 12 + n + 4
+    return out
+
+
+@pytest.mark.parametrize("heads", [None, [["msk", 2, "sigmoid"],
+                                          ["seg", 4, "softmax"]]],
+                         ids=["one-head", "multihead"])
+def test_image_writer_writes_as_cmrtpu(tmp_path, heads):
+    """PNGs and TB image events on the same epochs (frequency 2: epochs
+    0 and 2 of 0-3), byte for byte; a multi-head prediction drawn as the
+    heads' channels concatenated in HEADS order (the dict's sorted order
+    is the other one)."""
+    cfg = {"HEADS": heads} if heads else {}
+    batches = _batches(n=2, channels=6 if heads else 2)
+    written = {}
+    for name, mod in (("ref", JCB), ("got", CB)):
+        out = tmp_path / name
+        writer = mod.ImageWriter(str(out / "figures"), batches, frequency=2,
+                                 to_tensorboard=True, tb_dir=str(out / "tb"))
+        trainer = _FakeTrainer(cfg, 2)
+        for epoch in range(4):
+            writer.on_epoch_end(trainer, epoch, {})
+        writer.on_train_end(trainer)
+        assert trainer.calls == 2 * len(batches)
+        written[name] = {os.path.basename(p): open(p, "rb").read()
+                         for p in glob.glob(str(out / "figures" / "*.png"))}
+        written[name + "_tb"] = _event_payloads(str(out / "tb"))
+    assert sorted(written["got"]) == [
+        f"epoch{e:04d}_{b}.png" for e in (0, 2) for b in ("train", "val")]
+    assert written["got"] == written["ref"]
+    assert len(written["got_tb"]) == 1 + 4
+    assert written["got_tb"] == written["ref_tb"]
+
+
+def test_feed_inputs_4_tensorboard_matches_cmrtpu(tmp_path):
+    from cmrtpu.pipeline.generator import DataGenerator as JaxGenerator
+    from cmrtpu_torch.pipeline.generator import DataGenerator
+    from test_torch_streaming import _write_slices
+
+    xs, ys = _write_slices(tmp_path, n=8)
+    cfg = dict(CFG, DIM=[24, 24], BATCHSIZE=4, SHUFFLE=False)
+    feeds = {}
+    for name, gen in (("ref", JaxGenerator), ("got", DataGenerator)):
+        kwargs = {"device": "cpu"} if name == "got" else {}
+        train = gen(xs[:4], ys[:4], config=cfg, **kwargs)
+        val = gen(xs[4:], ys[4:], config=cfg, **kwargs)
+        feeds[name] = (JCB if name == "ref" else CB).feed_inputs_4_tensorboard(
+            dict(cfg, BATCHSIZE=3), train, val)
+    assert [f[0] for f in feeds["got"]] == ["gen_train", "gen_val"]
+    for (rn, rx, ry), (gn, gx, gy) in zip(feeds["ref"], feeds["got"]):
+        assert isinstance(gx, np.ndarray) and gx.shape == rx.shape \
+            == (3, 24, 24, 1) and gy.shape == ry.shape == (3, 24, 24, 2)
+        np.testing.assert_allclose(gx, rx, atol=1e-6)
+        np.testing.assert_allclose(gy, ry, atol=1e-5)
+
+
+def test_image_writer_without_matplotlib(tmp_path, monkeypatch, caplog):
+    """The card has no matplotlib: one warning naming it, no forward, no
+    file, at every image epoch; training goes on."""
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *args, **kwargs):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError(f"No module named {name!r}")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    writer = CB.ImageWriter(str(tmp_path / "figures"), _batches(),
+                            frequency=1, to_tensorboard=True,
+                            tb_dir=str(tmp_path / "tb"))
+    trainer = _FakeTrainer({}, 6)
+    with caplog.at_level(logging.DEBUG):
+        for epoch in range(4):
+            writer.on_epoch_end(trainer, epoch, {})
+        writer.on_train_end(trainer)
+    warned = [r for r in caplog.records if r.levelno >= logging.WARNING]
+    assert len(warned) == 1 and "matplotlib" in warned[0].getMessage()
+    assert trainer.calls == 0
+    assert not os.path.exists(tmp_path / "figures")
+    assert not os.path.exists(tmp_path / "tb")
+
+
+def test_get_callbacks_adds_the_image_writer_as_cmrtpu(tmp_path):
+    cfg = dict(CFG, EXP_PATH=str(tmp_path), MODEL_PATH=str(tmp_path / "m"),
+               TENSORBOARD_PATH=str(tmp_path / "tb"),
+               SAVE_LEARNING_PROGRESS_AS_PNG=True,
+               SAVE_LEARNING_PROGRESS_FREQUENCY=3)
+    batches = _batches()
+    for extra, batch_arg in (({}, batches), ({}, None),
+                             ({"SAVE_LEARNING_PROGRESS_AS_PNG": False},
+                              batches),
+                             ({"SAVE_LEARNING_PROGRESS_AS_PNG": False,
+                               "SAVE_LEARNING_PROGRESS_AS_TF": True},
+                              batches)):
+        got = CB.get_callbacks(dict(cfg, **extra), sample_batches=batch_arg)
+        ref = JCB.get_callbacks(dict(cfg, **extra), sample_batches=batch_arg)
+        assert [type(c).__name__ for c in got] == \
+            [type(c).__name__ for c in ref]
+        for g, r in zip(got, ref):
+            if isinstance(g, CB.ImageWriter):
+                assert (g.image_dir, g.frequency, g.to_tensorboard,
+                        g.tb_dir) == (r.image_dir, r.frequency,
+                                      r.to_tensorboard, r.tb_dir)
+
+
+def test_train_fold_writes_progress_images(tmp_path):
+    """A fold with SAVE_LEARNING_PROGRESS_AS_PNG and _AS_TF writes its
+    sample batches' overlays (train and val) at every image epoch and the
+    TB image events beside the scalars."""
+    from cmrtpu_torch.train.fold import run_experiment
+    from test_torch_train import _write_dataset
+
+    data = _write_dataset(str(tmp_path / "data"))
+    exp = run_experiment(dict(CFG, SAVE_LEARNING_PROGRESS_AS_PNG=True,
+                              SAVE_LEARNING_PROGRESS_AS_TF=True,
+                              SAVE_LEARNING_PROGRESS_FREQUENCY=1,
+                              AUGMENT=True, AUGMENT_PROB=0.5),
+                         data_path=data, exp_path=str(tmp_path / "exp"),
+                         device="cpu")
+    figures = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(exp, "f0", "figures", "*.png")))
+    assert figures == [f"epoch{e:04d}_{b}.png" for e in (0, 1)
+                       for b in ("train", "val")]
+    tb = glob.glob(os.path.join(exp, "**", "*.images"), recursive=True)
+    assert len(tb) == 1 and len(_event_payloads(os.path.dirname(tb[0]))) \
+        == 1 + 4

@@ -16,7 +16,9 @@
 * ``run_experiment`` of both packages on one written dataset through the
   streamed loop (DEVICE_CACHE_LIMIT_GB below the data), 2 epochs, AUGMENT
   off, dropout 0, f32, from cmrtpu's initial weights: history within rel
-  1e-4 (cmrtpu on a 1-device mesh).
+  1e-4 (cmrtpu on a 1-device mesh). With HIST_MATCHING both visit the
+  same epoch order (the ImageWriter's sample batch draws from the
+  generator's rng first in both).
 * STREAM_ECHO's step count and warning, the batch-size raise and the
   GRAD_ALLREDUCE_DTYPE routing as cmrtpu's; a swapped optimizer takes
   effect.
@@ -265,6 +267,62 @@ def test_streamed_run_experiment_matches_cmrtpu(tmp_path, monkeypatch):
             if key != "epoch_time":
                 assert float(g[key]) == pytest.approx(
                     float(r[key]), rel=1e-4, abs=1e-6), key
+
+
+def test_streamed_hist_matching_epoch_order_matches_cmrtpu(tmp_path,
+                                                           monkeypatch):
+    """With HIST_MATCHING both train_folds draw the ImageWriter's sample
+    batch ``batch_generator[0]``, whose host matcher draws from the
+    generator's rng, before the fit: the streamed loop then visits
+    cmrtpu's order in every epoch. The control, the same generator without
+    that draw, visits another order from epoch 1 on."""
+    from cmrtpu_torch import config as PC
+    from cmrtpu_torch.data.dataset import get_trainings_files
+
+    cfg = dict(CFG, HEAD_BIAS_PRIOR=0.001, DEVICE_CACHE_LIMIT_GB=1e-9,
+               HIST_MATCHING=True, AUGMENT=True, AUGMENT_PROB=0.0)
+    data = _write_dataset(str(tmp_path / "data"))
+    orders = {"jax": [], "port": []}
+
+    def recording(kind, cls):
+        real = cls.raw_batch
+
+        def raw_batch(self, index):
+            if self.augment and self.hist_matching:  # the train generator
+                size = self.batchsize
+                orders[kind].append(
+                    self.indices[index * size:(index + 1) * size].tolist())
+            return real(self, index)
+        return raw_batch
+
+    monkeypatch.setattr(JaxGenerator, "raw_batch",
+                        recording("jax", JaxGenerator))
+    monkeypatch.setattr(DataGenerator, "raw_batch",
+                        recording("port", DataGenerator))
+    monkeypatch.setattr(jax_trainer, "create_mesh", lambda config: create_mesh(
+        config, devices=jax.devices()[:1]))
+    jax_run_experiment(dict(cfg), data_path=data,
+                       exp_path=str(tmp_path / "jax"))
+    torch_exp = run_experiment(dict(cfg), data_path=data,
+                               exp_path=str(tmp_path / "torch"),
+                               device="cpu")
+    x_tr, y_tr, _, _ = get_trainings_files(
+        f"{data}/2D", 0, path_to_folds_df=f"{data}/df_kfold.csv")
+    steps = len(x_tr) // cfg["BATCHSIZE"]
+    assert steps == 2 and len(orders["jax"]) == cfg["EPOCHS"] * steps
+    assert orders["port"] == orders["jax"]
+    got = _history(f"{torch_exp}/f0/history.csv")
+    assert len(got) == 2 and all(np.isfinite(float(r["loss"])) for r in got)
+
+    control = DataGenerator(x_tr, y_tr, config=PC.normalise_config(cfg),
+                            device="cpu")
+    undrawn = []
+    for _ in range(cfg["EPOCHS"]):
+        undrawn += [control.indices[i * 4:(i + 1) * 4].tolist()
+                    for i in range(steps)]
+        control.on_epoch_end()
+    assert undrawn[:steps] == orders["jax"][:steps]
+    assert undrawn[steps:] != orders["jax"][steps:]
 
 
 @pytest.fixture(scope="module")
