@@ -13,10 +13,14 @@ Run from the root of a checkout. Phases, one line each:
                  version on the card and scipy's 26-connected labels,
                  exactly, on stacks of [10, 224, 224] studies (landmark-like
                  balls across slices, density 0.55, voxels that touch only
-                 across a corner, empty and full) and the longest geodesic
-                 at [5, 96, 96]; two launches bit-identical; timed by
-                 events, a CUDA graph and the profiler, beside the plain
-                 version and the bound;
+                 across a corner, empty and full, corner-only chains
+                 through every tile corner), the longest geodesic at
+                 [5, 96, 96], [20, 200, 190] at density 0.3 (two tiles
+                 deep, ragged width), corner chains at [19, 203, 190]
+                 (ragged every way) and [1, 224, 224] at density 0.55; two
+                 launches bit-identical; kept volumes equal to scipy's;
+                 timed by events, a CUDA graph and the profiler by pass,
+                 beside the plain version and the bound;
   3. k2        — the CC-label kernel against its plain torch version on the
                  card and scipy's labels, exact, at [10, 224, 224] (random
                  0.3/0.55/0.7, serpentine, empty/full/single), at the serving
@@ -178,7 +182,8 @@ slices/s and the process's peak memory during the call beside what it
 held at the call's start; predict-4d-3d — the same on a copy of the fold
 with CC_FILTER '3d' (the 3D kernel once per cine, K2 never, scipy's
 26-connected filter per frame; the 3D kernel at the stacked [60, 10, 224,
-224] exact against plain and scipy and timed); override-twin —
+224] exact against plain and scipy and timed, and the cine's cc_ms beside
+the kernel's and _keep_largest's device us there); override-twin —
 predict_override_twin(exp, CC_FILTER '3d') on the card: K1 and the 3D
 kernel once per patient-phase, K2 never, every twin pred/ file byte-equal
 to the cc3d-cli copy's, and evaluate_cv_save on the plain and the twin
@@ -2478,7 +2483,7 @@ BF16_3D_MAX_ATOL, BF16_3D_MEAN_ATOL = 0.15, 0.015
 BF16_3D_T_MAX_ATOL, BF16_3D_T_MEAN_ATOL = 0.04, 0.004
 F32_3D_ATOL = 1e-3
 # the 3D CC kernel's three passes, as the profiler names them
-CC3D_KERNELS = ("cc3d_init_kernel", "cc3d_union_kernel",
+CC3D_KERNELS = ("cc3d_local_kernel", "cc3d_face_kernel",
                 "cc3d_flatten_kernel")
 CUBE = np.ones((3, 3, 3), bool)
 
@@ -2984,11 +2989,35 @@ def _serpentine_3d(h, w, layers):
     return m
 
 
+def _tile_corner_chains(z, h, w, rng):
+    """Chains of 6 voxels that touch only across a cube's corner, one
+    through every corner where the 3D kernel's tiles (32 columns x 8 rows x
+    cc3d_geometry's depth) meet in a slice, each crossing it between its
+    third and fourth voxel along one of the 4 space diagonals in turn, and
+    where the volume has two tiles along z, the ones at their corners in 3D
+    crossing from one to the other; a stray voxel in 1e4."""
+    depth, _ = kernels.cc3d_geometry(z, h, w)
+    m = np.zeros((z, h, w), bool)
+    corners = [(yc, xc) for yc in range(kernels.CC3D_ROWS, h,
+                                        kernels.CC3D_ROWS)
+               for xc in range(kernels.CC_TILE, w, kernels.CC_TILE)]
+    k = np.arange(6)
+    for c, (yc, xc) in enumerate(corners):
+        sy, sx = (1, -1)[c % 2], (1, -1)[c // 2 % 2]
+        z0 = depth - 3 if depth < z and c % 3 == 0 else c % (z - 5)
+        m[z0 + k, yc - 3 + k if sy > 0 else yc + 2 - k,
+          xc - 3 + k if sx > 0 else xc + 2 - k] = True
+    return m | (rng.random(m.shape) < 1e-4)
+
+
 def cc3d_cases():
     """[N, Z, H, W] stacks: what CC_FILTER '3d' gives the kernel on a study
     (label 1's and label 2's masks), density 0.55, the longest geodesic,
-    voxels that touch only across a cube's corner between slices, and an
-    empty and a full volume."""
+    voxels that touch only across a cube's corner between slices, an empty
+    and a full volume; and at the tiles' borders: chains through every tile
+    corner, 20 slices (two tiles deep) of ragged width at density 0.3,
+    corner chains on a volume ragged every way, one slice at density
+    0.55."""
     rng = np.random.default_rng(SEED)
     diagonal = np.zeros((Z, H, W), bool)
     for k in range(Z):
@@ -3003,7 +3032,12 @@ def cc3d_cases():
             "serpentine": _serpentine_3d(96, 96, 3)[None],
             "diagonal-singles": diagonal[None],
             "empty-full": np.stack([np.zeros((Z, H, W), bool),
-                                    np.ones((Z, H, W), bool)])}
+                                    np.ones((Z, H, W), bool)]),
+            "corner-chains": _tile_corner_chains(Z, H, W, rng)[None],
+            "z20-0.3": rng.random((1, 20, 200, 190)) < 0.3,
+            "ragged-corner-chains": _tile_corner_chains(19, 203, 190,
+                                                        rng)[None],
+            "z1-0.55": rng.random((1, 1, H, W)) < 0.55}
 
 
 def phase_cc3d():
@@ -3293,6 +3327,23 @@ def _stage_ms(files):
     return out
 
 
+def _cc_split(masks, cc_ms, kernel_figures, reps=5):
+    """A '3d' cine's cc_ms beside the device time of its two parts at the
+    stacked [2 * T, Z, H, W]: the 3D kernel's (from ``kernel_figures``) and
+    ``_keep_largest``'s, whose sizes buffer is [N, Z * H * W + 1] int64,
+    each by the profiler over ``reps`` calls after a warm one."""
+    labels = kernels.converge_labels_3d_cuda(masks)
+    cc._keep_largest(masks, labels)
+    by_kernel, _ = _device_ms_by_kernel(
+        lambda: [cc._keep_largest(masks, labels) for _ in range(reps)])
+    n = masks.shape[0]
+    return {"cc_ms": cc_ms, "kernel_device_us": kernel_figures["device_us"],
+            "keep_largest_device_us": sum(by_kernel.values()) * 1e3 / reps,
+            "keep_largest_device_us_by_kernel": {
+                k[:80]: v * 1e3 / reps for k, v in by_kernel.items()},
+            "sizes_buffer_bytes": n * (masks[0].numel() + 1) * 8}
+
+
 def phase_predict_4d(exp, fold, data_root, test_patients, work):
     """predict-4d: each test patient's cine made ACDC-sized (CINE_FRAMES x
     Z slices of 200^2), then cli.predict_4d on the trained flagship fold
@@ -3304,8 +3355,9 @@ def phase_predict_4d(exp, fold, data_root, test_patients, work):
     a copy of the fold with CC_FILTER '3d' (the 3D kernel once per cine,
     K2 never, scipy's 26-connected filter per frame), and the 3D kernel at
     the cine's stacked [2 * T, Z, 224, 224] against its plain version and
-    scipy, timed. Returns the launches by path and both kernels' figures
-    at their stacked shapes."""
+    scipy, timed, and the cine's cc_ms beside the kernel's and
+    ``_keep_largest``'s device time there. Returns the launches by path
+    and both kernels' figures at their stacked shapes."""
     rng = np.random.default_rng(SEED)
     for pid in sorted(test_patients):
         _write_cine(data_root, pid, rng)
@@ -3374,12 +3426,14 @@ def phase_predict_4d(exp, fold, data_root, test_patients, work):
                                   kernels.converge_labels_3d_cuda,
                                   cc.label_components_3d, CC3D_KERNELS,
                                   structure=CUBE)
+    ms_per_cine = _stage_ms(run["files"])
     log("predict-4d-3d", launches=launches, cines=cines, wall_s=wall_s,
-        ms_per_cine=_stage_ms(run["files"]), **memory,
+        ms_per_cine=ms_per_cine, **memory,
         voxels_removed_by_the_filter=[int((w != f).sum())
                                       for w, f in results],
         cc3d_at_stacked_shape=dict(cc3d_cine,
-                                   bound_us=cc3d_cine["bound_ms"] * 1e3))
+                                   bound_us=cc3d_cine["bound_ms"] * 1e3),
+        cc_split=_cc_split(masks, ms_per_cine["cc_ms"], cc3d_cine))
     del forwards, masks
     return by_path, {"k2": k2_cine, "cc3d": cc3d_cine}
 

@@ -12,6 +12,16 @@ kernel there, and one for an XLA loop of cmrtpu's:
                              ``cmrtpu/ops/connected_components.py``
                              (CC_FILTER '3d')
 
+Both CC kernels are tiled union-finds in three launches: a local pass in
+shared memory (a ballot makes each row's runs trees, then one union per
+contact of a run with a run of a neighbour row inside the tile), a pass
+of unions in device memory across the tiles' faces only, and a flatten.
+K2's tiles are 32 x 32 pixels of a slice, the 3D kernel's 32 columns x 8
+rows x up to 16 slices of a volume (``cc3d_geometry``), joined under
+26-connectivity. Both move 1 B in and 4 B out per pixel or voxel, so
+memory bounds them; on the serving path's sparse masks each pass is near
+the floor of a launch, on dense ones the shared-memory unions take most.
+
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one process
 per source, all at once) and linked into one library in
 ``cmrtpu_torch/_build/`` at first use, and again whenever a source or a
@@ -58,6 +68,14 @@ BLUR_MAX_RADIUS = 108
 MAX_GRID_YZ = 65_535
 # K2's tile side (csrc/cc_labels.cu kTile)
 CC_TILE = 32
+# the 3D kernel's tile (csrc/cc_labels_3d.cu): CC_TILE columns x CC3D_ROWS
+# rows x up to CC3D_MAX_DEPTH slices, its parents, row bits and a queue of
+# CC3D_QUEUE union pairs in static shared memory, which a block may hold up
+# to STATIC_SMEM_LIMIT of
+CC3D_ROWS = 8
+CC3D_MAX_DEPTH = 16
+CC3D_QUEUE = 4096
+STATIC_SMEM_LIMIT = 49_152
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -127,7 +145,7 @@ def _library() -> ctypes.CDLL:
             lib.cc_labels_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr]
             lib.cc_labels_launch.restype = i32
             lib.cc_labels_3d_launch.argtypes = [ptr, ptr, i32, i32, i32, i32,
-                                                ptr]
+                                                i32, ptr]
             lib.cc_labels_3d_launch.restype = i32
             lib.gaussian_blur_launch.argtypes = [
                 ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float), i32,
@@ -203,6 +221,24 @@ def converge_labels_cuda(masks: torch.Tensor) -> torch.Tensor:
 converge_labels_cuda.launches = 0  # kernel launches since the last reset
 
 
+def cc3d_smem_bytes() -> int:
+    """Static shared memory of one block of the 3D kernel's local pass
+    (mirrors ``tile``, ``row_bits``, ``queue`` and ``queued`` in the
+    source): an int32 parent per voxel and a 32-bit mask per row of the
+    deepest tile, the queue of union pairs and its count."""
+    return 4 * (CC3D_MAX_DEPTH * CC3D_ROWS * (CC_TILE + 1) + CC3D_QUEUE + 1)
+
+
+def cc3d_geometry(z: int, h: int, w: int) -> Tuple[int, Tuple[int, int, int]]:
+    """(tile depth, tiles along x, y and z) of the 3D kernel on [Z, H, W]
+    volumes: the fewest tiles of at most ``CC3D_MAX_DEPTH`` slices along z,
+    of the least depth that covers the slices with that many, so fewer
+    slice slots than tiles lie past the volume and a volume of 1-16 slices
+    is one tile deep. The local pass's grid is (tiles, volumes)."""
+    depth = -(-z // -(-z // CC3D_MAX_DEPTH))
+    return depth, (-(-w // CC_TILE), -(-h // CC3D_ROWS), -(-z // depth))
+
+
 def converge_labels_3d_cuda(masks: torch.Tensor) -> torch.Tensor:
     """26-connected component labels of a stack of binary volumes
     [N, Z, H, W] (bool or uint8, contiguous, on a CUDA device), each volume
@@ -224,8 +260,9 @@ def converge_labels_3d_cuda(masks: torch.Tensor) -> torch.Tensor:
                          device=masks.device)
     if labels.numel() == 0:
         return labels
+    depth, _ = cc3d_geometry(z, h, w)
     _launch(_library().cc_labels_3d_launch, masks.device, masks.data_ptr(),
-            labels.data_ptr(), n, z, h, w)
+            labels.data_ptr(), n, z, h, w, depth)
     converge_labels_3d_cuda.launches += 1
     return labels
 
