@@ -2,8 +2,11 @@
 """Smoke run of cmrtpu_torch on one CUDA card (an H100 for sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N   # N cards of one host (cards_main)
 
-Run from the root of a checkout. Phases, one line each:
+Run from the root of a checkout. ``--cards N`` runs only the multi-process
+check over N cards (``cards_main``); without it, one card and these
+phases, one line each:
   1. device    — require CUDA; print the card's name and power limit;
   2. build     — one nvcc build of every kernel (csrc/*.cu, one process per
                  source), print ptxas's report for each;
@@ -164,7 +167,21 @@ within STREAM_PARITY_RTOL (a control with one batch perturbed outside it);
 STREAM_ECHO 2 two steps per upload with differing draws; pinned staging
 and a side copy stream; at STREAM_ECHO 1 and 2, from the host cache and
 without it: streamed against cached step ms, bytes and copy ms per batch,
-producer ms, the step's wait for its copy and the idle share.
+producer ms, the step's wait for its copy and the idle share; then the
+last slice's distributed — a process group over NCCL at world size 1 in
+this process: sharded_cache_config.json at its widths (EPOCHS 2) through
+cli.train (chained pred_fold) with K1 and K2 launched as in sharded-cache
+and one model.npz; one global-view step (the flagship) and one
+explicit-collectives step (the sharded template) against the plain
+one-card step from the same weights, rows and draws (|Δloss|, the
+gradients' relative difference and the share of weights that moved
+differently within bounds that two plain steps meet and a step on other
+rows exceeds tenfold; max |Δparam| logged), each step's collectives as
+tests/test_torch_multiprocess.py lists them, the warm step ms against the
+plain step's in interleaved rounds; the group is left, then one
+``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+cmrtpu_torch.cli.train`` at EPOCHS 1 must exit 0 and leave the fold's
+files.
 Inside phase 7, after evaluate: cc3d-cli — a copy of the flagship fold
 with CC_FILTER '3d' through cli.predict and cli.serve: the 3D kernel once
 per patient-phase, study and warm-up, K2 never, each cleaned volume equal
@@ -218,8 +235,8 @@ the card with exact launches, then analyze_results, its summary.csv held
 against numpy's statistics of the df_eval.csv.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
-resume, resume-exact and ema phases' runs, supervision, the sharded and
-streamed CLI runs, train_3d, the
+resume, resume-exact and ema phases' runs, supervision, the sharded,
+streamed and distributed CLI runs, train_3d, the
 train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
 predict_4d, predict_4d_3d, override_twin, the serving extras' paths, the
 A/B tools' and the quickstart's),
@@ -242,6 +259,7 @@ import json
 import logging
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -273,6 +291,7 @@ from cmrtpu_torch.pipeline.generator import (DataGenerator, finalize_batch,
 from cmrtpu_torch.pipeline.histmatch import _binned_cdf, \
     match_histograms_binned
 from cmrtpu_torch.ops.resample import NEAREST
+from cmrtpu_torch.parallel import mesh as dist_mesh
 from cmrtpu_torch.predict import predictor as predictor_module
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.predict.predictor import (TIMING_LOG, Predictor,
@@ -2097,6 +2116,7 @@ def phase_trainer_features(cfg, flagship_timing, card):
         by_path.update(phase_sharded_cache(data_root, work, gen,
                                            flagship_timing, card))
         by_path.update(phase_stream(cfg, data_root, work, card))
+        by_path.update(phase_distributed(cfg, data_root, work, gen, card))
     check(not _loaded_foreign(), f"trainer: loaded {_loaded_foreign()}")
     return by_path
 
@@ -2459,6 +2479,280 @@ def phase_stream(cfg, data_root, work, card):
         history=history, parity_rel=parity, control_rel=control,
         parity_bound=STREAM_PARITY_RTOL, echo_k1=echo_k1,
         phase_s=dict(seconds, total=time.perf_counter() - t0), **figures)
+    return paths
+
+
+# -- the last slice: more than one process, driven at world size 1 ----------
+
+# distributed: a step through the process group (one rank over NCCL) against
+# the plain one-card step from the same weights, rows and draws. Every
+# collective at one rank is the identity, so the two differ only where the
+# card's kernels are not deterministic; the control (two plain steps) reads
+# that spread, and a plain step on other rows must lie far outside each
+# bound. The loss is a forward's: rel 1e-5. The gradients the rule read,
+# as ||g_a - g_b|| / ||g_b|| over all parameters: 1e-3 (cuDNN's
+# weight-gradient reductions reorder). Adam's first step moves each weight
+# by about the learning rate whatever its gradient's size, so a gradient
+# that lies within that noise of 0 can flip its weight's step: the share of
+# weights whose value differs after the step is held to 1e-4, and
+# max |delta param| is reported (such a flip moves a weight by 2 x lr).
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_RTOL = 1e-3
+DIST_MOVED_SHARE = 1e-4
+# a step on other rows must lie this many times beyond each bound
+DIST_CONTROL_FACTOR = 10
+TORCHRUN_TIMEOUT_S = 300
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_collectives(model, manual, dtype="bfloat16"):
+    """The collectives one step runs, as tests/test_torch_multiprocess.py
+    lists them: the global view's BatchNorm sums and gathers and its one
+    float32 gradient mean, or the explicit-collectives step's three
+    means."""
+    k = sum(isinstance(m, BatchNorm) for m in model.modules())
+    if manual:
+        return [f"grad_mean:{dtype}"] + ["batch_stats_mean:float32"] * \
+            (k > 0) + ["logs_mean:float32"]
+    return (["all_reduce_sum:float32"] * k + ["all_gather:float32"] * 2
+            + ["all_gather.backward:float32"]
+            + ["all_reduce_sum.backward:float32"] * k
+            + ["grad_mean:float32"])
+
+
+def _one_step(cfg, gen, mesh, rows):
+    """One cached-loop step from the seeded init on ``rows``: the loss,
+    the parameters after it, the gradients the rule read, the collectives
+    it ran and the loop."""
+    loop = DeviceCachedLoop(Trainer(cfg, device="cuda", mesh=mesh), gen)
+    with dist_mesh.record_collectives() as calls:
+        loss = float(loop.train_step(rows)["loss"])
+    model = loop.trainer.model
+    return (loss, _params(loop.trainer),
+            [p.grad.detach().double() for p in model.parameters()], calls,
+            loop)
+
+
+def _step_diffs(a, b):
+    """|delta loss|, the gradients' relative L2 difference, the share of
+    weights that differ and max |delta param| of two ``_one_step``s."""
+    grad_diff = sum(float((x - y).square().sum()) for x, y in zip(a[2], b[2]))
+    grad_norm = sum(float(y.square().sum()) for y in b[2])
+    moved = sum(int((x != y).sum()) for x, y in zip(a[1], b[1]))
+    return {"loss_abs_diff": abs(a[0] - b[0]),
+            "grad_rel_diff": (grad_diff / grad_norm) ** 0.5,
+            "params_differing_share": moved / sum(p.numel() for p in b[1]),
+            "param_max_abs_diff": max(float((x - y).abs().max())
+                                      for x, y in zip(a[1], b[1]))}
+
+
+def _step_against_plain(name, cfg, gen, mesh):
+    """The distributed step against the plain one, with the controls, and
+    their warm step ms in interleaved rounds."""
+    plain_mesh = dist_mesh.Mesh()
+    probe = DeviceCachedLoop(Trainer(cfg, device="cuda", mesh=plain_mesh),
+                             gen)
+    idx = torch.from_numpy(probe._epoch_indices(probe.n_train, False)).cuda()
+    del probe
+    dist_step = _one_step(cfg, gen, mesh, idx[0])
+    plain = _one_step(cfg, gen, plain_mesh, idx[0])
+    control = _step_diffs(_one_step(cfg, gen, plain_mesh, idx[0]), plain)
+    other = _step_diffs(_one_step(cfg, gen, plain_mesh, idx[1]), plain)
+    figures = {"distributed": _step_diffs(dist_step, plain),
+               "control": control, "other_rows": other,
+               "collectives": dist_step[3]}
+    manual = bool(cfg.get("GRAD_ALLREDUCE_DTYPE"))
+    want = _step_collectives(dist_step[4].trainer.model, manual)
+    check(dist_step[3] == want and plain[3] == [],
+          f"distributed {name}: collectives {dist_step[3]}, want {want} "
+          f"(plain {plain[3]})")
+    bounds = {"loss_abs_diff": DIST_LOSS_RTOL * abs(plain[0]),
+              "grad_rel_diff": DIST_GRAD_RTOL,
+              "params_differing_share": DIST_MOVED_SHARE}
+    within = all(figures[arm][k] <= bound for arm in ("distributed",
+                                                      "control")
+                 for k, bound in bounds.items())
+    outside = all(other[k] > DIST_CONTROL_FACTOR * bound
+                  for k, bound in bounds.items())
+    check(within and outside, f"distributed {name}: {figures}, bounds "
+          f"{bounds}, other rows beyond {DIST_CONTROL_FACTOR} x")
+    rows = iter(range(10 ** 6))
+    dloop, ploop = dist_step[4], plain[4]
+    figures["bounds"] = bounds
+    figures["step_ms_paired"] = _paired_step_ms(
+        "distributed", lambda: dloop.train_step(idx[next(rows) % len(idx)]),
+        "plain", lambda: ploop.train_step(idx[next(rows) % len(idx)]))
+    window = 4
+    for arm, loop in (("distributed", dloop), ("plain", ploop)):
+        by_kernel, wall_ms = _device_ms_by_kernel(lambda: [
+            loop.train_step(idx[next(rows) % len(idx)])
+            for _ in range(window)])
+        busy = sum(by_kernel.values())
+        figures[f"{arm}_profile"] = {
+            "wall_ms_per_step": wall_ms / window,
+            "device_busy_ms_per_step": busy / window if busy else None,
+            "nccl_ms_per_step": sum(v for k, v in by_kernel.items()
+                                    if "nccl" in k.lower()) / window}
+    return figures
+
+
+def _torchrun(cfg, data_root, work, ranks=1):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    <ranks> -m cmrtpu_torch.cli.train`` on the cohort: its exit code, wall
+    seconds, the fold and the end of its output."""
+    cfg_path = os.path.join(work, f"{cfg['EXPERIMENT']}.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(ranks), "-m", "cmrtpu_torch.cli.train",
+         "-cfg", cfg_path, "-data", data_root], cwd=work, env=env,
+        capture_output=True, text=True, timeout=TORCHRUN_TIMEOUT_S)
+    runs = glob.glob(os.path.join(work, cfg["EXPERIMENTS_ROOT"],
+                                  cfg["EXPERIMENT"], "*", "f0"))
+    return (proc.returncode, time.perf_counter() - t0, runs,
+            (proc.stdout + proc.stderr)[-3000:])
+
+
+# --cards N: the flagship with dropout 0 over N cards against one card. The
+# augmentation draws are the global batch's on every rank, so both take the
+# same steps up to the cards' kernels (bf16 convolutions at batch 16 / N
+# pick other algorithms than at 16): each epoch's loss and val_loss within
+# this relative bound
+CARDS_HISTORY_RTOL = 1e-2
+
+
+def _history_with_time(fold):
+    with open(os.path.join(fold, "history.csv")) as fh:
+        return [{k: float(r[k]) for k in ("loss", "val_loss", "epoch_time")}
+                for r in csv.DictReader(fh)]
+
+
+def cards_main(n):
+    """``python3 chip_smoke.py --cards N``: the multi-process layer over N
+    cards of one host (NCCL, one rank a card), each run a torchrun of
+    cli.train on the phantom cohort (EPOCHS 2, chained pred_fold): the
+    flagship with dropout 0 at one rank and at N, whose histories must
+    agree within CARDS_HISTORY_RTOL, and sharded_cache_config.json at N
+    (each rank loads and holds one block of the cache). Each run must exit
+    0 and leave one model.npz and the test patients' predictions."""
+    check(not _loaded_foreign(), f"importing the port loaded "
+          f"{_loaded_foreign()}")
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke --cards {n}: needs {n} CUDA cards",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    phase_build()
+    with open(FLAGSHIP, encoding="utf-8") as fh:
+        flagship = dict(json.load(fh), EPOCHS=2, FOLDS=[0], DROPOUT_MIN=0.0,
+                        DROPOUT_MAX=0.0)
+    with open(SHARDED_TEMPLATE, encoding="utf-8") as fh:
+        sharded = dict(json.load(fh), EPOCHS=2, FOLDS=[0])
+    runs = {"flagship_w1": (flagship, 1), f"flagship_w{n}": (flagship, n),
+            f"sharded_w{n}": (sharded, n)}
+    figures = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as work:
+        data_root = os.path.join(work, "data")
+        _make_dataset(data_root)
+        test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+        for name, (cfg, ranks) in runs.items():
+            cfg = dict(cfg, EXPERIMENT=f"cards_{name}")
+            rc, wall_s, folds, tail = _torchrun(cfg, data_root, work, ranks)
+            check(rc == 0 and len(folds) == 1,
+                  f"cards {name}: exit {rc}, folds {folds}:\n{tail}")
+            models = [f for f in _files(folds[0]) if f.endswith("model.npz")]
+            check(len(models) == 1, f"cards {name}: model files {models}")
+            _check_predictions(folds[0], test)
+            figures[name] = {"ranks": ranks, "wall_s": wall_s,
+                             "history": _history_with_time(folds[0])}
+    one, many = (figures[f"flagship_w{w}"]["history"] for w in (1, n))
+    rel = {k: max(abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(one, many))
+           for k in ("loss", "val_loss")}
+    check(len(one) == len(many) == 2
+          and all(v <= CARDS_HISTORY_RTOL for v in rel.values()),
+          f"cards: flagship at {n} ranks against 1: {rel}, bound "
+          f"{CARDS_HISTORY_RTOL}")
+    print(json.dumps({"cards": figures, "flagship_rel_diff": rel,
+                      "bound": CARDS_HISTORY_RTOL}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phase_distributed(cfg, data_root, work, gen, card):
+    """The multi-process layer over NCCL at world size 1, in this process:
+    sharded_cache_config.json at its widths, EPOCHS 2, through cli.train
+    (chained pred_fold): K1 and K2 as phase sharded-cache counts them for
+    the same fold, one model.npz; then one global-view step (flagship) and
+    one explicit-collectives step (sharded template) against the plain
+    step, their collectives as the CPU test lists them, and their warm
+    step ms against the plain step's in interleaved rounds. The process
+    group is left at the end. Last, one torchrun launch of cli.train at
+    EPOCHS 1 must exit 0 and leave the fold's files."""
+    t0 = time.perf_counter()
+    check(dist_mesh.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                           device="cuda", timeout_s=300),
+          "distributed: no process group")
+    try:
+        mesh = dist_mesh.create_mesh(cfg)
+        check(mesh.distributed and mesh.world == 1
+              and torch.distributed.get_backend() == "nccl",
+              f"distributed: mesh {mesh}, backend "
+              f"{torch.distributed.get_backend()}")
+        with open(SHARDED_TEMPLATE, encoding="utf-8") as fh:
+            scfg = dict(json.load(fh), EPOCHS=2, FOLDS=[0],
+                        EXPERIMENT="rvip_sharded_cache_distributed")
+        exp, k1, k2, chained, wall_s = _train_cli(scfg, data_root, work,
+                                                  "distributed")
+        train_steps, _, eval_steps = _cohort_steps(int(scfg["BATCHSIZE"]))
+        test = fold_patients(os.path.join(data_root, "df_kfold.csv"), 0)
+        phases = 2 * len(test)
+        paths = _cli_launch_checks(
+            "distributed", k1, k2, chained,
+            _sample_launches(scfg) + 2 * (train_steps + eval_steps), phases)
+        fold = os.path.join(exp, "f0")
+        history = _history_rows(fold, 2)
+        _check_predictions(fold, test)
+        models = [f for f in _files(exp) if f.endswith("model.npz")]
+        check(len(models) == 1, f"distributed: model files {models}")
+        steps = {name: _step_against_plain(name, step_cfg, gen, mesh)
+                 for name, step_cfg in (("global_view", cfg),
+                                        ("explicit", scfg))}
+    finally:
+        dist_mesh.shutdown_distributed()
+    check(not torch.distributed.is_initialized(),
+          "distributed: the process group outlived the phase")
+    rcfg = dict(cfg, EPOCHS=1, FOLDS=[0], EXPERIMENT="torchrun")
+    rc, torchrun_s, runs, tail = _torchrun(rcfg, data_root, work)
+    check(rc == 0 and len(runs) == 1, f"distributed: torchrun exit {rc}, "
+          f"folds {runs}:\n{tail}")
+    run_files = _files(runs[0])
+    check(any(f.endswith("model.npz") for f in run_files)
+          and any(f.endswith("fold_complete.json") for f in run_files)
+          and len(_history_rows(runs[0], 1)) == 1
+          and os.listdir(os.path.join(runs[0], "pred")),
+          f"distributed: torchrun's fold holds {sorted(run_files)}")
+    log("distributed", card=card, world_size=1, backend="nccl",
+        train_steps=2 * train_steps, eval_steps=2 * eval_steps,
+        k1_launches=k1, k2_launches=k2, train_wall_s=wall_s,
+        pred_fold_wall_s=chained["wall_s"], history=history, **steps,
+        torchrun_exit=rc, torchrun_wall_s=torchrun_s,
+        phase_s=time.perf_counter() - t0)
     return paths
 
 
@@ -4572,4 +4866,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cards_main(int(sys.argv[2])) if sys.argv[1:2] == ["--cards"]
+             else main())

@@ -13,6 +13,13 @@ restores its full train state and continues its epoch count, and a
 completed fold is skipped. ``-inmemory false`` keeps no host cache: each
 fold then trains from packed host-streamed batches
 (``cmrtpu_torch/train/streaming.py``).
+
+More than one process: ``torchrun --nproc_per_node N -m
+cmrtpu_torch.cli.train -cfg ... -data ...`` trains each fold over N ranks,
+one card each (nccl; gloo with ``--device cpu``), as do cmrtpu's
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+(``parallel/mesh.py:initialize_distributed``). Without them the CLI runs
+one process as before.
 """
 
 import argparse
@@ -54,10 +61,17 @@ def main(argv=None):
     if args.resume:
         config["RESUME"] = True
 
+    from cmrtpu_torch.parallel import mesh as M
     from cmrtpu_torch.train.fold import run_experiment
-    return run_experiment(config, data_path=args.data,
-                          exp_path=args.resume, in_memory=in_memory,
-                          device=args.device)
+    joined = not M.dist.is_initialized() and \
+        M.initialize_distributed(device=args.device)
+    try:
+        return run_experiment(config, data_path=args.data,
+                              exp_path=args.resume, in_memory=in_memory,
+                              device=args.device)
+    finally:
+        if joined:  # a group this call made, this call leaves
+            M.shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ from torch import nn
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.ops.int8_conv import quant_conv
+from cmrtpu_torch.parallel.mesh import all_reduce_sum, batch_stats_mesh
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -197,7 +198,10 @@ class BatchNorm(nn.Module):
     spatial axes in flax's fast form, var = max(mean(x^2) - mean(x)^2, 0),
     and moves the running averages to ``0.99 * old + 0.01 * batch`` with
     that biased variance (``nn.BatchNorm2d`` would fold in the unbiased
-    one). Eval mode reads the running averages. Either way y = (x - mean) *
+    one). Inside ``mesh.global_batch_stats`` the statistics are the
+    global batch's, through one all-reduce of the per-channel sums, so the
+    running averages come out the same on every rank. Eval mode reads the
+    running averages. Either way y = (x - mean) *
     (rsqrt(var + eps) * scale) + bias, in flax's order. ``weight`` is
     flax's ``scale``."""
 
@@ -218,12 +222,29 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    @staticmethod
+    def _global_stats(x: torch.Tensor, dims, mesh):
+        """Mean and biased variance over the global batch: one
+        differentiable all-reduce of the per-channel sums of x and x^2 and
+        of the element count, in flax's mean(x^2) - mean(x)^2 form."""
+        c = x.shape[1]
+        count = x.new_full((1,), float(x.numel() // c))
+        sums = all_reduce_sum(torch.cat([x.sum(dim=dims),
+                                         x.square().sum(dim=dims), count]),
+                              mesh)
+        mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        return mean, torch.clamp(mean_sq - mean.square(), min=0.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = (0, *range(2, x.dim()))
-            mean = x.mean(dim=dims)
-            var = torch.clamp(x.square().mean(dim=dims) - mean.square(),
-                              min=0.0)
+            mesh = batch_stats_mesh()
+            if mesh is None:
+                mean = x.mean(dim=dims)
+                var = torch.clamp(x.square().mean(dim=dims) - mean.square(),
+                                  min=0.0)
+            else:
+                mean, var = self._global_stats(x, dims, mesh)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -21,6 +21,13 @@ protocol (``trainer.get_lr/set_lr``, ``trainer.stop_training``,
   * WeightsSaver        weights every n epochs            (ref: :804-840)
   * TimeBudget          stop after a wall-clock budget
 
+Over a process group every rank runs every callback on the same logs
+(averaged over the ranks by the Trainer), so all decide alike; only rank 0
+writes files (model.npz and state.pt, weights, history.csv, TensorBoard,
+figures). Checkpoint saves turn synchronous under more than one process
+and every rank waits at a barrier after each, so a rank that reads the
+files next finds them whole.
+
 The ImageWriter draws with matplotlib. Where it is missing (the card's
 host), the writer warns once and writes nothing; training goes on.
 """
@@ -37,6 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.parallel import mesh as M
 from cmrtpu_torch.train import checkpoint as ckpt
 from cmrtpu_torch.train.optimizers import polynomial_decay, sgdr_schedule
 from cmrtpu_torch.utils.io_utils import ensure_dir
@@ -81,7 +89,8 @@ class ModelCheckpoint(Callback):
         self.mode = mode
         self.best = math.inf if mode == "min" else -math.inf
         self.save_full_state = save_full_state
-        self._writer = ckpt.AsyncCheckpointWriter() if async_write else None
+        self._writer = ckpt.AsyncCheckpointWriter() \
+            if async_write and not M.multi_process() else None
         self._saved = False
         self._warned_missing = False
 
@@ -101,6 +110,7 @@ class ModelCheckpoint(Callback):
             self._writer.submit(self._write, ckpt.device_snapshot(state))
         else:
             self._write(state)
+            M.barrier(trainer.mesh)
 
     def on_epoch_end(self, trainer, epoch, logs):
         current = logs.get(self.monitor)
@@ -267,6 +277,8 @@ class TensorBoardLogger(Callback):
         self.writer = None
 
     def on_train_begin(self, trainer):
+        if not M.is_main_process():
+            return
         from cmrtpu_torch.utils.tfevents import EventWriter
         self.writer = EventWriter(self.log_dir)
 
@@ -295,6 +307,8 @@ class HistoryCSV(Callback):
         self.append = append
 
     def on_epoch_end(self, trainer, epoch, logs):
+        if not M.is_main_process():
+            return
         ensure_dir(os.path.dirname(os.path.abspath(self.path)))
         row = dict(logs, lr=trainer.get_lr())
         if self.keys is None:
@@ -322,7 +336,8 @@ class WeightsSaver(Callback):
         self.model_path = model_path
         self.every_n_epochs = max(1, every_n_epochs)
         self.keep_per_epoch = keep_per_epoch
-        self._writer = ckpt.AsyncCheckpointWriter() if async_write else None
+        self._writer = ckpt.AsyncCheckpointWriter() \
+            if async_write and not M.multi_process() else None
 
     def on_epoch_end(self, trainer, epoch, logs):
         if (epoch + 1) % self.every_n_epochs:
@@ -336,6 +351,7 @@ class WeightsSaver(Callback):
                                 ckpt.device_snapshot(trainer.serving_params))
         else:
             ckpt.save_weights(path, trainer.serving_params)
+            M.barrier(trainer.mesh)
         logging.info("Epoch %d: weights saved to %s", epoch + 1, path)
 
     def on_train_end(self, trainer):
@@ -385,7 +401,8 @@ class ImageWriter(Callback):
         return save_prediction_overlays
 
     def on_epoch_end(self, trainer, epoch, logs):
-        if epoch % self.frequency or self._disabled:
+        if epoch % self.frequency or self._disabled \
+                or not M.is_main_process():
             return
         render = self._renderer()
         if render is None:

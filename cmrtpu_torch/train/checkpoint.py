@@ -54,6 +54,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cmrtpu_torch.parallel.mesh import is_main_process
 from cmrtpu_torch.utils.io_utils import ensure_dir
 
 WEIGHTS_NAME = "model.npz"
@@ -212,7 +213,10 @@ def _atomic_write(path: str, write) -> str:
 def save_weights(model_path: str,
                  weights: Union[nn.Module, Mapping[str, torch.Tensor]]) -> str:
     """Write ``model_path/model.npz`` in the cmrtpu layout from a model or
-    a state_dict (the serving weights: the EMA shadow with EMA on)."""
+    a state_dict (the serving weights: the EMA shadow with EMA on). Over a
+    process group only rank 0 writes (every rank returns the path)."""
+    if not is_main_process():
+        return os.path.join(model_path, WEIGHTS_NAME)
     state = weights.state_dict() if isinstance(weights, nn.Module) \
         else weights
     params, stats = state_dict_to_flax(state)
@@ -226,7 +230,10 @@ def save_weights(model_path: str,
 def save_train_state(ckpt_dir: str, state: Dict) -> str:
     """Write a full train state (``Trainer.train_state``, or a snapshot of
     it) to ``ckpt_dir/state.pt``; tensors go to the host first, so the file
-    loads on any device."""
+    loads on any device. Over a process group only rank 0 writes."""
+    if not is_main_process():
+        return os.path.join(ckpt_dir, STATE_NAME)
+
     def to_host(tree):
         if isinstance(tree, torch.Tensor):
             return tree.detach().cpu()

@@ -13,6 +13,11 @@ cannot hide behind a fold that reports success.
 ``run_experiment``: the timestamped EXP_PATH, data paths, one fold after
 another over FOLDS.
 
+Over a process group every rank trains the fold (``trainer.mesh``); rank
+0 alone writes the config, the summary and ``fold_complete.json`` and
+runs the chained ``pred_fold`` while the others wait at a barrier (cmrtpu
+predicts on every process), and ``run_experiment`` takes rank 0's run dir.
+
 ``RESUME``: ``run_experiment`` re-enters the run (the given exp_path, the
 config's EXP_PATH when it lies under this experiment's root, else the
 latest run dir); ``train_fold`` skips a fold whose ``fold_complete.json``
@@ -34,11 +39,13 @@ from typing import Dict, List, Optional
 from cmrtpu_torch import config as C
 from cmrtpu_torch.data.dataset import get_trainings_files
 from cmrtpu_torch.models.unet import model_summary
+from cmrtpu_torch.parallel import mesh as M
 from cmrtpu_torch.pipeline.generator import DataGenerator
 from cmrtpu_torch.predict.predictor import pred_fold
 from cmrtpu_torch.train import callbacks as CB
 from cmrtpu_torch.train.callbacks import get_callbacks
-from cmrtpu_torch.train.device_cache import (_gen_examples, fits_device_cache,
+from cmrtpu_torch.train.device_cache import (_gen_examples, cache_shards,
+                                             fits_device_cache,
                                              per_host_cache)
 from cmrtpu_torch.train.trainer import Trainer
 from cmrtpu_torch.utils.io_utils import console_and_file_logger
@@ -46,10 +53,12 @@ from cmrtpu_torch.utils.io_utils import console_and_file_logger
 _FOLD_COMPLETE = "fold_complete.json"
 
 
-def _truncate_history(path: str, epochs: int) -> List[Dict[str, float]]:
+def _truncate_history(path: str, epochs: int,
+                      write: bool = True) -> List[Dict[str, float]]:
     """Keep the header and the rows of epochs < ``epochs`` of a history.csv,
-    byte for byte (the port's 6-significant-digit rows are not reformatted),
-    and return those rows without ``epoch`` as floats."""
+    byte for byte (the port's 6-significant-digit rows are not reformatted;
+    the file is left as it is unless ``write``), and return those rows
+    without ``epoch`` as floats."""
     with open(path, newline="") as fh:
         lines = fh.read().splitlines(keepends=True)
     header = next(csv.reader(lines[:1]))
@@ -60,19 +69,23 @@ def _truncate_history(path: str, epochs: int) -> List[Dict[str, float]]:
             kept.append(line)
             rows.append({k: float(v) for k, v in zip(header[1:],
                                                      values[1:])})
-    with open(path, "w", newline="") as fh:
-        fh.writelines(kept)
+    if write:
+        with open(path, "w", newline="") as fh:
+            fh.writelines(kept)
     return rows
 
 
-def _picks_device_cache(cfg: Dict, train_gen) -> bool:
+def _picks_device_cache(cfg: Dict, train_gen,
+                        mesh: Optional[M.Mesh] = None) -> bool:
     """The fold's data loop: device-cached when the per-host cache is asked
-    for or the packed cache fits DEVICE_CACHE_LIMIT_GB, packed host
+    for or the packed cache fits DEVICE_CACHE_LIMIT_GB (per device, so a
+    cache sharded over n shards may be n times larger), packed host
     streaming otherwise (a generator without its in-memory cache too).
     Memoized on the generator: the packability scan walks its whole mask
     cache."""
+    n_shards = cache_shards(cfg, mesh or M.Mesh())
     key = (str(C.get(cfg, "CACHE_DTYPE", "float32")),
-           float(C.get(cfg, "DEVICE_CACHE_LIMIT_GB", 8.0) or 8.0),
+           float(C.get(cfg, "DEVICE_CACHE_LIMIT_GB", 8.0) or 8.0), n_shards,
            per_host_cache(cfg))
     memo = getattr(train_gen, "_picks_cache_memo", None)
     if memo is not None and memo[0] == key:
@@ -81,18 +94,25 @@ def _picks_device_cache(cfg: Dict, train_gen) -> bool:
         result = True  # rows load per host: there is no host cache to scan
     else:
         result = getattr(train_gen, "_cache_x", None) is not None and \
-            fits_device_cache(cfg, train_gen._cache_x, train_gen._cache_y)
+            fits_device_cache(cfg, train_gen._cache_x, train_gen._cache_y,
+                              n_shards=n_shards)
     train_gen._picks_cache_memo = (key, result)
     return result
 
 
-def _steps_per_epoch(cfg: Dict, train_gen) -> int:
+def _steps_per_epoch(cfg: Dict, train_gen,
+                     mesh: Optional[M.Mesh] = None) -> int:
     """Optimizer steps one epoch takes in the loop ``train_fold`` picks:
-    floor(n / B) on the card's cache (the one shard of the sharded cache
-    holds the n rows unpadded), ``len(train_gen) * STREAM_ECHO`` streamed."""
+    floor(n / B) on the replicated cache, ceil(n / shards) // (B / shards)
+    over the wrap-padded shards of the sharded one, ``len(train_gen) *
+    STREAM_ECHO`` streamed."""
     batch = max(1, int(C.get(cfg, "BATCHSIZE", 32) or 1))
-    if _picks_device_cache(cfg, train_gen):
-        return max(1, _gen_examples(train_gen) // batch)
+    if _picks_device_cache(cfg, train_gen, mesh):
+        n = _gen_examples(train_gen)
+        if bool(C.get(cfg, "CACHE_SHARDED", False)):
+            n_shards = cache_shards(cfg, mesh or M.Mesh())
+            return max(1, -(-n // n_shards) // max(1, batch // n_shards))
+        return max(1, n // batch)
     echo = max(1, int(C.get(cfg, "STREAM_ECHO", 1) or 1))
     return max(1, len(train_gen)) * echo
 
@@ -116,11 +136,15 @@ def _resume_fold(trainer: Trainer, cfg: Dict, train_gen,
         logging.warning("RESUME requested but no restorable train state "
                         "under %s (%s); training from scratch", model_path, e)
         return 0
-    initial_epoch = restored_step // _steps_per_epoch(cfg, train_gen)
+    initial_epoch = restored_step // _steps_per_epoch(cfg, train_gen,
+                                                      trainer.mesh)
     hist_path = os.path.join(cfg["EXP_PATH"], "history.csv")
     rows = []
     if os.path.isfile(hist_path) and initial_epoch > 0:
-        rows = _truncate_history(hist_path, initial_epoch)
+        rows = _truncate_history(hist_path, initial_epoch, write=False)
+        M.barrier(trainer.mesh)  # every rank has read it: rank 0 cuts it
+        if M.is_main_process():
+            _truncate_history(hist_path, initial_epoch)
     trainer.history = rows
     for cb in callbacks:
         if isinstance(cb, CB.HistoryCSV):
@@ -169,7 +193,8 @@ def train_fold(config: Dict, in_memory: bool = True,
         return None
 
     console_and_file_logger(path=cfg["EXP_PATH"], log_lvl=logging.INFO)
-    cfg = C.init_config(cfg, save=True)
+    main = M.is_main_process()
+    cfg = C.init_config(cfg, save=main)
 
     x_train, y_train, x_val, y_val = get_trainings_files(
         data_path=C.get(cfg, "DATA_PATH_SAX"),
@@ -192,8 +217,9 @@ def train_fold(config: Dict, in_memory: bool = True,
     logging.info("Create model")
     trainer = Trainer(cfg, device=device)
     fold_root = cfg.get("FOLD_PATH", cfg["EXP_PATH"])
-    with open(os.path.join(fold_root, "model_summary.txt"), "w") as fh:
-        fh.write(model_summary(trainer.model) + "\n")
+    if main:
+        with open(os.path.join(fold_root, "model_summary.txt"), "w") as fh:
+            fh.write(model_summary(trainer.model) + "\n")
 
     # the ImageWriter's fixed train/val batches, drawn as cmrtpu draws them:
     # always, before any resume (with HIST_MATCHING the train batch moves
@@ -212,18 +238,22 @@ def train_fold(config: Dict, in_memory: bool = True,
         initial_epoch = _resume_fold(trainer, fold_cfg, batch_generator,
                                      callbacks)
     logging.info("start training")
-    fit = trainer.fit_cached if _picks_device_cache(cfg, batch_generator) \
-        else trainer.fit_streamed
+    fit = trainer.fit_cached if _picks_device_cache(
+        cfg, batch_generator, trainer.mesh) else trainer.fit_streamed
     fit(batch_generator, val_gen=validation_generator,
         epochs=C.get(cfg, "EPOCHS", 100), callbacks=callbacks,
         initial_epoch=initial_epoch)
 
-    pred_fold(dict(cfg, EXP_PATH=fold_root), device=trainer.device)
-
-    with open(_fold_complete_path(cfg), "w") as fh:
-        json.dump({"fold": fold, "epochs_run": len(trainer.history),
-                   "epochs_target": int(C.get(cfg, "EPOCHS", 100) or 100),
-                   "finished_at": time()}, fh)
+    try:
+        if main:
+            pred_fold(dict(cfg, EXP_PATH=fold_root), device=trainer.device)
+            with open(_fold_complete_path(cfg), "w") as fh:
+                json.dump({"fold": fold, "epochs_run": len(trainer.history),
+                           "epochs_target": int(C.get(cfg, "EPOCHS", 100)
+                                                or 100),
+                           "finished_at": time()}, fh)
+    finally:  # the other ranks wait here for rank 0's prediction
+        M.barrier(trainer.mesh)
     logging.info("Fold %s finished after %0.3f sec", fold, time() - t0)
     return trainer
 
@@ -273,7 +303,8 @@ def run_experiment(config: Dict, data_path: Optional[str] = None,
     cfg = C.normalise_config(config)
     if exp_path is None and C.get(cfg, "RESUME", False):
         exp_path = _resume_run_dir(cfg)
-    cfg["EXP_PATH"] = exp_path or C.timestamped_exp_path(cfg)
+    cfg["EXP_PATH"] = M.broadcast_object(
+        exp_path or C.timestamped_exp_path(cfg), M.create_mesh())
     if data_path:
         cfg["DATA_PATH_SAX"] = os.path.join(data_path, "2D")
         cfg["DF_FOLDS"] = os.path.join(data_path, "df_kfold.csv")

@@ -9,6 +9,15 @@ with the batch statistics and moves its running averages in
 ``train_step``, and reads the running averages in ``eval_step``, as flax's
 ``batch_stats`` do.
 
+Over a process group (``mesh``, ``parallel/mesh.py``) ``train_step`` is
+cmrtpu's global-view step: BatchNorm takes the global batch's statistics,
+the predictions and targets are gathered over the data axis, the loss and
+every metric are the global batch's, the same on every rank, and one
+float32 mean of the gradients over the data axis follows the backward
+(the gather's backward gives each rank W times its share; the mean over
+W ranks undoes it). The eval step gathers likewise; ``gather=False``
+evaluates a batch every rank holds whole, with no collective.
+
 EMA (config key ``EMA``): a float32 shadow of the parameters, moved after
 each update by ``ema_update`` (two multi-tensor passes), read by the eval
 step through ``torch.func.functional_call`` so the live module is never
@@ -24,6 +33,7 @@ import torch
 from torch import nn
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.parallel import mesh as M
 
 
 def ema_decay_from_config(cfg) -> Optional[float]:
@@ -57,8 +67,10 @@ class TrainState:
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable, metrics: Optional[Dict[str, Callable]],
                  generator: Optional[torch.Generator] = None,
-                 config: Optional[Dict] = None):
+                 config: Optional[Dict] = None,
+                 mesh: Optional[M.Mesh] = None):
         self.model = model
+        self.mesh = mesh or M.Mesh()
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.metrics = metrics or {}
@@ -93,20 +105,30 @@ class TrainState:
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    grad_transform: Optional[Callable[[nn.Module], None]]
-                   = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on (x [B, H, W, 1], y [B, H, W, C]). The loss
-        and the metrics are computed in float32 on the pre-update
-        predictions (a dict of them for a multi-head model);
-        ``grad_transform(model)`` may change the gradients in place before
-        the optimizer reads them. The gradients stay in ``param.grad``
+                   = None, global_view: bool = True
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on (x [B, H, W, 1], y [B, H, W, C]), this
+        rank's rows of the global batch. The loss and the metrics are
+        computed in float32 on the pre-update predictions (a dict of them
+        for a multi-head model); ``grad_transform(model)`` may change the
+        gradients in place before the optimizer reads them, and replaces
+        the global view's gradient mean. ``global_view`` False keeps
+        BatchNorm's statistics, the loss and the logs local (the
+        explicit-collectives step). The gradients stay in ``param.grad``
         until the next step."""
         self.model.train()
-        preds = self.model(x, generator=self.generator)
+        mesh = self.mesh if global_view else None
+        with M.global_batch_stats(mesh):
+            preds = self.model(x, generator=self.generator)
+        if mesh is not None and mesh.distributed:
+            preds, y = M.gather_batch(preds, mesh), M.gather_batch(y, mesh)
         loss = self.loss_fn(y, preds)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if grad_transform is not None:
             grad_transform(self.model)
+        elif mesh is not None:
+            M.grad_mean_(self.model, mesh)
         self.optimizer.step()
         if self.ema is not None:
             with torch.no_grad():
@@ -118,14 +140,18 @@ class TrainState:
             return self._logs(loss, y, preds)
 
     @torch.no_grad()
-    def eval_step(self, x: torch.Tensor,
-                  y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def eval_step(self, x: torch.Tensor, y: torch.Tensor,
+                  gather: bool = True) -> Dict[str, torch.Tensor]:
         """Loss and metrics of the eval-mode forward (no dropout, BatchNorm
         from its running averages, no update), with the EMA shadow in place
-        of the parameters when EMA is on."""
+        of the parameters when EMA is on; over the global batch gathered
+        from every rank's rows unless ``gather`` is False."""
         self.model.eval()
         if self.ema is not None:
             preds = torch.func.functional_call(self.model, self.ema, (x,))
         else:
             preds = self.model(x)
+        if gather and self.mesh.distributed:
+            preds = M.gather_batch(preds, self.mesh)
+            y = M.gather_batch(y, self.mesh)
         return self._logs(self.loss_fn(y, preds), y, preds)

@@ -20,6 +20,10 @@ augmentation and dropout draws from the trainer's generators (data
 echoing, arXiv:1907.05550), and logs the mean of the k steps' logs; with
 ``AUGMENT`` off the echoes differ only by dropout, which is warned about.
 
+Over W ranks each rank takes its block of rows of every global host
+batch (cmrtpu's ``shard_batch``) and copies only those; the step is the
+sharded one, with the matcher drawn once a shard for its first rows.
+
 Backpressure: the logs of at most ``min(PREFETCH_DEPTH, QUEUE_SIZE)`` steps
 stay in flight; past that the oldest's scalars are read, which waits for
 that step to retire. The eval walks ``len(val_gen)`` full batches and
@@ -36,6 +40,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.parallel.mesh import shard_batch
 from cmrtpu_torch.parallel.prefetch import PutAhead, numpy_prefetch
 from cmrtpu_torch.train.device_cache import FusedStep
 
@@ -63,7 +68,9 @@ class StreamedLoop(FusedStep):
         depth = int(C.get(cfg, "PREFETCH_DEPTH", 2))
         queue_size = C.get(cfg, "QUEUE_SIZE")
         self._depth = min(depth, int(queue_size)) if queue_size else depth
-        self._idxs = torch.arange(self.batch, device=self.device)
+        # row r of each rank's block (cmrtpu's tiled local index row)
+        self._idxs = torch.arange(self.local_batch,
+                                  device=self.device).repeat(self.mesh.data)
         self.put_ahead = PutAhead(self.device, self._depth)
         self.timeline: Optional[list] = None
         logging.info("streamed loop: packed host batches (STREAM_DTYPE=%s), "
@@ -72,7 +79,8 @@ class StreamedLoop(FusedStep):
                      self._echo)
 
     def _batches(self, gen):
-        """The producer: packed batches of ``gen`` (run in its thread)."""
+        """The producer: the rank's rows of the packed batches of ``gen``
+        (run in its thread)."""
         for i in range(len(gen)):
             t0 = time.perf_counter()
             imgs, msks = gen.raw_batch(i)
@@ -80,7 +88,8 @@ class StreamedLoop(FusedStep):
                 raise ValueError(
                     f"raw_batch({i}) has {imgs.shape[0]} rows but the "
                     f"streamed step takes BATCHSIZE {self.batch}")
-            yield (imgs, msks), (time.perf_counter() - t0) * 1e3
+            yield (shard_batch((imgs, msks), self.mesh),
+                   (time.perf_counter() - t0) * 1e3)
 
     def _event(self):
         event = torch.cuda.Event(enable_timing=True)

@@ -12,6 +12,13 @@ generators' states instead. Logs, callback order and the ``val_``
 prefixing are cmrtpu's, so ``history.csv`` has the same columns. The data
 loops: ``fit_cached`` (the dataset on the card), ``fit_streamed`` (packed
 host batches) and ``fit`` (finalized host batches).
+
+Over a process group (``parallel/mesh.py``) the Trainer holds the mesh,
+runs on ``cuda:LOCAL_RANK``, broadcasts rank 0's weights, buffers,
+optimizer state and EMA shadow after init, ``restore`` and
+``restore_weights`` (cmrtpu's ``_globalize_state``), trains each rank on
+its rows of every batch, and hands the callbacks the epoch's logs
+averaged over the ranks; training stops on every rank when one asks.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.models.hybrids import get_model
+from cmrtpu_torch.parallel import mesh as M
 from cmrtpu_torch.predict.predictor import resolve_device, to_numpy
 from cmrtpu_torch.train import checkpoint as ckpt
 from cmrtpu_torch.train import losses as L
@@ -72,10 +80,14 @@ class Trainer:
     def __init__(self, config: Dict, model: Optional[torch.nn.Module] = None,
                  device="cuda", loss_fn: Optional[Callable] = None,
                  metrics: Optional[Dict[str, Callable]] = None,
-                 supervision: bool = False):
+                 supervision: bool = False, mesh: Optional[M.Mesh] = None):
         self.config = C.normalise_config(config)
         _check_config(self.config)
+        self.mesh = mesh if mesh is not None else M.create_mesh(self.config)
         self.device = resolve_device(device)
+        if self.mesh.distributed and self.device.type == "cuda" \
+                and self.device.index is None:  # the rank's card
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if model is None:
             model = init_model(self.config, supervision)
         self.model = model.to(self.device)
@@ -105,9 +117,22 @@ class Trainer:
         self.loop_generator = torch.Generator(self.device).manual_seed(
             seed + 1)
         self.state = TrainState(self.model, self.optimizer, self.loss_fn,
-                                self.metrics, self.generator, self.config)
+                                self.metrics, self.generator, self.config,
+                                mesh=self.mesh)
+        self._broadcast_state()
         self.stop_training = False
         self.history: List[Dict[str, float]] = []
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's weights, buffers, optimizer state and EMA shadow on
+        every rank (no-op without a process group)."""
+        if not self.mesh.distributed:
+            return
+        tensors = list(self.model.state_dict().values())
+        tensors += [v for st in self.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v)]
+        tensors += list((self.state.ema or {}).values())
+        M.broadcast_(tensors, self.mesh)
 
     @property
     def optimizer_name(self) -> str:
@@ -186,6 +211,7 @@ class Trainer:
                               for n, t in saved["ema"].items()}
         self.generator.set_state(saved["generators"]["dropout"])
         self.loop_generator.set_state(saved["generators"]["loop"])
+        self._broadcast_state()
         return self.state.step
 
     def restore_weights(self, model_path: str) -> None:
@@ -194,6 +220,7 @@ class Trainer:
         ckpt.load_weights_for_model(model_path, self.model, self.config)
         if self.state.ema is not None:
             self.state.reset_ema()
+        self._broadcast_state()
 
     def _fit_loop(self, train_epoch: Callable[[], Dict[str, float]],
                   eval_epoch: Optional[Callable[[], Dict[str, float]]],
@@ -218,6 +245,7 @@ class Trainer:
                 if eval_epoch is not None:
                     logs.update({f"val_{k}": v
                                  for k, v in eval_epoch().items()})
+                logs = self._logs_over_ranks(logs)
                 logs["epoch_time"] = time.time() - t0
                 self.history.append(logs)
                 for cb in callbacks:
@@ -227,11 +255,25 @@ class Trainer:
                 logging.info("epoch %d/%d %s", epoch + 1, epochs,
                              " ".join(f"{k}={v:.4f}"
                                       for k, v in sorted(logs.items())))
+                if self.mesh.distributed:
+                    self.stop_training = M.any_rank(self.stop_training)
                 if self.stop_training:
                     break
         finally:
             self._end_callbacks(callbacks)
         return self.history
+
+    def _logs_over_ranks(self, logs: Dict[str, float]) -> Dict[str, float]:
+        """The epoch's logs averaged over the ranks in float64 (exact where
+        they agree already), so every callback decides alike everywhere."""
+        if not self.mesh.distributed or not logs:
+            return logs
+        keys = sorted(logs)
+        (mean,) = M.mean_over_ranks(
+            [torch.tensor([logs[k] for k in keys], dtype=torch.float64,
+                          device=self.device)], self.mesh, "epoch_logs_mean",
+            dtype=torch.float64)
+        return dict(zip(keys, mean.tolist()))
 
     def _end_callbacks(self, callbacks) -> None:
         """on_train_end for every callback. With an epoch-loop exception in
@@ -252,12 +294,18 @@ class Trainer:
 
     def _run_epoch(self, data: Iterable, training: bool) -> Dict[str, float]:
         """Mean logs over the (x, y) batches of ``data`` (numpy or tensors,
-        already finalized), moved to the card one at a time."""
-        step = self.state.train_step if training else self.state.eval_step
+        already finalized), moved to the card one at a time; each rank
+        takes its rows (an eval batch the ranks do not divide is evaluated
+        whole on every rank)."""
         logs = []
         for x, y in data:
-            logs.append(step(torch.as_tensor(x, device=self.device),
-                             torch.as_tensor(y, device=self.device)))
+            whole = not training and len(x) % self.mesh.data != 0
+            if not whole:
+                x, y = M.shard_batch((x, y), self.mesh)
+            x = torch.as_tensor(x, device=self.device)
+            y = torch.as_tensor(y, device=self.device)
+            logs.append(self.state.train_step(x, y) if training
+                        else self.state.eval_step(x, y, gather=not whole))
         if not logs:
             return {}
         keys = list(logs[0])

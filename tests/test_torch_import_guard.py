@@ -31,6 +31,7 @@ import cmrtpu_torch.cli.export, cmrtpu_torch.predict.tta
 import cmrtpu_torch.predict.ensemble, cmrtpu_torch.predict.quantize
 import cmrtpu_torch.predict.export, cmrtpu_torch.ops.int8_conv
 import cmrtpu_torch.train.streaming, cmrtpu_torch.parallel.prefetch
+import cmrtpu_torch.parallel.mesh
 import cmrtpu_torch.train.manual_collectives, cmrtpu_torch.utils.profiling
 import cmrtpu_torch.visualization.visualize
 import cmrtpu_torch.visualization.analysis, cmrtpu_torch.tools.predict_ab

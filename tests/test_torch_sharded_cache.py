@@ -22,8 +22,8 @@ step and the fold's loop choice, against cmrtpu on the CPU.
   streamed loop; ``CACHE_PER_HOST`` on one process loads its rows through
   ``fixed_rows`` into the same caches as the in-memory upload, and the
   fold builds its generators without a host cache; the sharded eval
-  equals the replicated eval; a MESH_SHAPE over more than one device
-  raises, naming ROADMAP 6.1.
+  equals the replicated eval; a MESH_SHAPE larger than the world raises
+  with cmrtpu's message.
 """
 
 import os
@@ -293,15 +293,18 @@ def test_sharded_eval_equals_replicated_eval(gens):
 
 
 def test_mesh_over_several_devices_raises():
-    trainer = Trainer(dict(SHARDED, MESH_SHAPE=[2, 1]), device="cpu")
+    """A MESH_SHAPE larger than the world (one process here) raises with
+    cmrtpu's message; one device is fine."""
+    cfg = dict(SHARDED, MESH_SHAPE=[2, 1])
+    with pytest.raises(AssertionError) as ref:
+        create_mesh(cfg, devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
+        Trainer(cfg, device="cpu")
+    assert str(got.value) == str(ref.value) == \
+        "MESH_SHAPE (2, 1) != #devices 1"
     gen = types.SimpleNamespace(_cache_x=np.zeros((4, 16, 16), np.float32),
                                 _cache_y=np.zeros((4, 16, 16), np.float32),
                                 masks=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6.1"):
-        DeviceCachedLoop(trainer, gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6.1"):
-        StreamedLoop(trainer, gen)
-    # one device is fine
     DeviceCachedLoop(Trainer(dict(SHARDED, MESH_SHAPE=[1, 1]), device="cpu"),
                      gen)
 
