@@ -150,7 +150,21 @@ phases, one line each:
 Inside phase 16's cohort, after cache-dtype: supervision — the flagship
 through Trainer(cfg, supervision=True).fit_cached for one epoch, K1 once
 per train and eval step, the model.npz restored through Predictor with its
-branch and equal to Trainer.predict; then slice 6's sharded-cache —
+branch and equal to Trainer.predict; then surface — a model composed of
+ConvEncoder and ConvDecoder at the flagship's widths (GroupNorm in both
+halves, a 1x1 float32 head) held in bf16 at batch 16 against its float64
+evaluation on the card within phase 5's bounds (controls with a
+GroupNorm skipped must fail them) and equal to the flagship U-Net on the
+same weights, trained one epoch through Trainer(cfg, model=...)
+.fit_cached (K1 once per train and eval step), its model.npz read back to
+equal outputs and its warm step timed against the flagship U-Net's in
+interleaved rounds; largest_component_2d on every
+slice of the k2 phase's cases (K2 once each) equal to
+largest_component_batch and the host filter; the host filters
+(clean_3d_prediction_{2d,3d}_cc_host) equal to the card's K2 and 3D-kernel
+filters on the k2 and cc3d phases' cases, full slices and volumes
+included; show_available_devices naming the card; then slice 6's
+sharded-cache —
 sharded_cache_config.json at its widths (EPOCHS 2) through cli.train
 (chained pred_fold) and cli.evaluate_cv: K1 once per sample batch, train
 step, eval batch (the tail's too) and patient-phase, K2 once per
@@ -235,8 +249,8 @@ the card with exact launches, then analyze_results, its summary.csv held
 against numpy's statistics of the df_eval.csv.
 Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
-resume, resume-exact and ema phases' runs, supervision, the sharded,
-streamed and distributed CLI runs, train_3d, the
+resume, resume-exact and ema phases' runs, supervision, surface, the
+sharded, streamed and distributed CLI runs, train_3d, the
 train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
 predict_4d, predict_4d_3d, override_twin, the serving extras' paths, the
 A/B tools' and the quickstart's),
@@ -281,7 +295,9 @@ from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.eval.evaluate import evaluate_cv_save
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.models.hybrids import HYBRIDS, get_model
-from cmrtpu_torch.models.unet import BatchNorm, build_model
+from cmrtpu_torch.models.unet import (BatchNorm, ConvDecoder, ConvEncoder,
+                                      build_model, dropout_schedule,
+                                      wide_dtype)
 from cmrtpu_torch.ops import connected_components as cc
 from cmrtpu_torch.ops import cuda_kernels as kernels
 from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
@@ -318,6 +334,7 @@ from cmrtpu_torch.train.steps import TrainState
 from cmrtpu_torch.train.streaming import StreamedLoop
 from cmrtpu_torch.train.trainer import Trainer, init_model
 from cmrtpu_torch.utils import profiling
+from cmrtpu_torch.utils.io_utils import show_available_devices
 
 SEED = 0
 TEMPLATES = os.path.join("exp", "template_cfgs")
@@ -377,6 +394,10 @@ GRAD_EXTRA = 1e-3
 # constants lies ~640x max |g| off (CPU, 96^2); the control below must fail
 # this bound in the same run
 BN_GRAD_ATOL = 2e-2
+# surface: the composed model against the flagship U-Net on the same
+# weights: the same kernels on the same tensors, so equal but for the
+# order of a reduction inside a library kernel
+COMPOSED_SAME_ATOL = 1e-6
 START = time.perf_counter()
 
 
@@ -2113,6 +2134,8 @@ def phase_trainer_features(cfg, flagship_timing, card):
         phase_cache_dtype(cfg, gen)
         by_path.update(phase_supervision(
             cfg, work, gen, DataGenerator(x_val, y_val, config=cfg)))
+        by_path.update(phase_surface(
+            cfg, work, gen, DataGenerator(x_val, y_val, config=cfg)))
         by_path.update(phase_sharded_cache(data_root, work, gen,
                                            flagship_timing, card))
         by_path.update(phase_stream(cfg, data_root, work, card))
@@ -3239,6 +3262,272 @@ def phase_supervision(cfg, work, gen, val_gen):
     del trainer, pred
     torch.cuda.empty_cache()
     return {"supervision": launches}
+
+
+# -- the last public pieces: ConvEncoder/ConvDecoder, the single-mask and
+# host CC filters, the device inventory -------------------------------------
+
+class ComposedUNet(torch.nn.Module):
+    """A custom model composed of the port's blocks, as a user of
+    ConvEncoder/ConvDecoder builds one: ConvEncoder(DEPTH, FILTERS,
+    GroupNorm), ConvDecoder(DEPTH, FILTERS * 2 ** (DEPTH - 1), GroupNorm,
+    the flagship decoder's dropouts in its forward order), a 1x1 head in
+    float32 and a sigmoid. Its state_dict is the flagship U-Net's renamed
+    (``_as_composed``), so on the same weights it computes the flagship's
+    function."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        depth, filters = int(cfg["DEPTH"]), int(cfg["FILTERS"])
+        drops = dropout_schedule(cfg)
+        self.dtype = torch.bfloat16 if cfg["MIXED_PRECISION"] \
+            else torch.float32
+        kw = dict(group_norm=int(cfg["GROUP_NORM"]),
+                  batch_norm=bool(cfg["BATCH_NORMALISATION"]),
+                  dtype=self.dtype)
+        self.ConvEncoder_0 = ConvEncoder(
+            depth=depth, filters=filters, dropouts=drops,
+            drop_bottleneck=float(cfg["DROPOUT_MAX"]), **kw)
+        self.ConvDecoder_0 = ConvDecoder(
+            depth=depth, filters=filters * 2 ** (depth - 1),
+            dropouts=drops[::-1], **kw)
+        self.Conv_0 = torch.nn.Conv2d(filters, int(cfg["MASK_CLASSES"]), 1)
+
+    def forward(self, x, generator=None):
+        enc, skips = self.ConvEncoder_0(x, generator)
+        y = torch.movedim(self.ConvDecoder_0(enc, skips, generator), -1, 1)
+        y = self.Conv_0(y.to(wide_dtype(self.dtype)))
+        return torch.movedim(torch.sigmoid(y), 1, -1)
+
+
+def _as_composed(state_dict):
+    """The flagship U-Net's state_dict under ComposedUNet's names: the
+    DownBlocks and the bottleneck in ConvEncoder_0, the UpBlocks in
+    ConvDecoder_0, the head as Conv_0."""
+    out = {}
+    for name, tensor in state_dict.items():
+        if name.startswith(("DownBlock_", "ConvBlock_")):
+            name = "ConvEncoder_0." + name
+        elif name.startswith("UpBlock_"):
+            name = "ConvDecoder_0." + name
+        elif name.startswith("head."):
+            name = "Conv_0." + name[len("head."):]
+        out[name] = tensor
+    return out
+
+
+def _composed_forward(cfg, model):
+    """The composed model's bf16 forward at batch BATCHSIZE against its
+    float64 evaluation on the card and against the flagship U-Net on the
+    same weights; controls with a GroupNorm skipped must fail the forward
+    phase's bounds."""
+    flagship = build_model(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).eval()
+    model.load_state_dict(_as_composed(flagship.state_dict()))
+    batch = int(cfg["BATCHSIZE"])
+    x = np.random.default_rng(SEED + 15).standard_normal(
+        (batch, H, W, 1)).astype(np.float32)
+    model.cuda().eval()
+    flagship.cuda()
+    with torch.inference_mode(), _tf32_off():
+        xd = torch.from_numpy(x).cuda()
+        bf16 = model(xd).float().cpu().numpy()
+        same = flagship(xd).float().cpu().numpy()
+        ref = _as_float64(copy.deepcopy(model))(xd.double()).cpu().numpy()
+        ms = cuda_ms(lambda: model(xd), 20)
+        flagship_ms = cuda_ms(lambda: flagship(xd), 20)
+        controls = {"constant_0.5": _errors(np.full_like(ref, 0.5), ref)}
+        depth = int(cfg["DEPTH"])
+        for block in ("ConvEncoder_0.ConvBlock_1",
+                      f"ConvDecoder_0.UpBlock_{depth - 1}.ConvBlock_1"):
+            out = _without_norm(model, block)(xd).float().cpu().numpy()
+            controls[f"no_norm_{block}"] = _errors(out, ref)
+    check(np.isfinite(bf16).all() and bf16.shape == (batch, H, W, 2),
+          f"surface: bad composed output {bf16.shape}")
+    err, vs_flagship = _errors(bf16, ref), _errors(bf16, same)
+    bounds = {"bf16_max": BF16_MAX_ATOL, "bf16_mean": BF16_MEAN_ATOL}
+    fig = {"batch": batch, "ms": ms, "flagship_ms": flagship_ms,
+           "bf16_vs_float64": err, "controls_vs_float64": controls,
+           "bounds": bounds, "vs_flagship_same_weights": vs_flagship}
+    check(vs_flagship["max"] <= COMPOSED_SAME_ATOL,
+          f"surface: the composed model differs from the flagship U-Net on "
+          f"its weights by {vs_flagship}")
+    check(err["max"] <= BF16_MAX_ATOL and err["mean"] <= BF16_MEAN_ATOL,
+          f"surface: composed bf16 {err} outside the bounds {bounds}")
+    for name, c in controls.items():
+        check(c["max"] > BF16_MAX_ATOL or c["mean"] > BF16_MEAN_ATOL,
+              f"surface: control {name} {c} passes the bf16 bounds")
+    del flagship
+    return fig
+
+
+def _largest_2d_on_card(cases):
+    """largest_component_2d of every slice of the k2 phase's cases on the
+    card (one K2 launch each), then held against largest_component_batch
+    on the card and the host filter's kept pixels. Returns the slices and
+    the launches of the single-mask calls."""
+    got, n = {}, 0
+    _reset_counts()
+    for name, masks in cases.items():
+        dev = torch.from_numpy(masks).cuda()
+        got[name] = [cc.largest_component_2d(dev[i]) for i in range(len(dev))]
+        n += len(dev)
+    torch.cuda.synchronize()
+    launches = _counts()
+    check(launches == {"k1": 0, "k2": n, "cc3d": 0},
+          f"surface: largest_component_2d launched {launches} over {n} "
+          "slices")
+    for name, masks in cases.items():
+        batch = cc.largest_component_batch(
+            torch.from_numpy(masks).cuda()).cpu().numpy()
+        host = cc.clean_3d_prediction_2d_cc_host(masks.astype(np.uint8)) > 0
+        one = np.stack([m.cpu().numpy() for m in got[name]])
+        check(np.array_equal(one, batch) and np.array_equal(one, host),
+              f"surface: largest_component_2d on {name} != the batch or the "
+              "host filter")
+    return n, launches
+
+
+def _host_filters_on_card(k2_masks, cc3d_masks):
+    """The host filters against the card's: clean_3d_prediction_2d_cc_host
+    = clean_prediction_2d_cc (K2) on the k2 phase's cases, and
+    clean_3d_prediction_3d_cc_host = clean_prediction_3d_cc (the 3D
+    kernel) on each volume of the cc3d phase's, exactly; the landmark-like
+    stacks as label volumes of both values. Full slices and volumes have no
+    background: both keep them. Returns the volumes compared."""
+    def labels(stack, n):  # label 1's n masks, then label 2's
+        lab = stack[:n].astype(np.uint8)
+        lab[stack[n:]] = 2
+        return lab
+
+    vols2 = {name: m.astype(np.uint8) for name, m in k2_masks.items()}
+    vols2["landmark-like"] = labels(k2_masks["landmark-like"],
+                                    len(k2_masks["landmark-like"]) // 2)
+    for name, vol in vols2.items():
+        host = cc.clean_3d_prediction_2d_cc_host(vol)
+        card = cc.clean_prediction_2d_cc(torch.from_numpy(vol).cuda())
+        check(np.array_equal(host, card.cpu().numpy()),
+              f"surface: 2D host filter != K2's filter on {name}")
+    vols3 = {f"{name}[{i}]": v.astype(np.uint8)
+             for name, stack in cc3d_masks.items() if name != "landmark-like"
+             for i, v in enumerate(stack)}
+    vols3["landmark-like"] = labels(cc3d_masks["landmark-like"], 1)[0]
+    for name, vol in vols3.items():
+        host = cc.clean_3d_prediction_3d_cc_host(vol)
+        card = cc.clean_prediction_3d_cc(torch.from_numpy(vol).cuda())
+        check(np.array_equal(host, card.cpu().numpy()),
+              f"surface: 3D host filter != the 3D kernel's filter on {name}")
+    full = [n for n, v in {**vols2, **vols3}.items()
+            if (v != 0).all(axis=(-2, -1)).any()]
+    check(full, "surface: no case has a slice without background")
+    return {"2d": sorted(vols2), "3d": sorted(vols3),
+            "without_background": full}
+
+
+def _logged_devices():
+    """show_available_devices' lines at INFO."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        devices = show_available_devices()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    return devices, [r.getMessage() for r in records]
+
+
+def _step_against_flagship(trainer, cfg, gen, window=4):
+    """The composed model's warm cached step against the flagship U-Net's
+    on the same cohort, interleaved (``_paired_step_ms``), and each one's
+    device busy ms a step over a profiled window."""
+    loops = {"composed": DeviceCachedLoop(trainer, gen),
+             "flagship": DeviceCachedLoop(Trainer(cfg, device="cuda"), gen)}
+    idx = torch.from_numpy(loops["composed"]._epoch_indices(
+        loops["composed"].n_train, False)).cuda()
+    rows = iter(range(10 ** 6))
+
+    def step(name):
+        return lambda: loops[name].train_step(idx[next(rows) % len(idx)])
+
+    figures = _paired_step_ms("composed", step("composed"), "flagship",
+                              step("flagship"))
+    for name in loops:
+        by_kernel, wall_ms = _device_ms_by_kernel(
+            lambda: [step(name)() for _ in range(window)])
+        busy = sum(by_kernel.values()) / window
+        figures[f"{name}_device_busy_ms_per_step"] = busy or None
+        figures[f"{name}_profiled_wall_ms_per_step"] = wall_ms / window
+    return figures
+
+
+def phase_surface(cfg, work, gen, val_gen):
+    """The last public pieces of the port on the card: (a) a composed
+    model (``ComposedUNet``) held against float64, trained one epoch by
+    Trainer(cfg, model=...).fit_cached with K1 once per train and eval
+    step, its model.npz read back to the same outputs, its warm step
+    timed against the flagship U-Net's; (b) largest_component_2d on every
+    slice of the k2 phase's cases (K2 once each) against the batch and the
+    host filter; (c) the host filters against the card's filters; (d)
+    show_available_devices naming the card. Returns the launches by path: (a)'s and (b)'s."""
+    t0 = time.perf_counter()
+    cfg = dict(cfg, EPOCHS=1)
+    model = ComposedUNet(cfg)
+    forward = _composed_forward(cfg, model)
+
+    trainer = Trainer(cfg, model=model, device="cuda")
+    batch = int(cfg["BATCHSIZE"])
+    steps = len(gen._cache_x) // batch
+    eval_steps = -(-len(val_gen._cache_x) // batch)
+    _reset_counts()
+    hist = trainer.fit_cached(gen, val_gen, epochs=1)
+    torch.cuda.synchronize()
+    fit_launches = _counts()
+    check(fit_launches == {"k1": steps + eval_steps, "k2": 0, "cc3d": 0},
+          f"surface: the composed fit launched {fit_launches} for {steps} "
+          f"train and {eval_steps} eval steps")
+    check(np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["val_loss"]),
+          f"surface: history {hist}")
+    model_dir = os.path.join(work, "composed", "model")
+    save_weights(model_dir, trainer.serving_params)
+    back = ComposedUNet(cfg)
+    back.load_state_dict(flax_to_state_dict(*load_weights(model_dir)))
+    x = np.random.default_rng(SEED + 16).standard_normal(
+        (8, H, W, 1)).astype(np.float32)
+    with torch.inference_mode():
+        restored = back.cuda().eval()(torch.from_numpy(x).cuda()).cpu()
+    check(np.array_equal(restored.numpy(), trainer.predict(x)),
+          "surface: the composed model.npz read back gives other outputs")
+    step = _step_against_flagship(trainer, cfg, gen)
+    del trainer, back
+
+    k2_masks, cc3d_masks = k2_cases(), cc3d_cases()
+    slices, cc_launches = _largest_2d_on_card(k2_masks)
+    # the filters' comparisons launch the 3D kernel outside any path: its
+    # count (main checks it stays 0 off the CC_FILTER '3d' paths) is kept
+    held = kernels.converge_labels_3d_cuda.launches
+    filters = _host_filters_on_card(k2_masks, cc3d_masks)
+    kernels.converge_labels_3d_cuda.launches = held
+
+    devices, lines = _logged_devices()
+    name = torch.cuda.get_device_name(0)
+    check(len(devices) == torch.cuda.device_count()
+          and any(name in line for line in lines),
+          f"surface: show_available_devices logged {lines}, not {name}")
+    launches = {k: fit_launches[k] + cc_launches[k] for k in fit_launches}
+    log("surface", forward=forward, train_steps=steps,
+        eval_steps=eval_steps, fit_launches=fit_launches,
+        history={k: hist[0][k] for k in ("loss", "val_loss", "val_loc_mm")},
+        npz_read_back_equal=True, step=step,
+        largest_component_2d_slices=slices, filters_equal=filters,
+        devices=lines, launches=launches,
+        phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return {"surface": launches}
 
 
 def scipy_clean_3d(pred, values):

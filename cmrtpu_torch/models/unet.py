@@ -437,6 +437,202 @@ class UpBlock(nn.Module):
                                          self.training, generator))
 
 
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """The reference's initialisers on every submodule of ``module``, from
+    an explicit generator: he_normal conv kernels (the fan-in of a
+    transposed kernel [in, out, *k] is in * prod(k), as flax's HWIO /
+    DHWIO), zero biases, unit norm scales, zero-mean/unit-variance running
+    stats."""
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, tuple(_CONV_MODULE.values())):
+                he_normal_(mod.weight, generator)
+                mod.bias.zero_()
+            elif isinstance(mod, tuple(_CONV_T_MODULE.values())):
+                he_normal_(mod.weight, generator,
+                           fan_in=mod.weight[:, 0].numel())
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
+                mod.reset_parameters()
+
+
+def _check_rank(f_size: Sequence[int], m_pool: Sequence[int]) -> None:
+    if len(f_size) != len(m_pool) or len(f_size) not in _CONV:
+        raise ValueError(f"f_size {tuple(f_size)} and m_pool "
+                         f"{tuple(m_pool)} must both have 2 or 3 axes")
+
+
+def _add_encoder(module: nn.Module, in_ch: int, depth: int, filters: int,
+                 dropouts: Sequence[float], drop_bottleneck: float,
+                 kw: Dict) -> Tuple[int, ...]:
+    """``DownBlock_{level}`` for each level, then the bottleneck's
+    ``ConvBlock_0`` and ``ConvBlock_1``, as children of ``module`` under
+    flax's auto-names; ``filters`` doubles at every level. Returns the
+    skips' channels, shallowest first."""
+    skips = []
+    ch = in_ch
+    for level in range(depth):
+        f = filters * 2 ** level
+        module.add_module(f"DownBlock_{level}",
+                          DownBlock(ch, f, dropouts[level], **kw))
+        skips.append(f)
+        ch = f
+    bottom = filters * 2 ** depth
+    module.ConvBlock_0 = ConvBlock(ch, bottom, **kw)
+    module.drop_bottleneck = drop_bottleneck
+    module.ConvBlock_1 = ConvBlock(bottom, bottom, **kw)
+    return tuple(skips)
+
+
+def _encode(module: nn.Module, x: torch.Tensor, pools, generator):
+    """Run ``_add_encoder``'s children on NCHW / NCDHW ``x`` with one pool
+    per level. Returns (encoding, skips shallowest first)."""
+    skips = []
+    for level, pool in enumerate(pools):
+        skip, x = getattr(module, f"DownBlock_{level}")(x, pool, generator)
+        skips.append(skip)
+    x = module.ConvBlock_1(_dropout(module.ConvBlock_0(x),
+                                    module.drop_bottleneck, module.training,
+                                    generator))
+    return x, skips
+
+
+def _add_decoder(module: nn.Module, in_ch: int, skips: Sequence[int],
+                 filters: Sequence[int], drops: Sequence[float],
+                 use_upsample: bool, kw: Dict) -> int:
+    """``UpBlock_{i}`` in forward order (the deepest first) as children of
+    ``module``: block i has ``filters[i]`` filters and dropout ``drops[i]``
+    and takes the skip of channels ``skips[-1 - i]``. Returns the output
+    channels."""
+    ch = in_ch
+    for i, f in enumerate(filters):
+        module.add_module(f"UpBlock_{i}",
+                          UpBlock(ch, skips[-1 - i], f, drops[i],
+                                  use_upsample=use_upsample, **kw))
+        ch = f
+    return ch
+
+
+def _decode(module: nn.Module, x: torch.Tensor, skips, up_sizes, generator):
+    """Run ``_add_decoder``'s children, block i upsampling by
+    ``up_sizes[i]`` and consuming the deepest skip left. Returns (output,
+    the last block's input)."""
+    skips = list(skips)
+    lower = x
+    for i, up in enumerate(up_sizes):
+        lower = x
+        x = getattr(module, f"UpBlock_{i}")(x, skips.pop(), up, generator)
+    return x, lower
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return torch.movedim(x, 1, -1)
+
+
+class ConvEncoder(nn.Module):
+    """The reusable encoder half that cmrtpu exposes for custom models
+    (``cmrtpu.models.unet.ConvEncoder``; ref: KerasLayers.py:237-327):
+    ``depth`` DownBlocks, ``filters`` doubling at each, then the
+    conv-dropout-conv bottleneck. ``forward`` takes [N, *spatial, C] and
+    returns ``(encoding, skips)``, channels last, the skips shallowest
+    first, in ``dtype``. Pools clamp per level where an axis runs out, with
+    cmrtpu's warning; pass the clamped pools reversed as a ``ConvDecoder``'s
+    per-level ``up_size`` to mirror them. ``in_channels`` is the input's
+    channels (flax infers it); ``out_channels`` and ``skip_channels``
+    size the decoder."""
+
+    def __init__(self, in_channels: int = 1, depth: int = 4,
+                 filters: int = 32, f_size: Tuple[int, ...] = (3, 3),
+                 m_pool: Tuple[int, ...] = (2, 2),
+                 dropouts: Tuple[float, ...] = (0.3, 0.4, 0.4, 0.5),
+                 drop_bottleneck: float = 0.5, activation: str = "relu",
+                 batch_norm: bool = True, bn_first: bool = False,
+                 group_norm: int = 0, factorized: bool = False,
+                 quant_mode: str = "",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        _check_rank(f_size, m_pool)
+        self.depth = depth
+        self.m_pool = tuple(m_pool)
+        self.dtype = dtype
+        kw = dict(f_size=tuple(f_size), activation=activation,
+                  batch_norm=batch_norm, bn_first=bn_first,
+                  group_norm=group_norm, factorized=factorized,
+                  quant_mode=quant_mode, dtype=dtype)
+        self.skip_channels = _add_encoder(self, in_channels, depth, filters,
+                                          dropouts, drop_bottleneck, kw)
+        self.out_channels = filters * 2 ** depth
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        pools, clamped = effective_pools(x.shape[1:-1], self.m_pool,
+                                         self.depth)
+        if clamped:
+            warnings.warn(
+                f"ConvEncoder: m_pool={self.m_pool} exhausts an axis "
+                f"before depth={self.depth} on input {tuple(x.shape)}; "
+                f"clamped per-level pools to {pools}. Pair with a "
+                "ConvDecoder whose up factors mirror these.", stacklevel=2)
+        x, skips = _encode(self, torch.movedim(x, -1, 1).to(self.dtype),
+                           pools, generator)
+        return _channels_last(x), [_channels_last(s) for s in skips]
+
+
+class ConvDecoder(nn.Module):
+    """The reusable decoder half (``cmrtpu.models.unet.ConvDecoder``; ref:
+    KerasLayers.py:348-430): ``depth`` UpBlocks over an encoder's
+    ``(encoding, skips)``, channels last in and out, no head. As in the
+    reference, ``filters`` is the starting (largest) count, halved after
+    every block, and ``dropouts[layer]`` applies in forward order:
+    ``dropouts[0]`` at the deepest block (``UNet`` consumes its dropouts
+    from the end). ``up_size`` is one factor tuple for every block, as in
+    cmrtpu, or one tuple per block in forward order, so that the decoder
+    can mirror an encoder whose pools were clamped (``effective_pools``
+    reversed); cmrtpu takes the single tuple only. ``in_channels`` and
+    ``skip_channels`` (shallowest first) are the encoder's
+    ``out_channels`` and ``skip_channels``; by default those of the
+    symmetric ``ConvEncoder(filters=filters // 2 ** (depth - 1))``."""
+
+    def __init__(self, depth: int = 4, filters: int = 256,
+                 f_size: Tuple[int, ...] = (3, 3), up_size=(2, 2),
+                 dropouts: Tuple[float, ...] = (0.3, 0.4, 0.4, 0.5),
+                 use_upsample: bool = True, activation: str = "relu",
+                 batch_norm: bool = True, bn_first: bool = False,
+                 group_norm: int = 0, factorized: bool = False,
+                 quant_mode: str = "",
+                 in_channels: Optional[int] = None,
+                 skip_channels: Optional[Sequence[int]] = None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        single = all(isinstance(f, (int, np.integer)) for f in up_size)
+        self.up_size = [tuple(int(f) for f in up)
+                        for up in ([up_size] * depth if single else up_size)]
+        if len(self.up_size) != depth or len(f_size) not in _CONV or any(
+                len(up) != len(f_size) for up in self.up_size):
+            raise ValueError(
+                f"up_size {tuple(up_size)}: one factor tuple of "
+                f"len(f_size) = {len(f_size)} axes (2 or 3), or one such "
+                f"tuple per block ({depth})")
+        per_block = [filters // 2 ** i for i in range(depth)]
+        self.dtype = dtype
+        kw = dict(f_size=tuple(f_size), activation=activation,
+                  batch_norm=batch_norm, bn_first=bn_first,
+                  group_norm=group_norm, factorized=factorized,
+                  quant_mode=quant_mode, dtype=dtype)
+        if skip_channels is None:
+            skip_channels = per_block[::-1]
+        _add_decoder(self, 2 * filters if in_channels is None
+                     else in_channels, tuple(skip_channels), per_block,
+                     dropouts, use_upsample, kw)
+
+    def forward(self, encoding: torch.Tensor, skips,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, _ = _decode(self, torch.movedim(encoding, -1, 1),
+                       [torch.movedim(s, -1, 1) for s in skips],
+                       self.up_size, generator)
+        return _channels_last(x)
+
+
 class UNet(nn.Module):
     """Encoder/decoder U-Net with a sigmoid head, or one head per ``heads``
     entry (name, channels, 'sigmoid' | 'softmax'); 2D or 3D by
@@ -460,9 +656,7 @@ class UNet(nn.Module):
                  quant_mode: str = "",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if len(f_size) != len(m_pool) or len(f_size) not in _CONV:
-            raise ValueError(f"f_size {tuple(f_size)} and m_pool "
-                             f"{tuple(m_pool)} must both have 2 or 3 axes")
+        _check_rank(f_size, m_pool)
         self.depth = depth
         self.filters = filters
         self.f_size = tuple(f_size)
@@ -478,27 +672,14 @@ class UNet(nn.Module):
                   batch_norm=batch_norm, bn_first=bn_first,
                   group_norm=group_norm, factorized=factorized,
                   quant_mode=quant_mode, dtype=dtype)
-        ch, skips = in_channels, []
-        for level in range(depth):
-            f = filters * 2 ** level
-            self.add_module(f"DownBlock_{level}",
-                            DownBlock(ch, f, dropouts[level], **kw))
-            skips.append(f)
-            ch = f
+        skips = _add_encoder(self, in_channels, depth, filters, dropouts,
+                             drop_bottleneck, kw)
         bottom = filters * 2 ** depth
-        self.ConvBlock_0 = ConvBlock(ch, bottom, **kw)
-        self.drop_bottleneck = drop_bottleneck
-        self.ConvBlock_1 = ConvBlock(bottom, bottom, **kw)
-        ch = bottom
-        drops = list(dropouts)
-        for i in range(depth):
-            f = ch // 2
-            # decoder iteration i consumes dropouts from the end, like the
-            # reference's dropouts.pop()
-            self.add_module(f"UpBlock_{i}",
-                            UpBlock(ch, skips[depth - 1 - i], f, drops.pop(),
-                                    use_upsample=use_upsample, **kw))
-            ch = f
+        # decoder iteration i consumes dropouts from the end, like the
+        # reference's dropouts.pop()
+        ch = _add_decoder(self, bottom, skips,
+                          [bottom // 2 ** (i + 1) for i in range(depth)],
+                          list(dropouts)[::-1], use_upsample, kw)
         conv = _CONV_MODULE[len(f_size)]
         if supervision:  # fed the last UpBlock's input, 2 * filters wide
             self.Conv_0 = conv(2 * filters, filters, 1)
@@ -510,22 +691,11 @@ class UNet(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> "UNet":
         """Random init with the reference's initialisers from an explicit
-        generator: he_normal conv kernels (fan-in of the transposed kernel
-        [in, out, *k] is in * prod(k), as flax's HWIO / DHWIO), zero biases, unit
-        norm scales, zero-mean/unit-variance running stats and the head-bias
-        prior on sigmoid heads (a softmax head's common shift is a no-op,
-        so its bias stays zero)."""
+        generator (``init_weights_``) and the head-bias prior on sigmoid
+        heads (a softmax head's common shift is a no-op, so its bias stays
+        zero)."""
+        init_weights_(self, generator)
         with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, tuple(_CONV_MODULE.values())):
-                    he_normal_(mod.weight, generator)
-                    mod.bias.zero_()
-                elif isinstance(mod, tuple(_CONV_T_MODULE.values())):
-                    he_normal_(mod.weight, generator,
-                               fan_in=mod.weight[:, 0].numel())
-                    mod.bias.zero_()
-                elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
-                    mod.reset_parameters()
             if self.head_bias_prior is not None:
                 p = float(self.head_bias_prior)
                 prior = float(np.log(p / (1.0 - p)))
@@ -553,19 +723,8 @@ class UNet(nn.Module):
                 f"UNet: M_POOL={self.m_pool} exhausts an axis before "
                 f"DEPTH={self.depth} on input {tuple(x.shape)}; using "
                 f"per-level pools {pools}.", stacklevel=2)
-        skips = []
-        for level in range(self.depth):
-            skip, x = getattr(self, f"DownBlock_{level}")(x, pools[level],
-                                                          generator)
-            skips.append(skip)
-        x = self.ConvBlock_1(_dropout(self.ConvBlock_0(x),
-                                      self.drop_bottleneck, self.training,
-                                      generator))
-        for i in range(self.depth):
-            pre_last = x
-            x = getattr(self, f"UpBlock_{i}")(x, skips.pop(),
-                                              pools[self.depth - 1 - i],
-                                              generator)
+        x, skips = _encode(self, x, pools, generator)
+        x, pre_last = _decode(self, x, skips, pools[::-1], generator)
         if self.supervision:
             lower = self.act(_conv(self.Conv_0, pre_last, self.dtype))
             x = _upsample_nearest(lower, pools[0]) * x

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from cmrtpu_torch.ops.cuda_kernels import (converge_labels_3d_cuda,
@@ -87,6 +88,16 @@ def largest_component_batch(masks: torch.Tensor) -> torch.Tensor:
     foreground pass through unchanged."""
     masks = masks.bool()
     return _keep_largest(masks, _converge_batch(masks))
+
+
+def largest_component_2d(mask: torch.Tensor) -> torch.Tensor:
+    """Keep only the largest 4-connected component of one binary [H, W]
+    mask: ``largest_component_batch`` of a stack of one, so a CUDA tensor
+    launches K2 once."""
+    if mask.dim() != 2:
+        raise ValueError(f"largest_component_2d takes one [H, W] mask, got "
+                         f"{tuple(mask.shape)}")
+    return largest_component_batch(mask[None])[0]
 
 
 def _clean(pred_flat, label_values: Sequence[int], device,
@@ -188,3 +199,51 @@ def clean_prediction_3d_cc(pred_flat, label_values: Sequence[int] = (1, 2),
     return _clean(pred_flat, label_values, device,
                   lambda m: largest_component_3d_batch(
                       m.flatten(0, -4)).reshape(m.shape))
+
+
+# -- host (numpy + scipy) filters: cmrtpu's cross-checks of the above --------
+
+def _largest_host(mask: np.ndarray, structure=None) -> np.ndarray:
+    """scipy's largest component of a binary mask (ties to the component
+    met first in raster order, which has the smallest index)."""
+    import scipy.ndimage
+
+    labels, n = scipy.ndimage.label(mask, structure=structure)
+    if n == 0:
+        return np.zeros(mask.shape, bool)
+    sizes = np.bincount(labels.ravel(), minlength=n + 1)[1:]
+    return labels == 1 + int(np.argmax(sizes))
+
+
+def clean_3d_prediction_2d_cc_host(pred) -> np.ndarray:
+    """Per slice and nonzero label value of a [Z, H, W] label volume the
+    largest 4-connected component, on the host with scipy (ref:
+    clean_3d_prediction_2d_cc, Postprocess.py:108-120). 0 is the
+    background: cmrtpu's host filter skips each slice's smallest value
+    instead, so a slice with no background loses its only label there;
+    here it keeps it, as the device filters do (ROADMAP Queue 3)."""
+    pred = np.asarray(pred)
+    cleaned = np.zeros_like(pred)
+    for out, s in zip(cleaned, pred):
+        for val in np.unique(s):
+            if val != 0:
+                out[_largest_host(s == val)] = val
+    return cleaned
+
+
+def clean_3d_prediction_3d_cc_host(pred) -> np.ndarray:
+    """Per nonzero label value the largest 26-connected component of a [Z,
+    H, W] label volume, on the host with scipy (ref:
+    clean_3d_prediction_3d_cc, Postprocess.py:64-102). 0 is the
+    background, as in ``clean_3d_prediction_2d_cc_host``; more than 9
+    label values raise, as cmrtpu's assertion does."""
+    pred = np.asarray(pred)
+    values = np.unique(pred)
+    if len(values) >= 10:
+        raise ValueError(f"too many labels: {len(values)}")
+    cleaned = np.zeros_like(pred)
+    cube = np.ones((3, 3, 3), bool)
+    for val in values:
+        if val != 0:
+            cleaned[_largest_host(pred == val, cube)] = val
+    return cleaned

@@ -67,6 +67,12 @@ from cmrtpu_torch.pipeline.histmatch import (draw_match, gated_match,
 from cmrtpu_torch.train.manual_collectives import make_manual_train_step
 
 
+def cache_nbytes(*arrays) -> int:
+    """The unpacked bytes of the arrays (numpy or tensors), as cmrtpu
+    counts a cache; ``_packed_nbytes`` counts what the card holds."""
+    return sum(int(a.nbytes) for a in arrays)
+
+
 def _uint8_packable(y: np.ndarray) -> bool:
     """True when a float label cache packs losslessly to uint8 (exact small
     non-negative integers), as cmrtpu packs its mask cache."""

@@ -42,6 +42,16 @@ def dice_coef(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
                                             + SMOOTH)
 
 
+def dice_coef_squared(y_true: torch.Tensor,
+                      y_pred: torch.Tensor) -> torch.Tensor:
+    """Soft dice with squared sums in the denominator, smooth=1."""
+    yt = _wide(y_true.reshape(-1))
+    yp = _wide(y_pred.reshape(-1))
+    intersection = torch.sum(yt * yp)
+    return (2.0 * intersection + SMOOTH) / (torch.sum(yt ** 2)
+                                            + torch.sum(yp ** 2) + SMOOTH)
+
+
 def dice_coef_channel(y_true, y_pred, channel: int) -> torch.Tensor:
     """Dice on one channel, negative indices from the back (ref: :129-152);
     NaN when the channel is absent in this config."""
@@ -54,6 +64,28 @@ def dice_coef_channel(y_true, y_pred, channel: int) -> torch.Tensor:
 def dice_coef_labels(y_true, y_pred) -> torch.Tensor:
     """Dice over the (up to 3) foreground channels from the back."""
     return dice_coef(y_true[..., -3:], y_pred[..., -3:])
+
+
+# named per-channel dices (ref: Loss_and_metrics.py:124-153): lv/upper =
+# ch[-1], myo/lower = ch[-2], rv = ch[-3], background = ch[0]
+def dice_coef_background(y_true, y_pred) -> torch.Tensor:
+    return dice_coef_channel(y_true, y_pred, 0)
+
+
+def dice_coef_rv(y_true, y_pred) -> torch.Tensor:
+    return dice_coef_channel(y_true, y_pred, -3)
+
+
+def dice_coef_myo(y_true, y_pred) -> torch.Tensor:
+    return dice_coef_channel(y_true, y_pred, -2)
+
+
+def dice_coef_lv(y_true, y_pred) -> torch.Tensor:
+    return dice_coef_channel(y_true, y_pred, -1)
+
+
+dice_coef_lower = dice_coef_myo  # the reference's aliases (ref: :135-147)
+dice_coef_upper = dice_coef_lv
 
 
 def binary_crossentropy(y_true, y_pred) -> torch.Tensor:
@@ -223,9 +255,8 @@ def default_metrics(mask_classes: int) -> Dict[str, Callable]:
     """Per-channel dice metrics of the reference's train metrics
     (ref: src/models/train_model.py:54-59) with corrected indexing."""
     metrics = {"dice_coef_labels": dice_coef_labels}
-    names = ["dice_coef_lv", "dice_coef_myo", "dice_coef_rv"]  # ch -1, -2, -3
-    for i, name in enumerate(names):
-        ch = -(i + 1)
-        if mask_classes >= -ch:
-            metrics[name] = lambda yt, yp, c=ch: dice_coef_channel(yt, yp, c)
+    # channels -1, -2, -3
+    for i, fn in enumerate((dice_coef_lv, dice_coef_myo, dice_coef_rv)):
+        if mask_classes > i:
+            metrics[fn.__name__] = fn
     return metrics

@@ -4,7 +4,7 @@
 console, ERROR duplicated into a dedicated ``<name>_errors.log`` file
 (ref: src/utils/Utils_io.py:44-98). ``ensure_dir`` is EEXIST-safe for parallel
 workers (ref: src/utils/Utils_io.py:101-116). The port's own copy of
-``cmrtpu/utils/io_utils.py`` without its JAX device listing.
+``cmrtpu/utils/io_utils.py``; its device listing names the CUDA cards.
 """
 
 from __future__ import annotations
@@ -81,3 +81,24 @@ def get_metadata_maybe(img, key: str, default: str = "not_found"):
             "utf-8").replace("\\udcfc", "ue")
     return value
 
+
+
+def show_available_devices():
+    """Accelerator inventory, the stand-in for the reference's GPU chooser
+    (ref: src/utils/Tensorflow_helper.py:4-74): one line per CUDA device in
+    the form of cmrtpu's, with the bytes in use out of the card's total
+    (``torch.cuda.mem_get_info``), or one line saying that there is none.
+    Returns the devices (``torch.device``), the CPU alone without a
+    card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        logging.info("device cpu: no CUDA device, running on the CPU")
+        return [torch.device("cpu")]
+    devices = []
+    for i in range(torch.cuda.device_count()):
+        free, total = torch.cuda.mem_get_info(i)
+        logging.info("device %s: %s, hbm %s/%s", i,
+                     torch.cuda.get_device_name(i), total - free, total)
+        devices.append(torch.device("cuda", i))
+    return devices
