@@ -146,7 +146,26 @@ phases, one line each:
                  12) and profiled, frames/s and the peak memory;
  24. train-hybrid — the same for MODEL_VARIANT wrapper, avg and unet_2p1d
                  on the same cohort; then followed and concat one warm and
-                 one timed step each, K1 once a step.
+                 one timed step each, K1 once a step;
+ 25. skip-list — on the same cohort: remat (the template as shipped, one
+                 step at REMAT 0, 1, 2 and true from one set of weights,
+                 one augmented batch and one dropout generator state, cuDNN
+                 deterministic: equal losses and running averages,
+                 gradients within REMAT_GRAD_BOUND of REMAT 0's, peak
+                 memory and step ms each; controls: a wrap without the
+                 generator replay breaks the bound, one that moves the
+                 averages in the recompute breaks their equality); bn-bf16
+                 (example_config's widths at batch 16 with BN_BF16: the
+                 eval forward, one step's gradients and running averages
+                 against float64 within BN_BF16_FACTOR of the f32
+                 BatchNorm net's distance, the loss within
+                 BN_BF16_LOSS_RTOL, peak memory beside f32 BatchNorm's);
+                 probes (cmrtpu_torch.tools.roofline --steps 5, probe2d
+                 --base --set GROUP_NORM=16, probe3d --only
+                 base,remat1,remat_full,bn_bf16 --steps 3 --warmup 2: no
+                 row with an error, every share of the H100's peaks at
+                 most 1). train-3d now runs the template's REMAT true and
+                 logs the REMAT 0 step beside it.
 Inside phase 16's cohort, after cache-dtype: supervision — the flagship
 through Trainer(cfg, supervision=True).fit_cached for one epoch, K1 once
 per train and eval step, the model.npz restored through Predictor with its
@@ -243,7 +262,13 @@ once per patient-phase), tta_ab --mode coords and int8_ab --calib-studies
 4 (K1 and K2 once per patient-phase), and soup_ab on a 4-member CV root of
 the fold and its noisy copies whose test splits are predicted first; each
 path's launches exact and each printed mean equal to the mean read back
-from the two df_eval.csv files the tool names. After phase 7: quickstart —
+from the two df_eval.csv files the tool names; then the skip-list phase's
+ws — the flagship with WEIGHT_STANDARDISATION and WS_I_UNDERSTAND through
+cli.train (EPOCHS 2, chained pred_fold) on the same cohort: K1 once per
+sample batch, step and patient-phase, K2 once per patient-phase, WSConv_0
+weights and no norm; its int8 twins without and with bias correction
+served through cli.serve (K2 once per study and the warm-up), their max
+and mean |delta prob| against the float fold at batch 16. After phase 7: quickstart —
 the port's synthetic quickstart (--epochs 3 --patients 4 --tta --int8) on
 the card with exact launches, then analyze_results, its summary.csv held
 against numpy's statistics of the df_eval.csv.
@@ -251,7 +276,8 @@ Then one JSON line of kernel figures (launches by path: serve, train,
 pred_fold, predict_cli, the variants' and multihead serving's paths, the
 resume, resume-exact and ema phases' runs, supervision, surface, the
 sharded, streamed and distributed CLI runs, train_3d, the
-train-hybrid runs, predict_cli_3d and serve_3d with CC_FILTER '3d',
+train-hybrid runs, the skip-list phase's remat batch, WS fold and its
+served twins, predict_cli_3d and serve_3d with CC_FILTER '3d',
 predict_4d, predict_4d_3d, override_twin, the serving extras' paths, the
 A/B tools' and the quickstart's),
 the card's name and power limit, and, last, the result line
@@ -294,6 +320,7 @@ from cmrtpu_torch.cli.train import main as train_main
 from cmrtpu_torch.data.dataset import fold_patients, get_trainings_files
 from cmrtpu_torch.eval.evaluate import evaluate_cv_save
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
+from cmrtpu_torch.models import unet as unet_module
 from cmrtpu_torch.models.hybrids import HYBRIDS, get_model
 from cmrtpu_torch.models.unet import (BatchNorm, ConvDecoder, ConvEncoder,
                                       build_model, dropout_schedule,
@@ -302,6 +329,7 @@ from cmrtpu_torch.ops import connected_components as cc
 from cmrtpu_torch.ops import cuda_kernels as kernels
 from cmrtpu_torch.ops.gaussian import (gaussian_blur_2d, gaussian_kernel1d,
                                        symmetric_index)
+from cmrtpu_torch.pipeline.augment import apply_params, draw_params
 from cmrtpu_torch.pipeline.generator import (DataGenerator, finalize_batch,
                                              normalise_batch)
 from cmrtpu_torch.pipeline.histmatch import _binned_cdf, \
@@ -315,7 +343,8 @@ from cmrtpu_torch.predict.predictor import (TIMING_LOG, Predictor,
                                             preprocess_model_input)
 from cmrtpu_torch.predict.ensemble import EnsemblePredictor, soup_experiment
 from cmrtpu_torch.predict.export import load_exported, load_exported_weights
-from cmrtpu_torch.predict.quantize import quantize_fold
+from cmrtpu_torch.predict.quantize import (
+    calibration_batches_from_studies, quantize_fold, quantize_model)
 from cmrtpu_torch.predict.tta import (predict_tta_twin,
                                       tta_rot90_coords_forward)
 from cmrtpu_torch.cli.export import main as export_main
@@ -329,6 +358,7 @@ from cmrtpu_torch.train.checkpoint import (_flatten, _unflatten,
 from cmrtpu_torch.train import callbacks as train_callbacks
 from cmrtpu_torch.train import device_cache
 from cmrtpu_torch.train.device_cache import DeviceCachedLoop
+from cmrtpu_torch.train.losses import get_loss
 from cmrtpu_torch.train.optimizers import get_optimizer
 from cmrtpu_torch.train.steps import TrainState
 from cmrtpu_torch.train.streaming import StreamedLoop
@@ -1226,6 +1256,10 @@ def phase_train(cfg):
         twin_paths = phase_override_twin(exp, data_root, test, work)
         extra_paths = phase_serving_extras(exp, fold, data_root, test, work)
         extra_paths.update(phase_ab_tools(exp, fold, data_root, test, work))
+        t0 = time.perf_counter()
+        _reset_all()  # the A/B tools' CC_FILTER '3d' path counted its own
+        extra_paths.update(phase_ws(cfg, data_root, test, work))
+        log("skip-list", ws_s=time.perf_counter() - t0)
     log("pred-eval", chained_pred_fold_wall_s=chained["wall_s"],
         chained_ms_per_patient_phase=_ms_per_phase(chained["phases"]),
         chained_patient_phases=chained["phases"],
@@ -2983,14 +3017,359 @@ def _fit_cine(cfg, train, val, phase, work):
 
 
 def phase_train_3d(train, val, cohort, work):
-    """The 3D template at its published widths, EPOCHS 2, through
-    DataGenerator + Trainer.fit_cached on the cine cohort (``_fit_cine``).
-    Returns the launches by path."""
+    """The 3D template at its published widths (REMAT true, as shipped),
+    EPOCHS 2, through DataGenerator + Trainer.fit_cached on the cine
+    cohort (``_fit_cine``); then the same loop's warm step at REMAT 0, so
+    that the cost of remat stands beside it. Returns the launches by
+    path."""
     with open(CINE, encoding="utf-8") as fh:
         cfg = dict(json.load(fh), EPOCHS=2)
+    check(cfg["REMAT"] is True, f"train-3d: the template's REMAT "
+          f"{cfg['REMAT']}")
     launches, fields = _fit_cine(cfg, train, val, "train-3d", work)
-    log("train-3d", **cohort, **fields)
+    loop = DeviceCachedLoop(Trainer(dict(cfg, REMAT=0), device="cuda"),
+                            train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat0 = _time_loop(loop)
+    remat0 = {"step_ms_median": remat0["step_ms_median"],
+              "peak_memory_bytes_steps": torch.cuda.max_memory_allocated()}
+    del loop
+    torch.cuda.empty_cache()
+    log("train-3d", **cohort, **fields, remat=cfg["REMAT"],
+        remat0=remat0)
     return {"train_3d": launches}
+
+
+# -- the skip list: REMAT, BN_BF16, WS and its int8 twins, the probes -------
+
+REMATS = (0, 1, 2, True)
+# remat: one step of the cine template at REMAT 0, 1, 2 and true from the
+# same weights, batch and dropout generator state, cuDNN deterministic. The
+# recompute runs the same kernels on the same inputs, so the loss and the
+# running averages are equal bit for bit; the gradients are held within
+# REMAT_GRAD_BOUND x max |g| of REMAT 0's (what is left is the order of
+# the backward's atomics), a bound that REMAT 0 against itself meets and
+# the naive wrap (dropout redrawn in the recompute) must break
+REMAT_GRAD_BOUND = 1e-3
+# bn-bf16: example_config's widths at batch 16: the BN_BF16 net's eval
+# forward and one step's gradients and running averages against float64,
+# each within BN_BF16_FACTOR x the distance of the float32-BatchNorm net
+# (bf16 convs) from float64, plus BN_BF16_SLACK; its loss within
+# BN_BF16_LOSS_RTOL of float64's (a relative difference of two losses
+# cancels too much to compare as a ratio)
+BN_BF16_BATCH = 16
+BN_BF16_FACTOR = 2.0
+BN_BF16_SLACK = 1e-3
+BN_BF16_LOSS_RTOL = 1e-2
+PROBE3D_ROWS = ("base", "remat1", "remat_full", "bn_bf16")
+
+
+def _grad_gap(a, b):
+    """max |a - b| over every gradient, over the largest |b|."""
+    return max(float((a[k] - b[k]).abs().max()) for k in b) / max(
+        float(v.abs().max()) for v in b.values())
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _remat_step(cfg, state, x, y, remat):
+    """One forward and backward of ``cfg`` at ``remat`` from ``state``:
+    (loss, gradients, buffers after it, peak bytes, the model)."""
+    model = build_model(dict(cfg, REMAT=remat)).cuda()
+    model.load_state_dict(state)
+    model.train()
+    loss_fn = get_loss(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = model(x, generator=torch.Generator("cuda").manual_seed(SEED))
+    loss = loss_fn(y, out)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()}
+    return float(loss.detach()), grads, stats, peak, model
+
+
+def phase_remat(cine, train):
+    """remat: the cine template as shipped (REMAT true, BatchNorm, bf16,
+    batch 8 of [8, 224, 224]) one step at REMAT 0, 1, 2 and true from one
+    set of weights, one augmented batch (its draws injected once) and one
+    dropout generator state: equal losses and running averages, gradients
+    within REMAT_GRAD_BOUND of REMAT 0's; a wrap without the generator
+    replay must break the bound, one that moves the running averages in
+    the recompute their equality. Peak memory and step ms per value.
+    Returns the launches (K1 once, for the batch)."""
+    cfg = dict(cine)
+    batch = int(cfg["BATCHSIZE"])
+    _reset_counts()
+    imgs = torch.from_numpy(train._cache_x[:batch]).cuda().float()
+    msks = torch.from_numpy(train._cache_y[:batch]).cuda().float()
+    params = draw_params(torch.Generator("cuda").manual_seed(SEED), cfg,
+                         batch)
+    imgs, msks = apply_params(params, imgs, msks)
+    x, y = finalize_batch(imgs, msks, cfg, masks=True)
+    launches = _counts()
+    check(launches == {"k1": 1, "k2": 0, "cc3d": 0},
+          f"remat: launches {launches} for one batch")
+    state = build_model(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    rows = {}
+    with _cudnn_deterministic():
+        loss0, grads0, stats0, _, _ = _remat_step(cfg, state, x, y, 0)
+        _, again, _, _, _ = _remat_step(cfg, state, x, y, 0)
+        rerun_gap = _grad_gap(again, grads0)
+        for remat in REMATS:
+            loss, grads, stats, peak, model = _remat_step(cfg, state, x, y,
+                                                          remat)
+            trainer = Trainer(dict(cfg, REMAT=remat), model=model,
+                              device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = _warm_step_ms(lambda: trainer.state.train_step(x, y),
+                                    reps=5, warm=2)
+            rows[str(remat)] = {
+                "loss": loss, "grad_gap": _grad_gap(grads, grads0),
+                "stats_equal": all(torch.equal(stats[k], stats0[k])
+                                   for k in stats0),
+                "peak_memory_bytes_fwd_bwd": peak,
+                "peak_memory_bytes_steps": torch.cuda.max_memory_allocated(),
+                "step_ms_median": step_ms,
+                "frames_per_s": batch * CINE_T / (step_ms / 1e3)}
+            del trainer, model, grads, stats
+            torch.cuda.empty_cache()
+        with _patched(unet_module, "_replayed",
+                      lambda orig: lambda gen, st: contextlib.nullcontext()):
+            _, naive, _, _, _ = _remat_step(cfg, state, x, y, True)
+        with _patched(unet_module, "_frozen_stats",
+                      lambda orig: lambda block: contextlib.nullcontext()):
+            _, _, twice, _, _ = _remat_step(cfg, state, x, y, True)
+    controls = {"naive_wrap_grad_gap": _grad_gap(naive, grads0),
+                "double_bn_update_stats_equal": all(
+                    torch.equal(twice[k], stats0[k]) for k in stats0)}
+    log("skip-list/remat", batch=batch, dim=cfg["DIM"], rows=rows,
+        rerun_grad_gap=rerun_gap, grad_bound=REMAT_GRAD_BOUND,
+        controls=controls, launches=launches)
+    check(rerun_gap <= REMAT_GRAD_BOUND,
+          f"remat: REMAT 0 against itself {rerun_gap} > {REMAT_GRAD_BOUND}")
+    for remat, row in rows.items():
+        check(row["loss"] == loss0 and row["stats_equal"]
+              and row["grad_gap"] <= REMAT_GRAD_BOUND,
+              f"remat {remat}: {row} against REMAT 0's loss {loss0}")
+    check(controls["naive_wrap_grad_gap"] > REMAT_GRAD_BOUND
+          and not controls["double_bn_update_stats_equal"],
+          f"remat: the controls {controls} pass the checks")
+    return launches
+
+
+def _bn_bf16_models(cfg, x):
+    """The BN_BF16 net, the float32-BatchNorm net (bf16 convs) and their
+    float64 evaluation on one set of weights, running averages from one
+    train-mode pass of the float32 net."""
+    f32_cfg = dict(cfg, BN_BF16=False, MIXED_PRECISION=False)
+    ref = _calibrate_bn(build_model(f32_cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).cuda(), x)
+    state = ref.state_dict()
+    models = {}
+    for name, c in (("bn_bf16", dict(cfg, BN_BF16=True)),
+                    ("f32_bn", dict(cfg, BN_BF16=False)),
+                    ("f64", f32_cfg)):
+        models[name] = build_model(c).cuda()
+        models[name].load_state_dict(state)
+    _as_float64(models["f64"])
+    check(isinstance(models["bn_bf16"].DownBlock_0.ConvBlock_0.BatchNorm_0,
+                     unet_module.BF16BatchNorm), "bn-bf16: no BF16BatchNorm")
+    return models
+
+
+def phase_bn_bf16():
+    """bn-bf16: example_config's widths (BatchNorm, bf16, 224^2) at batch
+    16 with BN_BF16: the eval forward and one train step's loss, gradients
+    and running averages against float64, each within BN_BF16_FACTOR x
+    the float32-BatchNorm net's distance (+ BN_BF16_SLACK); peak memory of
+    a forward and backward beside the float32-BatchNorm net's."""
+    with open(os.path.join(TEMPLATES, "example_config.json"),
+              encoding="utf-8") as fh:
+        cfg = dict(json.load(fh), BN_BF16=True)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal(
+        (BN_BF16_BATCH, *cfg["DIM"], 1)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.random((BN_BF16_BATCH, *cfg["DIM"], 2))
+                          > 0.995).astype(np.float32)).cuda()
+    with _tf32_off():
+        models = _bn_bf16_models(cfg, x)
+        with torch.inference_mode():
+            outs = {n: m.eval()(x.double() if n == "f64" else x).float()
+                    for n, m in models.items()}
+        fwd = {n: _errors(outs[n].cpu().numpy(), outs["f64"].cpu().numpy())
+               for n in ("bn_bf16", "f32_bn")}
+        loss_fn = get_loss(cfg)
+        steps, peaks = {}, {}
+        for name, model in models.items():
+            model.train()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = model(x.double() if name == "f64" else x,
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+            loss = loss_fn(y.double() if name == "f64" else y, out)
+            loss.backward()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated()
+            steps[name] = {
+                "loss": float(loss.detach()),
+                "grads": {n: p.grad.detach().double() for n, p in
+                          model.named_parameters()},
+                "averages": {n: b.detach().double() for n, b in
+                             model.named_buffers() if "running" in n}}
+    ref = steps["f64"]
+    step_err = {}
+    for name in ("bn_bf16", "f32_bn"):
+        s = steps[name]
+        step_err[name] = {
+            "loss_rel": abs(s["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_gap": _grad_gap(s["grads"], ref["grads"]),
+            "averages_gap": _grad_gap(s["averages"], ref["averages"])}
+    log("skip-list/bn-bf16", batch=BN_BF16_BATCH, dim=cfg["DIM"],
+        forward_vs_f64=fwd, step_vs_f64=step_err,
+        peak_memory_bytes_fwd_bwd={k: peaks[k] for k in ("bn_bf16",
+                                                         "f32_bn")},
+        factor=BN_BF16_FACTOR, slack=BN_BF16_SLACK,
+        loss_rtol=BN_BF16_LOSS_RTOL)
+    held = {f"forward {k}": (fwd["bn_bf16"][k], fwd["f32_bn"][k])
+            for k in ("max", "mean")}
+    held.update({k: (step_err["bn_bf16"][k], step_err["f32_bn"][k])
+                 for k in ("grad_gap", "averages_gap")})
+    for name, (got, base) in held.items():
+        check(got <= BN_BF16_FACTOR * base + BN_BF16_SLACK,
+              f"bn-bf16: {name} {got} against float32 BatchNorm's {base}")
+    check(step_err["bn_bf16"]["loss_rel"] <= BN_BF16_LOSS_RTOL,
+          f"bn-bf16: loss {step_err['bn_bf16']} against float64's")
+
+
+def _write_twin(qcfg, qvars, dst):
+    """A fold directory for the int8 twin (config, model.npz)."""
+    qcfg = dict(qcfg, EXP_PATH=dst, MODEL_PATH=os.path.join(dst, "model"))
+    os.makedirs(os.path.join(dst, "config"), exist_ok=True)
+    with open(os.path.join(dst, "config", "config.json"), "w") as fh:
+        json.dump(qcfg, fh, indent=2, default=str)
+    save_weights(qcfg["MODEL_PATH"], flax_to_state_dict(
+        qvars["params"], qvars["batch_stats"]))
+    return dst
+
+
+def phase_ws(cfg, data_root, test, work):
+    """ws: the flagship with WEIGHT_STANDARDISATION and WS_I_UNDERSTAND
+    through cli.train (EPOCHS 2, chained pred_fold) on the train phase's
+    cohort: K1 once per sample batch, step and patient-phase, K2 once per
+    patient-phase, the fold's weights WSConv_0 with no norm; then its int8
+    twins without and with bias correction, each served through cli.serve
+    (K2 once per study and the warm-up), and their |delta prob| against
+    the float fold at batch 16. Returns the launches by path."""
+    wcfg = dict(cfg, WEIGHT_STANDARDISATION=True, WS_I_UNDERSTAND=True,
+                EPOCHS=2, FOLDS=[0])
+    exp, k1, k2, chained, wall_s = _train_cli(wcfg, data_root, work, "ws")
+    batch = int(wcfg["BATCHSIZE"])
+    steps = 2 * (6 * 2 * Z // batch) + 2 * -(-(2 * 2 * Z) // batch) \
+        + _sample_launches(wcfg)
+    phases = 2 * len(test)
+    by_path = _cli_launch_checks("ws", k1, k2, chained, steps, phases)
+    fold = os.path.join(exp, "f0")
+    _check_predictions(fold, test)
+    history = _history_rows(fold, 2)
+    params, stats = load_weights(os.path.join(fold, "model"))
+    keys = set(_flatten(params))
+    check(("DownBlock_0", "ConvBlock_0", "WSConv_0", "gain") in keys
+          and not any("Norm" in "/".join(k) for k in keys)
+          and not _flatten(stats), "ws: the fold's weights are not WS")
+    fcfg = normalise_config(_fold_config(fold))
+    x = _extra_batch(data_root, test, fcfg)
+    live = Predictor(fcfg, os.path.join(fold, "model"), device=DEV).predict(x)
+    x_train, _, _, _ = get_trainings_files(
+        os.path.join(data_root, "2D"), 0,
+        os.path.join(data_root, "df_kfold.csv"))
+    calib = list(calibration_batches_from_studies(x_train, fcfg,
+                                                  batch=EXTRA_BATCH))
+    twins = {}
+    for corrected in (False, True):
+        tag = "ws_int8_bias_corrected" if corrected else "ws_int8"
+        t0 = time.perf_counter()
+        qcfg, qvars = quantize_model(fcfg, {"params": params,
+                                            "batch_stats": stats}, calib,
+                                     bias_correction=corrected, device=DEV)
+        quantize_s = time.perf_counter() - t0
+        twin = _write_twin(qcfg, qvars, os.path.join(work, tag, "f0"))
+        by_path[f"serve_{tag}"] = _serve_fold(
+            twin, os.path.join(work, f"serve_{tag}"), f"serve-{tag}",
+            {"msk": {0, 1, 2}})
+        served = Predictor(qcfg, os.path.join(twin, "model"),
+                           device=DEV).predict(x)
+        delta = np.abs(served - live)
+        check(np.isfinite(delta).all(), f"ws: {tag} outputs not finite")
+        twins[tag] = {"quantize_s": quantize_s,
+                      "max_abs_dprob": float(delta.max()),
+                      "mean_abs_dprob": float(delta.mean())}
+    log("skip-list/ws", train_wall_s=wall_s, k1_launches=k1,
+        k2_launches=k2, history=history, calib_slices=len(x_train),
+        twins=twins)
+    return by_path
+
+
+def _shares(row):
+    return [row[k] for k in ("flop_share", "byte_share") if k in row]
+
+
+def phase_probes():
+    """probes: cmrtpu_torch.tools.roofline --steps 5 (batch 128),
+    probe2d --base --set GROUP_NORM=16 and probe3d --only
+    base,remat1,remat_full,bn_bf16 --steps 3 --warmup 2, in process: no
+    row with an error, every share of the card's peaks at most 1."""
+    from cmrtpu_torch.tools import probe2d, probe3d, roofline
+
+    rows = {"roofline": roofline.main(["--steps", "5"]),
+            "probe2d": probe2d.main(["--base", "--set", "GROUP_NORM=16"])}
+    rows["probe3d"] = probe3d.main(["--only", ",".join(PROBE3D_ROWS),
+                                    "--steps", "3", "--warmup", "2"])
+    shares = _shares(rows["roofline"]) + _shares(
+        rows["probe2d"]["roofline"]) + _shares(
+        rows["probe2d"]["base_roofline"]) + _shares(
+        rows["probe3d"]["roofline:base"])
+    errors = {n: r["error"] for n, r in rows["probe3d"].items()
+              if "error" in r}
+    log("skip-list/probes", **{k: v for k, v in rows.items()})
+    check(not errors, f"probes: rows with an error {errors}")
+    check(set(rows["probe3d"]) == {*PROBE3D_ROWS, "roofline:base"},
+          f"probes: probe3d rows {sorted(rows['probe3d'])}")
+    check(len(shares) == 8 and all(0 < v <= 1.0 for v in shares),
+          f"probes: shares {shares}")
+
+
+def phase_skip_list(cine, train):
+    """The skip-list phase's card-only parts: remat, bn-bf16, probes (ws
+    runs inside the train phase, on its cohort). Returns the launches by
+    path."""
+    t0 = time.perf_counter()
+    by_path = {"skip_list_remat": phase_remat(cine, train)}
+    t1 = time.perf_counter()
+    phase_bn_bf16()
+    t2 = time.perf_counter()
+    _reset_all()
+    phase_probes()
+    check(_counts() == {"k1": 0, "k2": 0, "cc3d": 0},
+          f"probes: launches {_counts()}")
+    log("skip-list", remat_s=t1 - t0, bn_bf16_s=t2 - t1,
+        probes_s=time.perf_counter() - t2)
+    return by_path
 
 
 # -- slice 4, rest: the hybrids, the (2+1)D U-Net and deep supervision ------
@@ -5068,6 +5447,7 @@ def main():
         train, val, cohort = _cine_cohort(work)
         by_path.update(phase_train_3d(train, val, cohort, work))
         by_path.update(phase_train_hybrid(cine, train, val, work))
+        by_path.update(phase_skip_list(cine, train))
     # every path but those with CC_FILTER '3d' (counted by their own
     # entries) ran without the 3D kernel
     check(kernels.converge_labels_3d_cuda.launches == 0,

@@ -19,6 +19,8 @@ The trunks keep their own sigmoid ``head``. Submodules carry the flax names
 ``state_dict`` key is the flax path with ``/`` -> ``.`` and the weights
 bridge carries them unchanged. ``get_model`` maps MODEL_VARIANT to a
 model: 'unet' (default), 'unet_2p1d' (the (2+1)D U-Net) or a hybrid.
+REMAT, BN_BF16 and WEIGHT_STANDARDISATION reach both trunks through the
+configs they are built from.
 """
 
 from __future__ import annotations

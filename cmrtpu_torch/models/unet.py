@@ -31,15 +31,21 @@ the upsample and the transpose-conv decoders, single- or multi-head
 outputs, the (2+1)D blocks (``factorized``: FACTORIZED_3D, MODEL_VARIANT
 unet_2p1d), deep supervision and the int8 twin of post-training
 quantization (``QUANT_INT8``: every ConvBlock's conv is a ``QuantConv``;
-``cmrtpu_torch/predict/quantize.py`` writes its weights). In train mode
-dropout draws its masks from an explicit ``torch.Generator`` passed to
-``forward`` (flax draws them from the step's dropout key). Weight
-standardisation raises ``NotImplementedError`` (ROADMAP skip list); the
-hybrids are in ``hybrids.py``.
+``cmrtpu_torch/predict/quantize.py`` writes its weights), the
+normalisation-free scaled weight-standardised blocks (``WSConv``,
+WEIGHT_STANDARDISATION under WS_I_UNDERSTAND), BatchNorm with its
+normalise step in bf16 (``BF16BatchNorm``, BN_BF16 under MIXED_PRECISION)
+and per-level rematerialisation (REMAT: ``torch.utils.checkpoint`` around
+the Down- and UpBlocks of the shallowest levels). In train mode dropout
+draws its masks from an explicit ``torch.Generator`` passed to ``forward``
+(flax draws them from the step's dropout key). The hybrids are in
+``hybrids.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import math
 import warnings
 from typing import Dict, Optional, Sequence, Tuple
@@ -48,10 +54,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.ops.int8_conv import quant_conv
-from cmrtpu_torch.parallel.mesh import all_reduce_sum, batch_stats_mesh
+from cmrtpu_torch.parallel.mesh import (all_reduce_sum, batch_stats_mesh,
+                                        global_batch_stats)
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -60,6 +68,10 @@ _ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "leaky_relu": F.leaky_relu,
 }
+
+# the NF variance-preserving gain of a weight-standardised block's
+# activation (Brock et al. 2021, Tab. 5), as cmrtpu's; 1.0 for the others
+_WS_GAMMA = {"relu": 1.7139, "gelu": 1.7015, "silu": 1.7881, "elu": 1.2717}
 
 
 def effective_pools(spatial: Sequence[int], m_pool: Sequence[int],
@@ -176,9 +188,15 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError("train-mode dropout needs an explicit "
                          "torch.Generator (forward(x, generator=...))")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    keep = _keep_mask(x.shape, rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _keep_mask(shape, rate: float, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """Dropout's keep mask: True with probability 1 - rate, drawn from
+    ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
 
 
 def _upsample_nearest(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
@@ -203,13 +221,15 @@ class BatchNorm(nn.Module):
     running averages come out the same on every rank. Eval mode reads the
     running averages. Either way y = (x - mean) *
     (rsqrt(var + eps) * scale) + bias, in flax's order. ``weight`` is
-    flax's ``scale``."""
+    flax's ``scale``. While ``stats_frozen`` is set (a rematerialised
+    block's recompute), train mode leaves the running averages alone."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.stats_frozen = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -245,17 +265,84 @@ class BatchNorm(nn.Module):
                                   min=0.0)
             else:
                 mean, var = self._global_stats(x, dims, mesh)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var)
+            self._move_averages(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - _channel(mean, x)) * _channel(mul, x)
                 + _channel(self.bias, x))
+
+    @torch.no_grad()
+    def _move_averages(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.stats_frozen:
+            return
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+
+
+class BF16BatchNorm(BatchNorm):
+    """cmrtpu's ``BF16BatchNorm`` (BN_BF16 under MIXED_PRECISION): the
+    statistics in float32, the normalise step one per-channel
+    multiply-add in the input's dtype (bf16), y = x * inv + (bias - mean *
+    inv) with inv = scale * rsqrt(var + eps) rounded to that dtype. Train
+    mode takes float32 means of the input and of its square (var =
+    max(E[x^2] - E[x]^2, 0)) without a float32 copy of the activation: the
+    sums cast as they read, and E[x^2] is the squared float32 2-norm.
+    Same parameters and buffers as ``BatchNorm``, so checkpoints
+    interchange."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = (0, *range(2, x.dim()))
+            count = float(x.numel() // x.shape[1])
+            total = x.sum(dim=dims, dtype=torch.float32)
+            square = torch.linalg.vector_norm(
+                x, 2, dim=dims, dtype=torch.float32).square()
+            mesh = batch_stats_mesh()
+            if mesh is not None:
+                c = x.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    total, square, total.new_full((1,), count)]), mesh)
+                total, square, count = sums[:c], sums[c:2 * c], sums[-1]
+            mean = total / count
+            var = torch.clamp(square / count - mean.square(), min=0.0)
+            self._move_averages(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        return (x * _channel(inv.to(x.dtype), x)
+                + _channel((self.bias - mean * inv).to(x.dtype), x))
+
+
+class WSConv(nn.Module):
+    """cmrtpu's scaled weight-standardised conv (``WSConv``; NF-style,
+    arXiv:2101.08692): the kernel ``weight`` [O, I, *k] is standardised
+    over (in, spatial) per output channel and scaled by ``gain *
+    rsqrt(max(var * fan_in, 1e-4))`` (biased variance, fan_in = I *
+    prod(k)), then convolves 'same' in the compute dtype, and ``bias`` is
+    added after rounding, as in ``_conv``."""
+
+    def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(filters, in_ch, *f_size))
+        self.bias = nn.Parameter(torch.zeros(filters))
+        self.gain = nn.Parameter(torch.ones(filters))
+
+    def kernel(self) -> torch.Tensor:
+        """The standardised kernel the conv applies, in float32."""
+        w = self.weight
+        dims = tuple(range(1, w.dim()))
+        mean = w.mean(dim=dims, keepdim=True)
+        var = w.var(dim=dims, unbiased=False, keepdim=True)
+        scale = self.gain.reshape(-1, *[1] * (w.dim() - 1)) * torch.rsqrt(
+            torch.clamp(var * float(w[0].numel()), min=1e-4))
+        return (w - mean) * scale
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = _CONV[x.dim() - 2](x.to(dtype), self.kernel().to(dtype),
+                               padding="same")
+        return y + _channel(self.bias.to(dtype), y)
 
 
 class QuantConv(nn.Module):
@@ -306,12 +393,19 @@ class ConvBlock(nn.Module):
     and keeps the running per-input-channel max-abs of the block's input
     in ``calib_amax`` (float32 [C], on the input's device), which
     ``predict/quantize.py:calibrate`` reads. Any quant_mode builds the
-    unfactorized conv, as in cmrtpu."""
+    unfactorized conv, as in cmrtpu.
+
+    ``ws`` makes the block cmrtpu's normalisation-free one: ``WSConv_0``
+    (``QuantConv_0`` in the int8 twin), the activation times its NF gain
+    (``_WS_GAMMA``), no norm, no factorisation. ``bn_bf16`` makes the
+    BatchNorm a ``BF16BatchNorm`` that takes the conv's output in
+    ``dtype``, with no cast to float32."""
 
     def __init__(self, in_ch: int, filters: int, f_size: Tuple[int, ...],
                  activation: str = "relu", batch_norm: bool = True,
                  bn_first: bool = False, group_norm: int = 0,
                  factorized: bool = False, quant_mode: str = "",
+                 ws: bool = False, bn_bf16: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if quant_mode not in QUANT_MODES:
@@ -322,11 +416,14 @@ class ConvBlock(nn.Module):
         self.dtype = dtype
         self.quant_mode = quant_mode
         self.calib_amax: Optional[torch.Tensor] = None
+        self.ws_gamma = _WS_GAMMA.get(activation, 1.0) if ws else None
         self.factorized = (factorized and len(f_size) == 3 and f_size[0] > 1
-                           and not quant_mode)
+                           and not quant_mode and not ws)
         if quant_mode == "int8":
             self.QuantConv_0 = QuantConv(in_ch, filters, tuple(f_size),
                                          dtype)
+        elif ws:
+            self.WSConv_0 = WSConv(in_ch, filters, tuple(f_size))
         elif self.factorized:
             self.Conv_0 = nn.Conv2d(in_ch, filters, tuple(f_size[1:]),
                                     padding="same")
@@ -337,6 +434,9 @@ class ConvBlock(nn.Module):
                                                     tuple(f_size),
                                                     padding="same")
         self.norm_name: Optional[str] = None
+        self.bn_bf16 = False
+        if ws:  # normalisation-free
+            group_norm, batch_norm = 0, False
         if group_norm:
             groups = min(int(group_norm), filters)
             while filters % groups:  # GroupNorm needs groups | channels
@@ -345,11 +445,15 @@ class ConvBlock(nn.Module):
             self.GroupNorm_0 = nn.GroupNorm(groups, filters, eps=1e-3)
         elif batch_norm:
             self.norm_name = "BatchNorm_0"
-            self.BatchNorm_0 = BatchNorm(filters)
+            self.bn_bf16 = bn_bf16
+            self.BatchNorm_0 = BF16BatchNorm(filters) if bn_bf16 \
+                else BatchNorm(filters)
 
     def _norm(self, y: torch.Tensor) -> torch.Tensor:
         if self.norm_name is None:
             return y
+        if self.bn_bf16:
+            return self.BatchNorm_0(y)
         return getattr(self, self.norm_name)(y.to(wide_dtype(self.dtype)))
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
@@ -359,6 +463,8 @@ class ConvBlock(nn.Module):
             amax = x.float().abs().amax(dim=(0, *range(2, x.dim())))
             self.calib_amax = amax if self.calib_amax is None \
                 else torch.maximum(self.calib_amax, amax)
+        if self.ws_gamma is not None:
+            return self.WSConv_0(x, self.dtype)
         if not self.factorized:
             return _conv(self.Conv_0, x, self.dtype)
         b, c, t, h, w = x.shape
@@ -368,6 +474,8 @@ class ConvBlock(nn.Module):
         return _conv(self.Conv_1, y, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ws_gamma is not None:
+            return (self.act(self._conv(x)) * self.ws_gamma).to(self.dtype)
         if self.bn_first:
             x = self.act(self._norm(self._conv(x)))
         else:
@@ -441,8 +549,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers on every submodule of ``module``, from
     an explicit generator: he_normal conv kernels (the fan-in of a
     transposed kernel [in, out, *k] is in * prod(k), as flax's HWIO /
-    DHWIO), zero biases, unit norm scales, zero-mean/unit-variance running
-    stats."""
+    DHWIO), zero biases, unit norm scales and WS gains,
+    zero-mean/unit-variance running stats."""
     with torch.no_grad():
         for mod in module.modules():
             if isinstance(mod, tuple(_CONV_MODULE.values())):
@@ -452,6 +560,10 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 he_normal_(mod.weight, generator,
                            fan_in=mod.weight[:, 0].numel())
                 mod.bias.zero_()
+            elif isinstance(mod, WSConv):
+                he_normal_(mod.weight, generator)
+                mod.bias.zero_()
+                mod.gain.fill_(1.0)
             elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
                 mod.reset_parameters()
 
@@ -484,12 +596,79 @@ def _add_encoder(module: nn.Module, in_ch: int, depth: int, filters: int,
     return tuple(skips)
 
 
-def _encode(module: nn.Module, x: torch.Tensor, pools, generator):
+@contextlib.contextmanager
+def _replayed(generator: Optional[torch.Generator], state):
+    """Inside the block ``generator`` draws from ``state``, where a
+    block's first run started; afterwards it is back where it was."""
+    if generator is None:
+        yield
+        return
+    after = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(after)
+
+
+@contextlib.contextmanager
+def _frozen_stats(block: nn.Module):
+    """Inside the block the BatchNorms of ``block`` leave their running
+    averages alone."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stats_frozen = False
+
+
+def _remat(block: nn.Module, generator: Optional[torch.Generator], *args):
+    """``block(*args, generator)`` without keeping its activations: the
+    backward pass recomputes them (``torch.utils.checkpoint``,
+    non-reentrant). The recompute must be the same function as the first
+    run, as flax's functional ``nn.remat`` is by construction: it draws
+    the same dropout masks (``generator`` replayed from its state at the
+    first run; ``checkpoint`` saves only torch's global generators), moves
+    no running average a second time and, inside
+    ``mesh.global_batch_stats``, reduces BatchNorm's statistics over the
+    same mesh (the backward runs outside that block). Every rank
+    recomputes, so the all-reduces of the statistics run twice a step."""
+    first = {}
+
+    def run(*inputs):
+        if not first:
+            first["state"] = None if generator is None \
+                else generator.get_state()
+            first["mesh"] = batch_stats_mesh()
+            return block(*inputs, generator=generator)
+        with _replayed(generator, first["state"]), _frozen_stats(block), \
+                global_batch_stats(first["mesh"]):
+            return block(*inputs, generator=generator)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _block(block: nn.Module, remat: bool, generator, *args):
+    """``block(*args, generator)``, rematerialised when ``remat`` and
+    autograd records (there is nothing to recompute otherwise)."""
+    if remat and torch.is_grad_enabled():
+        return _remat(block, generator, *args)
+    return block(*args, generator=generator)
+
+
+def _encode(module: nn.Module, x: torch.Tensor, pools, generator,
+            n_remat: int = 0):
     """Run ``_add_encoder``'s children on NCHW / NCDHW ``x`` with one pool
-    per level. Returns (encoding, skips shallowest first)."""
+    per level, rematerialising the levels below ``n_remat``. Returns
+    (encoding, skips shallowest first)."""
     skips = []
     for level, pool in enumerate(pools):
-        skip, x = getattr(module, f"DownBlock_{level}")(x, pool, generator)
+        skip, x = _block(getattr(module, f"DownBlock_{level}"),
+                         level < n_remat, generator, x, pool)
         skips.append(skip)
     x = module.ConvBlock_1(_dropout(module.ConvBlock_0(x),
                                     module.drop_bottleneck, module.training,
@@ -513,15 +692,19 @@ def _add_decoder(module: nn.Module, in_ch: int, skips: Sequence[int],
     return ch
 
 
-def _decode(module: nn.Module, x: torch.Tensor, skips, up_sizes, generator):
+def _decode(module: nn.Module, x: torch.Tensor, skips, up_sizes, generator,
+            n_remat: int = 0):
     """Run ``_add_decoder``'s children, block i upsampling by
-    ``up_sizes[i]`` and consuming the deepest skip left. Returns (output,
-    the last block's input)."""
+    ``up_sizes[i]`` and consuming the deepest skip left; block i builds
+    level ``len(up_sizes) - 1 - i`` and is rematerialised when that level
+    lies below ``n_remat``. Returns (output, the last block's input)."""
     skips = list(skips)
     lower = x
     for i, up in enumerate(up_sizes):
         lower = x
-        x = getattr(module, f"UpBlock_{i}")(x, skips.pop(), up, generator)
+        x = _block(getattr(module, f"UpBlock_{i}"),
+                   len(up_sizes) - 1 - i < n_remat, generator, x,
+                   skips.pop(), up)
     return x, lower
 
 
@@ -548,7 +731,8 @@ class ConvEncoder(nn.Module):
                  drop_bottleneck: float = 0.5, activation: str = "relu",
                  batch_norm: bool = True, bn_first: bool = False,
                  group_norm: int = 0, factorized: bool = False,
-                 quant_mode: str = "",
+                 quant_mode: str = "", ws: bool = False,
+                 bn_bf16: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         _check_rank(f_size, m_pool)
@@ -558,7 +742,8 @@ class ConvEncoder(nn.Module):
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
                   group_norm=group_norm, factorized=factorized,
-                  quant_mode=quant_mode, dtype=dtype)
+                  quant_mode=quant_mode, ws=ws, bn_bf16=bn_bf16,
+                  dtype=dtype)
         self.skip_channels = _add_encoder(self, in_channels, depth, filters,
                                           dropouts, drop_bottleneck, kw)
         self.out_channels = filters * 2 ** depth
@@ -599,7 +784,8 @@ class ConvDecoder(nn.Module):
                  use_upsample: bool = True, activation: str = "relu",
                  batch_norm: bool = True, bn_first: bool = False,
                  group_norm: int = 0, factorized: bool = False,
-                 quant_mode: str = "",
+                 quant_mode: str = "", ws: bool = False,
+                 bn_bf16: bool = False,
                  in_channels: Optional[int] = None,
                  skip_channels: Optional[Sequence[int]] = None,
                  dtype: torch.dtype = torch.bfloat16):
@@ -618,7 +804,8 @@ class ConvDecoder(nn.Module):
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
                   group_norm=group_norm, factorized=factorized,
-                  quant_mode=quant_mode, dtype=dtype)
+                  quant_mode=quant_mode, ws=ws, bn_bf16=bn_bf16,
+                  dtype=dtype)
         if skip_channels is None:
             skip_channels = per_block[::-1]
         _add_decoder(self, 2 * filters if in_channels is None
@@ -641,7 +828,13 @@ class UNet(nn.Module):
     ``supervision`` adds cmrtpu's deep-supervision branch: the input of the
     last UpBlock goes through ``Conv_0`` (a 1 x ... x 1 conv to ``filters``
     channels) and the activation, is upsampled nearest by the first level's
-    pool and multiplies the decoder's output ahead of the head."""
+    pool and multiplies the decoder's output ahead of the head.
+
+    ``remat`` (cmrtpu's REMAT) recomputes blocks in the backward pass
+    instead of keeping their activations: True every DownBlock and
+    UpBlock, an int N those of the N shallowest levels (level 0 holds the
+    full-resolution activations); the bottleneck never. It changes no
+    parameter name and no value, only the memory a train step holds."""
 
     def __init__(self, in_channels: int = 1, depth: int = 4, filters: int = 32,
                  f_size: Tuple[int, ...] = (3, 3),
@@ -653,11 +846,13 @@ class UNet(nn.Module):
                  logit_softcap=None, use_upsample: bool = True,
                  heads: Sequence[Tuple[str, int, str]] = (),
                  factorized: bool = False, supervision: bool = False,
-                 quant_mode: str = "",
+                 quant_mode: str = "", ws: bool = False,
+                 bn_bf16: bool = False, remat=False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         _check_rank(f_size, m_pool)
         self.depth = depth
+        self.n_remat = depth if remat is True else int(remat or 0)
         self.filters = filters
         self.f_size = tuple(f_size)
         self.m_pool = tuple(m_pool)
@@ -671,7 +866,8 @@ class UNet(nn.Module):
         kw = dict(f_size=tuple(f_size), activation=activation,
                   batch_norm=batch_norm, bn_first=bn_first,
                   group_norm=group_norm, factorized=factorized,
-                  quant_mode=quant_mode, dtype=dtype)
+                  quant_mode=quant_mode, ws=ws, bn_bf16=bn_bf16,
+                  dtype=dtype)
         skips = _add_encoder(self, in_channels, depth, filters, dropouts,
                              drop_bottleneck, kw)
         bottom = filters * 2 ** depth
@@ -723,8 +919,9 @@ class UNet(nn.Module):
                 f"UNet: M_POOL={self.m_pool} exhausts an axis before "
                 f"DEPTH={self.depth} on input {tuple(x.shape)}; using "
                 f"per-level pools {pools}.", stacklevel=2)
-        x, skips = _encode(self, x, pools, generator)
-        x, pre_last = _decode(self, x, skips, pools[::-1], generator)
+        x, skips = _encode(self, x, pools, generator, self.n_remat)
+        x, pre_last = _decode(self, x, skips, pools[::-1], generator,
+                              self.n_remat)
         if self.supervision:
             lower = self.act(_conv(self.Conv_0, pre_last, self.dtype))
             x = _upsample_nearest(lower, pools[0]) * x
@@ -777,19 +974,15 @@ def dropout_schedule(config: Dict) -> Tuple[float, ...]:
     return tuple(round(float(v), 1) for v in lin)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to cmrtpu_torch yet (ROADMAP {item}); "
-        "serve this config with cmrtpu")
-
-
 def build_model(config: Dict, supervision: bool = False,
                 factorized: bool = False) -> UNet:
     """Model factory from the flat config (counterpart of
     ``cmrtpu.models.unet.build_model``): ``len(DIM)`` selects 2D or 3D, and
     F_SIZE and M_POOL are right-sliced to that rank. Parameters are left at
     torch's defaults: load weights, or call
-    ``reset_parameters(generator)``."""
+    ``reset_parameters(generator)``. WEIGHT_STANDARDISATION raises a
+    ValueError without WS_I_UNDERSTAND and logs a warning with it, as
+    cmrtpu's factory does."""
     ndims = C.ndims(config)
     if ndims not in _CONV:
         raise ValueError(f"DIM {C.get(config, 'DIM')}: the U-Net is 2D or "
@@ -803,13 +996,24 @@ def build_model(config: Dict, supervision: bool = False,
             "int8 PTQ does not support factorized (2+1)D models "
             "(MODEL_VARIANT='unet_2p1d' / FACTORIZED_3D=True); serve the "
             "factorized model in float")
-    if C.get(config, "WEIGHT_STANDARDISATION", False):
-        _not_ported("WEIGHT_STANDARDISATION (a closed dead-end)", "skip list")
-    if C.get(config, "BN_BF16", False) and C.get(config, "MIXED_PRECISION"):
-        warnings.warn("BN_BF16 is a TPU memory knob: cmrtpu_torch runs "
-                      "BatchNorm in f32 (ROADMAP skip list)", stacklevel=2)
-    # REMAT only trades memory for recompute in the backward pass: at
-    # inference it changes nothing, so it is accepted and ignored
+    ws = bool(C.get(config, "WEIGHT_STANDARDISATION", False))
+    batch_norm = bool(C.get(config, "BATCH_NORMALISATION"))
+    if ws:
+        # a closed dead-end in cmrtpu (it collapses to all-zero
+        # predictions at flagship scale), so it needs an acknowledgement
+        if not C.get(config, "WS_I_UNDERSTAND", False):
+            raise ValueError(
+                "WEIGHT_STANDARDISATION is a CLOSED experimental dead-end: "
+                "it trains at small scale but collapsed to all-zero "
+                "predictions on every flagship-scale RVIP config tested "
+                "(see IMPLEMENTATION_STATUS.md). Set WS_I_UNDERSTAND=true "
+                "to build it anyway (small-scale probes only); use "
+                "GROUP_NORM=16 for a stable BatchNorm alternative.")
+        logging.warning(
+            "WEIGHT_STANDARDISATION (acknowledged via WS_I_UNDERSTAND): "
+            "EXPERIMENTAL, collapses at flagship scale%s.",
+            "; BATCH_NORMALISATION is ignored for the conv blocks"
+            if batch_norm else "")
     act = str(C.get(config, "ACTIVATION")).lower()
     act = act if act in _ACTIVATIONS else "relu"
     dtype = torch.bfloat16 if C.get(config, "MIXED_PRECISION") else torch.float32
@@ -823,7 +1027,7 @@ def build_model(config: Dict, supervision: bool = False,
         dropouts=dropout_schedule(config),
         drop_bottleneck=float(C.get(config, "DROPOUT_MAX")),
         activation=act,
-        batch_norm=bool(C.get(config, "BATCH_NORMALISATION")),
+        batch_norm=batch_norm,
         bn_first=bool(C.get(config, "BN_FIRST")),
         group_norm=int(C.get(config, "GROUP_NORM", 0) or 0),
         head_bias_prior=C.get(config, "HEAD_BIAS_PRIOR", None),
@@ -834,5 +1038,9 @@ def build_model(config: Dict, supervision: bool = False,
         supervision=supervision,
         # the serving-only twin that predict/quantize.py writes
         quant_mode="int8" if quant else "",
+        ws=ws,
+        bn_bf16=bool(C.get(config, "BN_BF16", False)
+                     and C.get(config, "MIXED_PRECISION")),
+        remat=C.get(config, "REMAT", False),
         dtype=dtype,
     )

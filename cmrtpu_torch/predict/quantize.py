@@ -10,9 +10,14 @@ From a trained float fold, offline:
   2. **Quantize** (numpy, a copy of cmrtpu's arithmetic on the flax tree):
      ``act_scale = amax / 127`` is folded into the kernel along its input
      channels, then the kernel is quantized per output channel (int8
-     ``kernel_q``, float32 ``w_scale``). Norms, up-sampling convs and heads
-     stay float.
-  3. **Refit GroupNorm** (GROUP_NORM configs): two passes of a per-channel
+     ``kernel_q``, float32 ``w_scale``). A weight-standardised block's
+     kernel is quantized from its effective kernel (the standardisation
+     and gain applied), so the twin needs no standardisation pass. Norms,
+     up-sampling convs and heads stay float.
+  3. **Bias correction** (``bias_correction=True``): each quantized conv's
+     mean output error per channel on the calibration batches, upstream
+     first, folded into the twin's bias (``bias_correct``).
+  4. **Refit GroupNorm** (GROUP_NORM configs): two passes of a per-channel
      least-squares refit of every GroupNorm affine against the float model,
      both forwards on the device and only [C]-vectors of moments to the
      host.
@@ -25,13 +30,14 @@ function than cmrtpu's twin.
 
 Divergences from cmrtpu (ROADMAP Queue 3): a GroupNorm channel whose scale
 is below ``GN_SCALE_FLOOR`` is degenerate and keeps its affine, where
-cmrtpu divides by it (inf/NaN moments); ``bias_correct`` is on the skip
-list, so ``quantize_model(bias_correction=True)`` raises (its default, off,
-is what cmrtpu's code runs); (2+1)D and hybrid models raise.
+cmrtpu divides by it (inf/NaN moments); (2+1)D and hybrid models raise.
+``quantize_model`` runs ``bias_correct`` only when asked, as cmrtpu's code
+does (its docstring promises it by default for GroupNorm).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Dict, Iterable, List, Tuple
@@ -117,36 +123,50 @@ def calibrate(model: torch.nn.Module, batches: Iterable[np.ndarray]
             block.quant_mode, block.calib_amax = "", None
 
 
+# the float convs a ConvBlock may hold, as cmrtpu names them
+FLOAT_CONVS = ("Conv_0", "WSConv_0")
+
+
 def _effective_kernel(conv_name: str, subtree: Dict[str, np.ndarray]):
-    """(kernel, bias) in float64 as the float conv applies them. Only the
-    plain ``Conv_0``: weight standardisation (``WSConv_0``) is on the skip
-    list and raises when its model is built."""
-    if conv_name != "Conv_0":
-        raise ValueError(f"{conv_name}: only the plain Conv_0 is quantized "
-                         "(WEIGHT_STANDARDISATION is on the ROADMAP skip "
-                         "list)")
-    return (np.asarray(subtree["kernel"], np.float64),
-            np.asarray(subtree["bias"], np.float64))
+    """(kernel, bias) in float64 as the float conv applies them: a
+    ``WSConv_0`` kernel [*k, I, O] standardised over (spatial, in) per
+    output channel and scaled by ``gain / sqrt(max(var * fan_in, 1e-4))``,
+    cmrtpu's arithmetic in float64; a ``Conv_0`` kernel as it is."""
+    kernel = np.asarray(subtree["kernel"], np.float64)
+    bias = np.asarray(subtree["bias"], np.float64)
+    if conv_name == "WSConv_0":
+        gain = np.asarray(subtree["gain"], np.float64)
+        axes = tuple(range(kernel.ndim - 1))
+        mean = kernel.mean(axis=axes, keepdims=True)
+        var = kernel.var(axis=axes, keepdims=True)
+        fan_in = float(np.prod(kernel.shape[:-1]))
+        kernel = (kernel - mean) * (
+            gain / np.sqrt(np.maximum(var * fan_in, 1e-4)))
+    elif conv_name != "Conv_0":
+        raise ValueError(f"{conv_name}: not one of {FLOAT_CONVS}")
+    return kernel, bias
 
 
 def quantize_variables(variables: Dict,
                        amax: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     """The float variable trees (flax layout, numpy) -> the int8 twin's, a
-    copy: every calibrated block's ``Conv_0`` becomes ``QuantConv_0``
-    (int8 ``kernel_q``, float32 ``w_scale`` per output channel,
-    ``act_scale`` per input channel, ``bias``), with ``act_scale`` folded
-    into the kernel before it is quantized; every other leaf passes
+    copy: every calibrated block's ``Conv_0`` or ``WSConv_0`` becomes
+    ``QuantConv_0`` (int8 ``kernel_q``, float32 ``w_scale`` per output
+    channel, ``act_scale`` per input channel, ``bias``), quantized from its
+    effective kernel with ``act_scale`` folded in; every other leaf passes
     through."""
     flat = {k: np.asarray(v) for k, v in _flatten(variables["params"]).items()}
     out: Dict[Tuple[str, ...], np.ndarray] = {}
     replaced = []
     for scope, a in sorted(amax.items()):
-        if scope + ("Conv_0", "kernel") not in flat:
+        conv_name = next((name for name in FLOAT_CONVS
+                          if scope + (name, "kernel") in flat), None)
+        if conv_name is None:
             raise KeyError(f"calibrated block {'/'.join(scope)} has no "
-                           "Conv_0 kernel in the parameter tree")
+                           "Conv_0/WSConv_0 kernel in the parameter tree")
         subtree = {k[-1]: v for k, v in flat.items()
-                   if k[:-1] == scope + ("Conv_0",)}
-        kernel, bias = _effective_kernel("Conv_0", subtree)
+                   if k[:-1] == scope + (conv_name,)}
+        kernel, bias = _effective_kernel(conv_name, subtree)
         act_scale = np.maximum(np.asarray(a, np.float64), 1e-12) / 127.0
         # the kernel is [*spatial, I, O]: act_scale broadcasts over I
         kernel = kernel * act_scale[:, None]
@@ -159,13 +179,98 @@ def quantize_variables(variables: Dict,
         out[q + ("w_scale",)] = w_scale.astype(np.float32)
         out[q + ("act_scale",)] = act_scale.astype(np.float32)
         out[q + ("bias",)] = bias.astype(np.float32)
-        replaced.append(scope + ("Conv_0",))
+        replaced.append(scope + (conv_name,))
     for key, val in flat.items():
         if not any(key[:len(p)] == p for p in replaced):
             out[key] = val.copy()
     stats = {k: np.asarray(v).copy() for k, v in
              _flatten(variables.get("batch_stats") or {}).items()}
     return {"params": _unflatten(out), "batch_stats": _unflatten(stats)}
+
+
+def _forward_order(scope: Tuple[str, ...]):
+    """cmrtpu's upstream-first order of block scopes: DownBlocks, the
+    bottleneck's ConvBlocks, UpBlocks, each by index, their ConvBlocks by
+    index."""
+    pos = []
+    for part in scope:
+        kind, _, idx = part.rpartition("_")
+        pos.append(({"DownBlock": 0, "ConvBlock": 1, "UpBlock": 2}.get(
+            kind, 3), int(idx) if idx.isdigit() else 0))
+    return pos
+
+
+@contextlib.contextmanager
+def _conv_channel_means(block, sink: list):
+    """Inside the block each call of ``block``'s conv (``ConvBlock._conv``:
+    the raw conv output, bias added, before activation and norm) appends
+    its float64 mean per output channel, on the device, to ``sink``."""
+    conv = block._conv
+
+    def capture(x):
+        y = conv(x)
+        sink.append(y.double().mean(dim=(0, *range(2, y.dim()))))
+        return y
+
+    block._conv = capture
+    try:
+        yield
+    finally:
+        del block._conv
+
+
+@torch.inference_mode()
+def bias_correct(model: torch.nn.Module, variables: Dict, qcfg: Dict,
+                 qvars: Dict, batches: Iterable[np.ndarray]) -> Dict:
+    """Per-output-channel bias correction of the int8 twin (cmrtpu's
+    ``bias_correct``; Nagel et al., arXiv:1906.04721 §5, computed
+    empirically): the float U-Net ``model`` (``variables`` are loaded into
+    it; it runs on its device) and the twin of ``qcfg`` run the same
+    ``batches``, and each quantized conv's raw output is captured. The
+    twin's convs are visited upstream first (``_forward_order``); each one
+    adds E[float_out - quant_out] per output channel, over every batch,
+    to its float32 bias, with the twin's upstream biases already
+    corrected. Returns the corrected trees (a copy)."""
+    from cmrtpu_torch.models.unet import build_model
+
+    device = next(model.parameters()).device
+    model.load_state_dict({k: v.to(device) for k, v in flax_to_state_dict(
+        variables["params"], variables.get("batch_stats") or {}).items()})
+    model.eval()
+    batches = [torch.as_tensor(np.asarray(b, np.float32), device=device)
+               for b in batches]
+    float_blocks = dict(_conv_blocks(model))
+    float_means = {scope: [] for scope in float_blocks}
+    with contextlib.ExitStack() as stack:
+        for scope, block in float_blocks.items():
+            stack.enter_context(_conv_channel_means(block,
+                                                    float_means[scope]))
+        for x in batches:
+            model(x)
+    stats = qvars.get("batch_stats") or {}
+    qmodel = build_model(qcfg).to(device).eval()
+    qmodel.load_state_dict({k: v.to(device) for k, v in flax_to_state_dict(
+        qvars["params"], stats).items()})
+    corrected = {k: np.asarray(v).copy() for k, v in
+                 _flatten(qvars["params"]).items()}
+    q_blocks = dict(_conv_blocks(qmodel))
+    for scope in sorted((s for s in q_blocks
+                         if s + ("QuantConv_0", "bias") in corrected),
+                        key=_forward_order):
+        if len(float_means.get(scope, ())) != len(batches):
+            raise KeyError(f"bias_correct: no float conv output for "
+                           f"{'/'.join(scope)}")
+        block, q_means = q_blocks[scope], []
+        with _conv_channel_means(block, q_means):
+            for x in batches:
+                qmodel(x)
+        delta = sum((f - q).cpu().numpy() for f, q in
+                    zip(float_means[scope], q_means)) / len(batches)
+        key = scope + ("QuantConv_0", "bias")
+        corrected[key] = (np.asarray(corrected[key], np.float64)
+                          + delta).astype(np.float32)
+        block.QuantConv_0.bias.copy_(torch.from_numpy(corrected[key]))
+    return {"params": _unflatten(corrected), "batch_stats": stats}
 
 
 def _group_norms(model: torch.nn.Module):
@@ -210,6 +315,8 @@ def _gn_moments(model: torch.nn.Module, qmodel: torch.nn.Module,
             counts[scope] = float(y_q.numel() // y_q.shape[1])
         return hook
 
+    if not _group_norms(model):  # e.g. a WS net under GROUP_NORM
+        return {}
     handles = [mod.register_forward_hook(keep(scope))
                for scope, mod in _group_norms(model)]
     handles += [mod.register_forward_hook(reduce(scope))
@@ -274,21 +381,16 @@ def gn_recalibrate(model: torch.nn.Module, qcfg: Dict, qvars: Dict,
 
 def quantize_model(config: Dict, variables: Dict,
                    calib_batches: Iterable[np.ndarray],
-                   bias_correction: bool = False, device="cuda"):
+                   bias_correction: bool = None, device="cuda"):
     """Trained float (config, variable trees) -> int8 twin (config with
-    ``QUANT_INT8: true``, variable trees): calibrate and refit on
-    ``device``, quantize on the host. GroupNorm configs get
-    ``gn_recalibrate``. ``bias_correction`` is on the ROADMAP skip list and
-    raises; off is what cmrtpu's code runs by default."""
+    ``QUANT_INT8: true``, variable trees): calibrate, correct and refit on
+    ``device``, quantize on the host. ``bias_correction`` true runs
+    ``bias_correct``; its default, None, does not, as in cmrtpu. GroupNorm
+    configs then get ``gn_recalibrate``."""
     cfg = C.normalise_config(config)
     if C.get(cfg, "QUANT_INT8", False):
         raise ValueError("config is already the int8 twin (QUANT_INT8=True) "
                          "— quantize the FLOAT fold/checkpoint instead")
-    if bias_correction:
-        raise ValueError(
-            "bias_correct is on the ROADMAP skip list (measured ineffective, "
-            "no production caller): quantize with bias_correction=False; "
-            "GroupNorm twins are refitted by gn_recalibrate")
     _require_unet(cfg)
     dev = resolve_device(device)
     model = _float_model(cfg, variables, dev)
@@ -297,6 +399,8 @@ def quantize_model(config: Dict, variables: Dict,
     qvars = quantize_variables(variables, amax)
     qcfg = dict(cfg)
     qcfg["QUANT_INT8"] = True
+    if bias_correction:
+        qvars = bias_correct(model, variables, qcfg, qvars, calib)
     if int(C.get(cfg, "GROUP_NORM", 0) or 0):
         qvars = gn_recalibrate(model, qcfg, qvars, calib)
     return qcfg, qvars

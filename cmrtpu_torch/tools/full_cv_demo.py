@@ -241,15 +241,11 @@ def main(argv=None):
     parser.add_argument("--cache-sharded", action="store_true",
                         help="the sharded device cache (CACHE_SHARDED) on "
                              "its one shard (ROADMAP 6.0)")
-    # cmrtpu's arm that the port does not run
     parser.add_argument("--ws", action="store_true",
-                        help="not ported (ROADMAP skip list)")
+                        help="normalization-free scaled-WS convs instead of "
+                             "BatchNorm (WEIGHT_STANDARDISATION; "
+                             "EXPERIMENTAL: collapses at flagship scale)")
     args = parser.parse_args(argv)
-
-    if args.ws:
-        raise NotImplementedError(
-            "--ws: not ported to cmrtpu_torch (ROADMAP skip list); run "
-            "examples/full_cv_demo.py with cmrtpu")
 
     from cmrtpu_torch import config as C
     from cmrtpu_torch.cli.make_dataset import main as make_dataset_main
@@ -290,8 +286,10 @@ def main(argv=None):
         "MONITOR_LOCALISATION": True,
         "MONITOR_FUNCTION": "val_loss",
         "SAVE_MODEL_FUNCTION": "val_loc_mm", "SAVE_MODEL_MODE": "min",
-        "BATCH_NORMALISATION": True,
-        "GROUP_NORM": 0 if args.bn else args.group_norm,
+        "WEIGHT_STANDARDISATION": args.ws,
+        "WS_I_UNDERSTAND": args.ws,  # the explicit --ws flag is the ack
+        "BATCH_NORMALISATION": not args.ws,
+        "GROUP_NORM": 0 if (args.bn or args.ws) else args.group_norm,
         "HEAD_BIAS_PRIOR": args.head_prior,
         "CACHE_DTYPE": args.cache_dtype, "CACHE_SHARDED": args.cache_sharded,
         "AGC": args.agc,

@@ -71,9 +71,11 @@ def generate_dataset(root: str, n_patients: int = 10, hw: int = 64,
 
 
 def quickstart_config(root: str, epochs: int, dim: int,
-                      cache_dtype: str = "float32", ema: bool = False) -> dict:
-    """The experiment config cmrtpu's quickstart trains (without --ws,
-    which the port refuses)."""
+                      cache_dtype: str = "float32", ema: bool = False,
+                      ws: bool = False) -> dict:
+    """The experiment config cmrtpu's quickstart trains; ``ws`` is its
+    --ws arm (scaled weight-standardised convs, acknowledged, no
+    BatchNorm)."""
     return {
         "EXPERIMENT": "quickstart",
         "EXPERIMENTS_ROOT": os.path.join(root, "exp/"),
@@ -88,8 +90,9 @@ def quickstart_config(root: str, epochs: int, dim: int,
         "MONITOR_FUNCTION": "val_loss", "SAVE_MODEL_FUNCTION": "val_loss",
         "GAUS": True, "SIGMA": 2,  # Var.2 heatmap targets: fast convergence
         "CACHE_DTYPE": cache_dtype,
-        "WEIGHT_STANDARDISATION": False, "WS_I_UNDERSTAND": False,
-        "BATCH_NORMALISATION": True,
+        "WEIGHT_STANDARDISATION": ws,
+        "WS_I_UNDERSTAND": ws,  # the explicit --ws flag is the ack
+        "BATCH_NORMALISATION": not ws,
         "EMA": ema,
     }
 
@@ -109,8 +112,9 @@ def main(argv=None) -> dict:
                              "bfloat16 | uint8 (per-example affine "
                              "quantization; quality A/B knob)")
     parser.add_argument("--ws", action="store_true",
-                        help="scaled weight-standardised convs: on the "
-                             "port's skip list, raises")
+                        help="normalization-free scaled-WS convs instead of "
+                             "BatchNorm (an experimental arm: it collapses "
+                             "at flagship scale)")
     parser.add_argument("--ema", action="store_true",
                         help="train with an EMA shadow of the params "
                              "(EMA: true, decay 0.999) — checkpoints and "
@@ -133,10 +137,6 @@ def main(argv=None) -> dict:
                         help="torch device (default cuda; cpu only when "
                              "asked for)")
     args = parser.parse_args(argv)
-    if args.ws:
-        raise NotImplementedError(
-            "--ws (WEIGHT_STANDARDISATION) is on cmrtpu_torch's skip list "
-            "(ROADMAP); run it with examples/synthetic_quickstart.py")
 
     from cmrtpu_torch.eval.evaluate import evaluate_cv
     from cmrtpu_torch.tools.columns import mean, report_ab, sd
@@ -146,7 +146,7 @@ def main(argv=None) -> dict:
     generate_dataset(args.root, n_patients=args.patients, hw=args.dim)
     t1 = time.perf_counter()
     config = quickstart_config(args.root, args.epochs, args.dim,
-                               args.cache_dtype, args.ema)
+                               args.cache_dtype, args.ema, args.ws)
     exp_path = run_experiment(config, data_path=args.root,
                               device=args.device)
     t2 = time.perf_counter()

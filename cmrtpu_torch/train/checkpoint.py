@@ -24,6 +24,8 @@ trunk ``params/unet_2d/DownBlock_0/...``. The torch modules of
   HWIO, DHWIO                         OIHW, OIDHW (the int8 twin)
   ``.../QuantConv_0/{w_scale,         the same names, as they are
   act_scale}``
+  ``.../WSConv_0/kernel`` HWIO, DHWIO ``....WSConv_0.weight`` OIHW, OIDHW
+  ``.../WSConv_0/gain``               ``....WSConv_0.gain``
 
 flax's ``ConvTranspose`` does not flip its kernel (``transpose_kernel``
 False) and torch's transposed convolution, the gradient of a convolution,
@@ -63,7 +65,7 @@ STATE_NAME = "state.pt"
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var",
              "kernel_q": "kernel_q", "w_scale": "w_scale",
-             "act_scale": "act_scale"}
+             "act_scale": "act_scale", "gain": "gain"}
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -92,10 +94,13 @@ _KERNEL_NDIMS = (4, 5)
 
 
 def _kind(module: str) -> str:
-    """'conv_t', 'conv', 'qconv' (the int8 twin's QuantConv) or 'norm' by
-    the flax module name, '' otherwise."""
+    """'conv_t', 'conv', 'qconv' (the int8 twin's QuantConv), 'wsconv'
+    (the weight-standardised conv) or 'norm' by the flax module name, ''
+    otherwise."""
     if module.startswith("QuantConv"):
         return "qconv"
+    if module.startswith("WSConv"):
+        return "wsconv"
     if module.startswith("ConvTranspose"):
         return "conv_t"
     if module.startswith("Conv") or module == "head" \
@@ -122,9 +127,10 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
     for path, arr in {**_flatten(params),
                       **_flatten(batch_stats or {})}.items():
         leaf, kind = path[-1], _kind(path[-2]) if len(path) > 1 else ""
-        conv = kind in ("conv", "conv_t")
+        conv = kind in ("conv", "conv_t", "wsconv")
         valid = leaf in _TO_TORCH and (
             (leaf == "kernel" and conv and arr.ndim in _KERNEL_NDIMS)
+            or (leaf == "gain" and kind == "wsconv" and arr.ndim == 1)
             or (leaf == "scale" and kind == "norm" and arr.ndim == 1)
             or (leaf == "bias" and kind and arr.ndim == 1)
             or (leaf in ("mean", "var") and kind == "norm" and arr.ndim == 1)
@@ -158,7 +164,7 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
         *module, leaf = name.split(".")
         arr = tensor.detach().cpu().numpy()
         kind = _kind(module[-1]) if module else ""
-        if leaf == "weight" and kind in ("conv", "conv_t") \
+        if leaf == "weight" and kind in ("conv", "conv_t", "wsconv") \
                 and arr.ndim in _KERNEL_NDIMS:
             rank = arr.ndim - 2
             if kind == "conv_t":  # [I, O, *k] -> [*k, I, O], unflipped
@@ -172,8 +178,8 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
             rank = arr.ndim - 2  # [O, I, *k] -> [*k, I, O], int8 kept
             params[(*module, "kernel_q")] = np.ascontiguousarray(
                 arr.transpose(*range(2, rank + 2), 1, 0))
-        elif leaf in ("w_scale", "act_scale") and kind == "qconv" \
-                and arr.ndim == 1:
+        elif (leaf in ("w_scale", "act_scale") and kind == "qconv"
+              or leaf == "gain" and kind == "wsconv") and arr.ndim == 1:
             params[(*module, leaf)] = arr
         elif leaf == "weight" and kind == "norm" and arr.ndim == 1:
             params[(*module, "scale")] = arr

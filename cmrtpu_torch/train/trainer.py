@@ -54,8 +54,7 @@ def init_model(config: Dict, supervision: bool = False) -> torch.nn.Module:
 
 
 def _check_config(cfg: Dict) -> None:
-    """Keys whose values the port does not train with raise; REMAT changes
-    memory only and is warned about."""
+    """Keys whose values the port does not train with raise."""
     if C.get(cfg, "QUANT_INT8", False):
         raise ValueError(
             "QUANT_INT8 configs are serving-only twins: round/clip "
@@ -70,10 +69,6 @@ def _check_config(cfg: Dict) -> None:
         raise NotImplementedError(
             f"KERNEL_INIT={init!r}: the U-Net initialises he_normal only, "
             "as cmrtpu's does")
-    if C.get(cfg, "REMAT", False):
-        logging.warning("REMAT trades memory for recompute in cmrtpu's "
-                        "backward pass; cmrtpu_torch keeps every activation "
-                        "(ROADMAP skip list)")
 
 
 class Trainer:

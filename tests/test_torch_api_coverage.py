@@ -15,7 +15,12 @@ stand in one of two maps:
 A public name added to cmrtpu without a counterpart or an entry fails its
 module's case; so does an entry that has become stale (its name gone from
 cmrtpu, or defined in the port after all). One case per cmrtpu module; each
-records how many of its names are defined, renamed and skipped."""
+records how many of its names are defined, renamed and skipped.
+
+The repo's scripts under ``tools/`` and ``examples/`` are walked the same
+way: each one's public names must be defined in
+``cmrtpu_torch/tools/<same file name>``, unless the script stands in
+``SKIPPED_SCRIPTS`` with its reason."""
 
 import ast
 import pathlib
@@ -75,14 +80,6 @@ RENAMED: Dict[str, List[str]] = {
 _TPU_PLUMBING = "TPU/XLA plumbing (ROADMAP skip list)"
 # cmrtpu "file::name" or "file" -> why the port has no counterpart
 SKIPPED: Dict[str, str] = {
-    "models/unet.py::WSConv":
-        "WEIGHT_STANDARDISATION, a closed dead-end (ROADMAP skip list); "
-        "the config raises",
-    "models/unet.py::BF16BatchNorm":
-        f"{_TPU_PLUMBING}: BN_BF16 warns and BatchNorm runs in float32",
-    "predict/quantize.py::bias_correct":
-        "measured ineffective, no production caller (ROADMAP skip list); "
-        "quantize_model(bias_correction=True) raises",
     "parallel/mesh.py::put_global": _TPU_PLUMBING,
     "parallel/mesh.py::batch_sharding":
         f"{_TPU_PLUMBING}: a jax NamedSharding; the port's rank takes its "
@@ -205,6 +202,42 @@ def test_every_public_name_has_a_port(module, record_property):
     print(f"cmrtpu/{module}: {counts}")
 
 
+# a script of tools/ or examples/ -> why the port has no counterpart
+SKIPPED_SCRIPTS: Dict[str, str] = {
+    "tools/gen_parity.py":
+        "writes cmrtpu's parity goldens (a maintenance tool of cmrtpu's "
+        "tests)",
+    "tools/gen_itk_goldens.py":
+        "writes cmrtpu's ITK resampling goldens (a maintenance tool of "
+        "cmrtpu's tests)",
+    "tools/run_notebooks.py": "runs cmrtpu's notebooks (ROADMAP skip list)",
+}
+
+SCRIPTS = sorted(str(p.relative_to(REPO)) for d in ("tools", "examples")
+                 for p in (REPO / d).glob("*.py"))
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_every_script_has_a_port(script, record_property):
+    """A script's public names defined in cmrtpu_torch/tools/ under its
+    file name, or the script skipped with a reason (and then not
+    ported)."""
+    port_file = PORT / "tools" / pathlib.Path(script).name
+    if script in SKIPPED_SCRIPTS:
+        assert not port_file.exists(), \
+            f"{script} is ported to {port_file.relative_to(REPO)}: drop " \
+            "its SKIPPED_SCRIPTS entry"
+        record_property("names", "skipped")
+        return
+    names = public_names(REPO / script)
+    missing = [n for n in names if n not in defined_names(port_file)]
+    assert not missing, (
+        f"{script}: {missing} are not defined in "
+        f"{port_file.relative_to(REPO)} and the script has no "
+        "SKIPPED_SCRIPTS entry")
+    record_property("names", len(names))
+
+
 def test_maps_name_real_files():
     """Every map key names a cmrtpu module, every target a port file."""
     for key in (*RENAMED, *SKIPPED):
@@ -214,3 +247,5 @@ def test_maps_name_real_files():
             assert (PORT / target.split("::")[0]).exists(), target
     for module, port in RENAMED_MODULES.items():
         assert module in MODULES and (PORT / port).exists()
+    for script in SKIPPED_SCRIPTS:
+        assert script in SCRIPTS, script

@@ -1,6 +1,7 @@
 """cmrtpu_torch never imports cmrtpu, jax, flax, optax, orbax, pandas,
 scikit-learn or h5py (the keras route imports h5py only when it reads a
-model.h5).
+model.h5), nor tensorflow (``tools/tf_twin_ab.py`` imports it in
+``main``).
 
 The port runs on hosts that have none of them and keeps its own copies of
 the host modules it needs, so every module of the package — the serving,
@@ -37,11 +38,13 @@ import cmrtpu_torch.visualization.visualize
 import cmrtpu_torch.visualization.analysis, cmrtpu_torch.tools.predict_ab
 import cmrtpu_torch.tools.tta_ab, cmrtpu_torch.tools.int8_ab
 import cmrtpu_torch.tools.soup_ab, cmrtpu_torch.tools.synthetic_quickstart
-import cmrtpu_torch.tools.analyze_results
+import cmrtpu_torch.tools.analyze_results, cmrtpu_torch.tools.roofline
+import cmrtpu_torch.tools.probe2d, cmrtpu_torch.tools.probe3d
+import cmrtpu_torch.tools.tf_twin_ab
 for info in pkgutil.walk_packages(cmrtpu_torch.__path__, "cmrtpu_torch."):
     importlib.import_module(info.name)
 banned = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cmrtpu",
-          "h5py")
+          "h5py", "tensorflow", "tf_keras")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("loaded:", bad)
 sys.exit(1 if bad else 0)

@@ -23,6 +23,9 @@ and rows:
 * a streamed epoch (each rank its rows of every host batch) against
   cmrtpu's streamed loop, and ``Trainer.fit`` over host batches against
   one process's;
+* REMAT true in the global view against cmrtpu's remat step: the
+  recompute repeats the rematerialised blocks' all-reduces of BatchNorm's
+  statistics, over the same mesh;
 * each step's collectives, listed: the cache gather needs none;
 * ``cli.train`` over two ranks (replicated and sharded templates): one
   model.npz a run, written by rank 0, and both ranks at the same weights.
@@ -95,6 +98,7 @@ CASES = {
                     HIST_MATCHING=True, HIST_MATCHING_PROB=0.5),
     "manual_bf16": dict(BN, GRAD_ALLREDUCE_DTYPE="bfloat16"),
     "manual_f32": dict(BN, GRAD_ALLREDUCE_DTYPE="float32"),
+    "remat": dict(BN, REMAT=True),
     "sharded": dict(BN, BATCHSIZE=4, CACHE_SHARDED=True,
                     CACHE_DTYPE="bfloat16", CACHE_RESHUFFLE_EPOCHS=1,
                     SEED=11),
@@ -284,6 +288,27 @@ def test_global_view_step_matches_cmrtpu(run, mesh2):
                             new_state.batch_stats, PARAM_ATOL)
         _assert_grads(out, "global", ref_grads)
     _assert_ranks_equal(run, "global")
+
+
+def test_remat_global_view_step_matches_cmrtpu(run, mesh2):
+    """REMAT true over two ranks: the recompute reduces BatchNorm's
+    statistics over the same mesh (the backward runs outside
+    ``global_batch_stats``), so the step is cmrtpu's remat step within the
+    global view's bounds, and equal on both ranks."""
+    cfg = CASES["remat"]
+    new_state, ref_logs = _step_ref(run, mesh2, cfg, jax_dc.
+                                    make_cached_train_step,
+                                    jax_get_optimizer(cfg))
+    kept, _ = _step_ref(run, mesh2, cfg, jax_dc.make_cached_train_step,
+                        _keep())
+    ref_grads = flax_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, dict(kept.opt_state)))
+    for out in run.ranks:
+        _assert_logs(out, "remat", ref_logs)
+        _assert_state_close(out, "remat", new_state.params,
+                            new_state.batch_stats, PARAM_ATOL)
+        _assert_grads(out, "remat", ref_grads)
+    _assert_ranks_equal(run, "remat")
 
 
 def test_two_ranks_equal_one_with_augmentation(run):
@@ -495,9 +520,19 @@ def test_step_collectives(run):
             "manual_f32": ["grad_mean:float32", "batch_stats_mean:float32",
                            "logs_mean:float32"]}
     steps = (N_TRAIN + 1) // WORLD // (CASES["sharded"]["BATCHSIZE"] // WORLD)
+    # REMAT true recomputes every Down- and UpBlock in the backward pass,
+    # and with it their BatchNorms' all-reduces of the statistics
+    model = get_model(CASES["remat"])
+    recomputed = sum(isinstance(m, BatchNorm) for name, block in
+                     model.named_children()
+                     if name.startswith(("DownBlock", "UpBlock"))
+                     for m in block.modules())
+    assert 0 < recomputed < k
     for out in run.ranks:
         for tag, calls in want.items():
             assert list(out[f"{tag}/collectives"]) == calls, tag
+        assert sorted(out["remat/collectives"]) == sorted(
+            global_view + ["all_reduce_sum:float32"] * recomputed)
         assert list(out["sharded/epoch0_collectives"]) == global_view * steps
         assert list(out["sharded/epoch1_collectives"]) == \
             ["all_to_all:bfloat16", "all_to_all:uint8"] + global_view * steps

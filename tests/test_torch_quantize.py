@@ -43,6 +43,10 @@ CFG = {"DIM": [32, 32], "DEPTH": 2, "FILTERS": 8, "MASK_CLASSES": 2,
        "BATCHSIZE": 8, "MIXED_PRECISION": False, "LEARNING_RATE": 1e-3,
        "SEED": 7}
 CPU = torch.device("cpu")
+# bias_correct's corrected biases against cmrtpu's on one quantized tree:
+# measured 2.4e-6 at most on this fixture (two frameworks' float32 conv
+# outputs, averaged); 1e-5 keeps 4x over it
+BIAS_CORRECT_ATOL = 1e-5
 
 
 def _flat(tree):
@@ -267,10 +271,108 @@ def test_gn_twin_tracks_the_float_model():
 
 
 def test_bias_correction_is_on_the_skip_list(trained):
+    """``bias_correct`` against cmrtpu's on the same float fold (cmrtpu's
+    BatchNorm fixture, f32), the same quantized tree and the same three
+    calibration batches: every corrected bias within BIAS_CORRECT_ATOL
+    (the float32 conv outputs of two frameworks, and an int8 step that
+    flips where x / act_scale lies within an ulp of a rounding boundary).
+    ``quantize_model(bias_correction=True)`` runs it, and its default
+    does not."""
     variables, x, _ = trained
-    with pytest.raises(ValueError, match="skip list"):
-        Q.quantize_model(CFG, variables, [x], bias_correction=True,
-                         device="cpu")
+    batches = [x, 0.5 * x, x[::-1] * 1.5]
+    model = jax_get_model(CFG)
+    qvars = jax.tree_util.tree_map(np.asarray, JQ.quantize_variables(
+        model, variables, JQ.calibrate(model, variables, batches)))
+    qcfg = dict(CFG, QUANT_INT8=True)
+    want = _flat(JQ.bias_correct(model, variables, qcfg, qvars,
+                                 batches)["params"])
+    got = _flat(Q.bias_correct(Q._float_model(CFG, variables, CPU),
+                               variables, qcfg, qvars, batches)["params"])
+    before = _flat(qvars["params"])
+    assert sorted(got) == sorted(want)
+    biases = [k for k in want if k[-2:] == ("QuantConv_0", "bias")]
+    assert len(biases) == 10
+    for key in want:
+        tol = BIAS_CORRECT_ATOL if key in biases else 0
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=tol,
+                                   err_msg=str(key))
+    moved = max(np.abs(want[k] - before[k]).max() for k in biases)
+    assert moved > 100 * BIAS_CORRECT_ATOL  # the correction is held
+
+    # quantize_model: the port's own calibration, then bias_correct on
+    # its own tree when asked, and no correction by default
+    plain = Q.quantize_model(CFG, variables, batches, device="cpu")[1]
+    corrected = Q.quantize_model(CFG, variables, batches,
+                                 bias_correction=True, device="cpu")[1]
+    again = _flat(Q.bias_correct(Q._float_model(CFG, variables, CPU),
+                                 variables, qcfg, plain, batches)["params"])
+    for key in biases:
+        np.testing.assert_array_equal(_flat(corrected["params"])[key],
+                                      again[key])
+        assert not np.array_equal(again[key], _flat(plain["params"])[key])
+
+
+WS_CFG = dict(CFG, WEIGHT_STANDARDISATION=True, WS_I_UNDERSTAND=True)
+
+
+@pytest.mark.parametrize("dim", [[32, 32], [4, 16, 16]], ids=["2d", "3d"])
+def test_ws_effective_kernel_matches_cmrtpu(dim):
+    """The int8 twin of a WS fold: every block's effective kernel and bias
+    against cmrtpu's ``_effective_kernel`` leaf by leaf (float64, the same
+    arithmetic: rtol 1e-12), then the quantized tree bit-equal given
+    cmrtpu's amax, and the twin's forward within 1e-3 of cmrtpu's on that
+    tree."""
+    cfg = dict(WS_CFG, DIM=dim, F_SIZE=[3] * len(dim),
+               M_POOL=[1, 2, 2] if len(dim) == 3 else [2, 2])
+    variables = _random_variables(cfg, 9)
+    flat = _flat(variables["params"])
+    scopes = sorted({k[:-2] for k in flat if k[-2] == "WSConv_0"})
+    assert len(scopes) == 10
+    for scope in scopes:
+        subtree = {k[-1]: v for k, v in flat.items()
+                   if k[:-1] == scope + ("WSConv_0",)}
+        subtree["gain"] = subtree["gain"] * np.linspace(0.5, 1.5, len(
+            subtree["gain"]))
+        for a, b in zip(Q._effective_kernel("WSConv_0", subtree),
+                        JQ._effective_kernel("WSConv_0", subtree)):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=0,
+                                       err_msg=str(scope))
+    x = np.random.default_rng(9).random((2, *dim, 1)).astype(np.float32)
+    model = jax_get_model(cfg)
+    amax = JQ.calibrate(model, variables, [x])
+    want = jax.tree_util.tree_map(np.asarray, JQ.quantize_variables(
+        model, variables, amax))
+    got = Q.quantize_variables(variables, amax)
+    wf, gf = _flat(want["params"]), _flat(got["params"])
+    assert sorted(gf) == sorted(wf)
+    for key in wf:
+        np.testing.assert_array_equal(gf[key], wf[key], err_msg=str(key))
+    qcfg = dict(cfg, QUANT_INT8=True)
+    ref = np.asarray(jax_get_model(qcfg).apply(want, x, train=False))
+    with torch.no_grad():
+        twin = _twin(qcfg, want)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(twin, ref, atol=1e-3, rtol=0)
+
+
+def test_ws_fold_quantizes_and_tracks_the_float_model():
+    """quantize_model on a WS tree at a random init (calibration through
+    WSConv_0): the port's twin lies from the float model within 1e-3 of
+    the distance of cmrtpu's twin from it (max and mean), and within
+    cmrtpu's mean gate (< 0.01). GROUP_NORM is set, as in the flagship
+    template: a WS net has no GroupNorm, so there is nothing to refit."""
+    cfg = dict(WS_CFG, GROUP_NORM=4)
+    variables = _random_variables(cfg, 10)
+    x = np.random.default_rng(10).random((8, 32, 32, 1)).astype(np.float32)
+    live = np.asarray(jax_get_model(cfg).apply(variables, x, train=False))
+    jcfg, jvars = JQ.quantize_model(cfg, variables, [x])
+    ref = np.abs(np.asarray(jax_get_model(jcfg).apply(jvars, x, train=False))
+                 - live)
+    qcfg, qvars = Q.quantize_model(cfg, variables, [x], device="cpu")
+    with torch.no_grad():
+        diff = np.abs(_twin(qcfg, qvars)(torch.from_numpy(x)).numpy()
+                      - live)
+    assert diff.max() <= ref.max() + 1e-3, (diff.max(), ref.max())
+    assert diff.mean() <= ref.mean() + 1e-3 and diff.mean() < 0.01
 
 
 @pytest.mark.parametrize("extra,match", [

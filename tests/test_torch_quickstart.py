@@ -4,8 +4,10 @@ cmrtpu's ``examples/`` scripts on the CPU.
 
 * ``generate_dataset`` writes the same files byte for byte from the same
   seed (slices and ``df_kfold.csv``), and the experiment config equals the
-  one cmrtpu's ``main`` hands to its ``run_experiment``; ``--ws`` raises.
-* A 2-epoch, 4-patient, 32² run with ``--tta --int8`` finishes on the CPU.
+  one cmrtpu's ``main`` hands to its ``run_experiment``, with and without
+  ``--ws``.
+* A 2-epoch, 4-patient, 32² run with ``--tta --int8`` finishes on the CPU,
+  and so does one with ``--ws`` (weight-standardised blocks, no norm).
 * ``analyze_results`` on one df_eval.csv (pathologies, empty and text
   cells): ``summary.csv`` equal to cmrtpu's, its text byte for byte and
   its numbers within 1e-12 relative (pandas' ``read_csv`` parses a decimal
@@ -86,7 +88,7 @@ def test_config_matches_cmrtpu(tmp_path, monkeypatch):
 
     monkeypatch.setattr(jax_fold, "run_experiment", capture)
     root = str(tmp_path / "qs")
-    for flags in ((), ("--ema", "--cache-dtype", "bfloat16")):
+    for flags in ((), ("--ema", "--cache-dtype", "bfloat16"), ("--ws",)):
         monkeypatch.setattr(sys, "argv", [
             "synthetic_quickstart.py", "--root", root, "--epochs", "7",
             "--patients", "4", "--dim", "32", *flags])
@@ -94,14 +96,28 @@ def test_config_matches_cmrtpu(tmp_path, monkeypatch):
             _example("synthetic_quickstart").main()
         assert seen["data_path"] == root
         assert QS.quickstart_config(
-            root, 7, 32, cache_dtype="bfloat16" if flags else "float32",
-            ema=bool(flags)) == seen["config"]
+            root, 7, 32,
+            cache_dtype="bfloat16" if "--ema" in flags else "float32",
+            ema="--ema" in flags, ws="--ws" in flags) == seen["config"]
 
 
 def test_ws_raises_naming_the_skip_list(tmp_path):
-    with pytest.raises(NotImplementedError, match="skip list"):
-        QS.main(["--root", str(tmp_path), "--ws", "--device", "cpu"])
-    assert not os.listdir(tmp_path)  # raised before writing anything
+    """``--ws`` runs (it raised while WEIGHT_STANDARDISATION was on the
+    port's skip list): 2 epochs at 32², a fold of weight-standardised
+    blocks with no norm, evaluated."""
+    root = str(tmp_path / "qs")
+    out = QS.main(["--root", root, "--epochs", "2", "--patients", "4",
+                   "--dim", "32", "--ws", "--device", "cpu"])
+    with open(os.path.join(out["exp"], "f0", "config", "config.json")) as fh:
+        cfg = json.load(fh)
+    assert cfg["WEIGHT_STANDARDISATION"] and cfg["WS_I_UNDERSTAND"]
+    assert not cfg["BATCH_NORMALISATION"]
+    with np.load(os.path.join(out["exp"], "f0", "model", "model.npz")) as z:
+        keys = set(z.files)
+    assert "params/DownBlock_0/ConvBlock_0/WSConv_0/gain" in keys
+    assert not any("BatchNorm" in k or k.startswith("batch_stats")
+                   for k in keys)
+    assert len(pd.read_csv(out["df_eval"])) == 2
 
 
 def test_quickstart_runs_on_the_cpu(tmp_path, capsys):

@@ -119,7 +119,9 @@ def test_reset_parameters_is_seeded_he_normal():
     # quantize_model refuses it
     ({"QUANT_INT8": True, "FACTORIZED_3D": True}, ValueError,
      "does not support factorized"),
-    ({"WEIGHT_STANDARDISATION": True}, NotImplementedError, "ROADMAP"),
+    # weight standardisation builds under cmrtpu's acknowledgement
+    # (tests/test_torch_ws.py) and raises without it, as cmrtpu's factory
+    ({"WEIGHT_STANDARDISATION": True}, ValueError, "WS_I_UNDERSTAND"),
 ], ids=["int8", "ws"])
 def test_unported_configs_raise(extra, error, match):
     with pytest.raises(error, match=match):

@@ -74,7 +74,7 @@ def steps(rank, inputs, cases, out):
     xs, ys = inputs["xs"], inputs["ys"]
     idxs = torch.from_numpy(inputs["idxs"]).long()
     init = _weights(inputs, "init/")
-    for tag in ("global", "augment", "manual_bf16", "manual_f32"):
+    for tag in ("global", "augment", "manual_bf16", "manual_f32", "remat"):
         trainer = _trainer(cases[tag], init)
         loop = DeviceCachedLoop(trainer, types.SimpleNamespace(
             _cache_x=xs, _cache_y=ys, masks=True))
