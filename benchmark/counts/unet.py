@@ -1,0 +1,46 @@
+"""FLOPs of the reference U-Net, counted by ``torch.utils.flop_counter``
+over the benchmark's own plain model on the meta device: convolutions
+(and any matrix products) of one forward, or of one forward and its
+backward, at the given batch and the configuration's DIM. The count
+follows from the shapes alone, so it is the same whatever implements the
+layers, and recomputation (REMAT) adds nothing to it.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+from typing import Dict
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from benchmark.reference.unet import Forward, dims, param_spec
+
+
+def _count(cfg: Dict, batch: int, backward: bool) -> int:
+    with torch.device("meta"):
+        params = {n: torch.empty(s, requires_grad=backward)
+                  for n, s, _ in param_spec(cfg)}
+        x = torch.empty((batch, *dims(cfg), int(cfg["IMG_CHANNELS"])))
+        counter = FlopCounterMode(display=False)
+        with counter:
+            out = Forward(cfg)(params, x, train=True)
+            if backward:
+                out.sum().backward()
+    return int(counter.get_total_flops())
+
+
+@functools.lru_cache(maxsize=None)
+def _cached(cfg_json: str, batch: int, backward: bool) -> int:
+    return _count(json.loads(cfg_json), batch, backward)
+
+
+def train_step_flops(cfg: Dict, batch: int) -> int:
+    """Forward and backward of ``batch`` examples."""
+    return _cached(json.dumps(cfg, sort_keys=True), int(batch), True)
+
+
+def forward_flops(cfg: Dict, batch: int) -> int:
+    """One forward of ``batch`` examples (slices or volumes)."""
+    return _cached(json.dumps(cfg, sort_keys=True), int(batch), False)

@@ -1,0 +1,13 @@
+"""Share of the measured window in which the card ran no kernel, copy or
+set: the device busy time a step, the union of those intervals over the
+traced sub-window divided by its steps, times the window's steps, over
+the window's seconds. The profiler slows the host, so the sub-window's
+own idle share (the result's busy_s and window_s) reads higher."""
+
+
+def read(run):
+    t = run.get("trace")
+    if not t or "step_flops" not in run or not t["steps"]:
+        return None
+    busy = t["busy_s"] / t["steps"] * run["steps"]
+    return 100.0 * (1.0 - busy / run["window_s"])
