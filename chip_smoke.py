@@ -64,8 +64,8 @@ phases, one line each:
                  stage (the generators' builds and GLOBAL_TIMER's
                  generator/fix_preprocess and generator/batch stages)
                  beside the fold's wall s; profile — three warm steps
-                 under profiling.trace, each in annotate("train_step"): the
-                 Chrome trace names the range three times and K1's kernel;
+                 under profiling.trace: the Chrome trace holds the step's
+                 own train.step span three times and K1's kernel;
   8. predict   — cmrtpu_torch.cli.predict on the fold rewrites every output
                  with exactly one launch of each kernel per patient-phase;
   9. evaluate  — cmrtpu_torch.cli.evaluate_cv writes df_eval.csv: one row
@@ -5155,9 +5155,9 @@ def _log_host_stage(stages, builds, fold_wall_s, pred_fold_wall_s):
 
 def phase_profile(cfg, data_root, work):
     """profile: three warm flagship steps of the device-cached loop under
-    ``profiling.trace``, each inside ``annotate("train_step")``: the Chrome
-    trace written under the work dir names the range three times and K1's
-    kernel."""
+    ``profiling.trace``: the Chrome trace written under the work dir holds
+    the step's own ``train.step`` span (``profiling.span``, its step
+    number in the range's name) three times and K1's kernel."""
     x_tr, y_tr, _, _ = get_trainings_files(
         os.path.join(data_root, "2D"), 0,
         os.path.join(data_root, "df_kfold.csv"))
@@ -5171,19 +5171,19 @@ def phase_profile(cfg, data_root, work):
     t0 = time.perf_counter()
     with profiling.trace(log_dir):
         for s in range(3):
-            with profiling.annotate("train_step"):
-                loop.train_step(idx[s % len(idx)])
+            loop.train_step(idx[s % len(idx)])
     wall_s = time.perf_counter() - t0
     path = os.path.join(log_dir, "trace.json")
     check(os.path.isfile(path), f"profile: no trace at {path}")
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    host_ranges = [e for e in events if e.get("name") == "train_step"
-                   and e.get("cat") != "gpu_user_annotation"]
-    device_ranges = [e for e in events if e.get("name") == "train_step"
-                     and e.get("cat") == "gpu_user_annotation"]
+    steps = [e for e in events
+             if str(e.get("name")).split(" ")[0] == "train.step"]
+    host_ranges = [e for e in steps if e.get("cat") == "user_annotation"]
+    device_ranges = [e for e in steps
+                     if e.get("cat") == "gpu_user_annotation"]
     blur = [e for e in events if "gaussian_blur_kernel" in str(e.get("name"))]
-    check(len(host_ranges) == 3, f"profile: the trace names train_step "
+    check(len(host_ranges) == 3, f"profile: the trace names train.step "
           f"{len(host_ranges)} times on the host, want 3")
     check(len(blur) >= 3, f"profile: K1's kernel appears {len(blur)} times "
           "in the trace, want one per step")

@@ -40,7 +40,7 @@ Layer map, entry points first:
   csrc/cc_labels.cu            K2, connected-component labels (sm_90a)
   tools/                       the A/B tools, the quickstart, analyze_results,
                                the demos
-  utils/profiling.py           StageTimer, GLOBAL_TIMER, trace, annotate
+  utils/profiling.py           StageTimer, GLOBAL_TIMER, span, trace
   visualization/               figures (matplotlib imported where drawn)
   config.py, io/, native/, ops/resample.py, pipeline/transforms.py,
   predict/postprocess.py, utils/   copies of cmrtpu's host modules

@@ -35,6 +35,7 @@ from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.train.checkpoint import (WEIGHTS_NAME,
                                            load_weights_for_model)
 from cmrtpu_torch.utils.io_utils import ensure_dir
+from cmrtpu_torch.utils.profiling import span
 
 # pred_fold's spans at DEBUG, each with a dict in ``record.timing``: its
 # start, every patient-phase with its stage seconds, and its end with the
@@ -247,7 +248,9 @@ def preprocess_model_input(slices: np.ndarray, slice_spacing,
     slices: per slice resample (if RESAMPLE) -> quantile clip -> normalise ->
     pad/crop to DIM -> re-normalise. ``slices`` is [N, y, x];
     ``slice_spacing`` the in-plane (x, y) spacing shared by all slices.
-    Returns the model-ready [N, H, W, 1] float32 batch."""
+    Returns the model-ready [N, H, W, 1] float32 batch. Each slice's
+    resample and the rest are the spans ``serve.resample`` and
+    ``serve.normalise`` (serving's ``serve.preprocess`` holds them)."""
     from cmrtpu_torch.pipeline import transforms as T
 
     cfg = C.normalise_config(cfg)
@@ -259,13 +262,16 @@ def preprocess_model_input(slices: np.ndarray, slice_spacing,
     for nda in slices:
         img2d = MedicalImage(array=np.asarray(nda), spacing=slice_spacing)
         if resample:
-            new_size = T.calc_resampled_size(img2d.size, img2d.spacing,
-                                             target_spacing)
-            img2d = R.resample_image(img2d, new_size, target_spacing,
-                                     R.LINEAR)
-        arr = T.normalise_image(T.clip_quantile(img2d.array, 0.999), scaler)
-        arr = T.pad_and_crop(arr.astype(np.float32), dim)
-        xs.append(T.normalise_image(arr, scaler))
+            with span("serve.resample"):
+                new_size = T.calc_resampled_size(img2d.size, img2d.spacing,
+                                                 target_spacing)
+                img2d = R.resample_image(img2d, new_size, target_spacing,
+                                         R.LINEAR)
+        with span("serve.normalise"):
+            arr = T.normalise_image(T.clip_quantile(img2d.array, 0.999),
+                                    scaler)
+            arr = T.pad_and_crop(arr.astype(np.float32), dim)
+            xs.append(T.normalise_image(arr, scaler))
     return np.stack(xs)[..., None]
 
 

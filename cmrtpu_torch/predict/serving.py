@@ -26,6 +26,7 @@ from cmrtpu_torch import config as C
 from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.utils.io_utils import ensure_dir
+from cmrtpu_torch.utils.profiling import GLOBAL_TIMER, span
 from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.predict.predictor import (Predictor, _head_outputs,
                                             cc_clean_fn,
@@ -126,7 +127,9 @@ class ServingEngine:
         """Forward a [N, H, W, C] batch in ``self.batch``-row chunks (last
         chunk zero-padded). Chunk outputs stay on the device until the last
         one is queued; one copy brings them back (one per head for a HEADS
-        model, which returns a dict)."""
+        model, which returns a dict). Counts the real rows
+        (``serve.rows_real``) and the rows forwarded with the padding
+        (``serve.rows_forwarded``) in ``GLOBAL_TIMER``."""
         n = x.shape[0]
         outs: List[torch.Tensor] = []
         for start in range(0, n, self.batch):
@@ -136,6 +139,8 @@ class ServingEngine:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad, *x.shape[1:]), x.dtype)])
             outs.append(self._forward(chunk))
+        GLOBAL_TIMER.count("serve.rows_real", n)
+        GLOBAL_TIMER.count("serve.rows_forwarded", len(outs) * self.batch)
         if isinstance(outs[0], dict):
             return to_numpy({k: torch.cat([o[k] for o in outs])
                              for k in outs[0]}, n)
@@ -145,62 +150,77 @@ class ServingEngine:
         """One study end-to-end: read -> preprocess -> forward -> threshold
         (+ optional CC filter) -> inverse-preprocess -> write
         ``<stem>_msk_pred.nrrd`` (and ``<stem>_<name>_pred.nrrd`` per
-        further head). Returns the latency record."""
-        stats: Dict = {"file": os.path.basename(path)}
-        t0 = time.perf_counter()
-        img = read_image(path)
-        nda = img.array
-        squeeze_2d = nda.ndim == 2
-        if squeeze_2d:  # single slice -> z-stack of one
-            nda = nda[None]
-        if nda.ndim != 3:
-            raise ValueError(
-                f"{path}: serving handles 2D/3D studies, got shape "
-                f"{nda.shape}")
-        stats["read_s"] = round(time.perf_counter() - t0, 4)
-
-        t1 = time.perf_counter()
-        x = preprocess_model_input(nda, img.spacing[:2], self.config)
-        stats["preprocess_s"] = round(time.perf_counter() - t1, 4)
-
-        t2 = time.perf_counter()
-        preds = self.predict_slices(x)
-        stats["forward_s"] = round(time.perf_counter() - t2, 4)
-
-        t3 = time.perf_counter()
+        further head). Returns the latency record, whose times are the
+        spans' own: ``serve.study`` (``total_s``) over ``serve.read``,
+        ``serve.preprocess``, ``serve.forward`` and ``serve.cc`` +
+        ``serve.undo`` + ``serve.write`` (``post_write_s``)."""
         stem = _stem(path)
-        outputs = []
-        if squeeze_2d:
-            # a single slice becomes a z-stack of one with the reference's
-            # 10 mm config-spacing fallback
-            orig = MedicalImage(array=nda,
-                                spacing=tuple(img.spacing[:2]) + (10.0,),
-                                origin=tuple(img.origin[:2]) + (0.0,),
-                                metadata=dict(img.metadata))
-        else:
-            orig = MedicalImage(array=nda, spacing=img.spacing,
-                                origin=img.origin, direction=img.direction,
-                                metadata=dict(img.metadata))
-        for suffix, flat, label_values in _flat_pred_heads(self.config,
-                                                           preds):
-            if self._cc is not None:
-                flat = self._cc(flat, label_values,
-                                device=self.device).cpu().numpy()
-            out_img = undo_generator_steps(flat.astype(np.uint8),
-                                           self.config, R.NEAREST, orig)
-            if squeeze_2d:
-                out_img = MedicalImage(
-                    array=out_img.array[0], spacing=out_img.spacing[:2],
-                    origin=out_img.origin[:2],
-                    metadata=dict(out_img.metadata))
-            name = f"{stem}_{suffix}_pred.nrrd"
-            write_image(out_img, os.path.join(out_dir, name))
-            outputs.append(name)
-        stats["post_write_s"] = round(time.perf_counter() - t3, 4)
+        stats: Dict = {"file": os.path.basename(path)}
+        with span("serve.study", stem=stem) as study:
+            with span("serve.read") as read:
+                img = read_image(path)
+                nda = img.array
+                squeeze_2d = nda.ndim == 2
+                if squeeze_2d:  # single slice -> z-stack of one
+                    nda = nda[None]
+                if nda.ndim != 3:
+                    raise ValueError(
+                        f"{path}: serving handles 2D/3D studies, got shape "
+                        f"{nda.shape}")
 
+            with span("serve.preprocess") as prep:
+                x = preprocess_model_input(nda, img.spacing[:2], self.config)
+
+            with span("serve.forward") as fwd:
+                preds = self.predict_slices(x)
+
+            with span("serve.cc") as cc:  # threshold, K2 and its copy back
+                heads = []
+                for suffix, flat, label_values in _flat_pred_heads(
+                        self.config, preds):
+                    if self._cc is not None:
+                        flat = self._cc(flat, label_values,
+                                        device=self.device).cpu().numpy()
+                    heads.append((suffix, flat))
+
+            with span("serve.undo") as undo:
+                if squeeze_2d:
+                    # a single slice becomes a z-stack of one with the
+                    # reference's 10 mm config-spacing fallback
+                    orig = MedicalImage(
+                        array=nda, spacing=tuple(img.spacing[:2]) + (10.0,),
+                        origin=tuple(img.origin[:2]) + (0.0,),
+                        metadata=dict(img.metadata))
+                else:
+                    orig = MedicalImage(array=nda, spacing=img.spacing,
+                                        origin=img.origin,
+                                        direction=img.direction,
+                                        metadata=dict(img.metadata))
+                images = []
+                for suffix, flat in heads:
+                    out_img = undo_generator_steps(flat.astype(np.uint8),
+                                                   self.config, R.NEAREST,
+                                                   orig)
+                    if squeeze_2d:
+                        out_img = MedicalImage(
+                            array=out_img.array[0],
+                            spacing=out_img.spacing[:2],
+                            origin=out_img.origin[:2],
+                            metadata=dict(out_img.metadata))
+                    images.append((f"{stem}_{suffix}_pred.nrrd", out_img))
+
+            with span("serve.write") as write:
+                for name, out_img in images:
+                    write_image(out_img, os.path.join(out_dir, name))
+
+        stats["read_s"] = round(read.seconds, 4)
+        stats["preprocess_s"] = round(prep.seconds, 4)
+        stats["forward_s"] = round(fwd.seconds, 4)
+        stats["post_write_s"] = round(
+            cc.seconds + undo.seconds + write.seconds, 4)
         stats["slices"] = int(x.shape[0])
-        stats["outputs"] = outputs
-        stats["total_s"] = round(time.perf_counter() - t0, 4)
+        stats["outputs"] = [name for name, _ in images]
+        stats["total_s"] = round(study.seconds, 4)
         stats["slices_per_s"] = round(stats["slices"] / stats["total_s"], 1)
         self._totals["studies"] += 1
         self._totals["slices"] += stats["slices"]

@@ -65,6 +65,7 @@ from cmrtpu_torch.pipeline.generator import finalize_batch
 from cmrtpu_torch.pipeline.histmatch import (draw_match, gated_match,
                                              hist_match_setup, hist_quota)
 from cmrtpu_torch.train.manual_collectives import make_manual_train_step
+from cmrtpu_torch.utils.profiling import span
 
 
 def cache_nbytes(*arrays) -> int:
@@ -375,20 +376,30 @@ class FusedStep:
     def train_batch(self, data_x, data_y,
                     idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One train step on the rank's rows of the global batch whose ids
-        into the cache (data_x, data_y) are ``idxs`` [B]."""
-        if self._first_rows:
-            idxs = idxs[self._rows]
-        imgs, msks = self._gather(data_x, data_y, idxs)
-        if self._match_fn is not None:
-            imgs = self.hist_match(imgs, data_x)
-        params = draw_params(self.aug_generator, self.config, self.batch) \
-            if self._augment else None
-        if not self._first_rows and self.mesh.data > 1:
-            imgs, msks = imgs[self._rows], msks[self._rows]
-        if params is not None:
-            imgs, msks = apply_params(self._local_params(params), imgs, msks)
-        x, y = finalize_batch(imgs, msks, self.config, masks=self._masks)
-        return self._state_step(x, y)
+        into the cache (data_x, data_y) are ``idxs`` [B]: the span
+        ``train.step`` (the state's step count in its args) over
+        ``train.gather``, ``train.hist_match`` (when on),
+        ``train.augment``, ``train.finalize`` and the state's step."""
+        with span("train.step", step=self.trainer.state.step):
+            with span("train.gather"):
+                if self._first_rows:
+                    idxs = idxs[self._rows]
+                imgs, msks = self._gather(data_x, data_y, idxs)
+            if self._match_fn is not None:
+                with span("train.hist_match"):
+                    imgs = self.hist_match(imgs, data_x)
+            with span("train.augment"):
+                params = draw_params(self.aug_generator, self.config,
+                                     self.batch) if self._augment else None
+                if not self._first_rows and self.mesh.data > 1:
+                    imgs, msks = imgs[self._rows], msks[self._rows]
+                if params is not None:
+                    imgs, msks = apply_params(self._local_params(params),
+                                              imgs, msks)
+            with span("train.finalize"):
+                x, y = finalize_batch(imgs, msks, self.config,
+                                      masks=self._masks)
+            return self._state_step(x, y)
 
     def eval_batch(self, data_x, data_y, idxs: torch.Tensor, masks: bool,
                    whole: bool = False) -> Dict[str, torch.Tensor]:

@@ -34,6 +34,7 @@ from torch import nn
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.parallel import mesh as M
+from cmrtpu_torch.utils.profiling import span
 
 
 def ema_decay_from_config(cfg) -> Optional[float]:
@@ -115,28 +116,35 @@ class TrainState:
         the global view's gradient mean. ``global_view`` False keeps
         BatchNorm's statistics, the loss and the logs local (the
         explicit-collectives step). The gradients stay in ``param.grad``
-        until the next step."""
+        until the next step. Its stages are the spans ``train.forward``,
+        ``train.loss``, ``train.backward`` (REMAT's recompute among it),
+        ``train.optimizer`` (with the gradient mean or transform),
+        ``train.ema`` (when on) and ``train.logs``."""
         self.model.train()
         mesh = self.mesh if global_view else None
-        with M.global_batch_stats(mesh):
+        with span("train.forward"), M.global_batch_stats(mesh):
             preds = self.model(x, generator=self.generator)
-        if mesh is not None and mesh.distributed:
-            preds, y = M.gather_batch(preds, mesh), M.gather_batch(y, mesh)
-        loss = self.loss_fn(y, preds)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if grad_transform is not None:
-            grad_transform(self.model)
-        elif mesh is not None:
-            M.grad_mean_(self.model, mesh)
-        self.optimizer.step()
+        with span("train.loss"):
+            if mesh is not None and mesh.distributed:
+                preds, y = (M.gather_batch(preds, mesh),
+                            M.gather_batch(y, mesh))
+            loss = self.loss_fn(y, preds)
+        with span("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("train.optimizer"):
+            if grad_transform is not None:
+                grad_transform(self.model)
+            elif mesh is not None:
+                M.grad_mean_(self.model, mesh)
+            self.optimizer.step()
         if self.ema is not None:
-            with torch.no_grad():
+            with span("train.ema"), torch.no_grad():
                 ema_update(list(self.ema.values()),
                            [p.detach() for p in self.model.parameters()],
                            self.ema_decay, self.step)
         self.step += 1
-        with torch.no_grad():
+        with span("train.logs"), torch.no_grad():
             return self._logs(loss, y, preds)
 
     @torch.no_grad()

@@ -75,6 +75,7 @@ RENAMED: Dict[str, List[str]] = {
         ["train/steps.py::TrainState.train_step"],
     "train/steps.py::make_eval_step": ["train/steps.py::TrainState.eval_step"],
     "train/steps.py::make_predict_step": ["train/trainer.py::Trainer.predict"],
+    "utils/profiling.py::annotate": ["utils/profiling.py::span"],
 }
 
 _TPU_PLUMBING = "TPU/XLA plumbing (ROADMAP skip list)"
