@@ -4499,8 +4499,8 @@ def _extra_batch(data_root, test_patients, cfg):
                                            "*/*frame[0-9][0-9].nii.gz"))):
         if any(p in f for p in test_patients):
             img = read_image(f)
-            slices.append(preprocess_model_input(img.array, img.spacing[:2],
-                                                 cfg))
+            slices.append(preprocess_model_input(
+                img.array, img.spacing[:2], cfg, device=DEV).cpu().numpy())
     x = np.concatenate(slices)[:EXTRA_BATCH]
     check(x.shape[0] == EXTRA_BATCH, f"extras: {x.shape[0]} slices")
     return x
@@ -4858,7 +4858,8 @@ def _recording(served):
     def wrap(forward):
         def wrapped(self, x):
             out = forward(self, x)
-            served.append((np.array(x), out.double().cpu()))
+            served.append((np.array(torch.as_tensor(x).cpu()),
+                           out.double().cpu()))
             return out
         return wrapped
     return wrap

@@ -131,8 +131,9 @@ class EnsemblePredictor:
         return cls(config, fold_models, device=device)
 
     @torch.inference_mode()
-    def _forward(self, x: np.ndarray):
-        """[B, ..., C] float32 -> the member mean (a dict per head for a
+    def _forward(self, x):
+        """[B, ..., C] float32 (an array, or a tensor, which is used where
+        it lies on the device) -> the member mean (a dict per head for a
         HEADS model), left on the device."""
         return self._apply(torch.as_tensor(x, device=self.device))
 

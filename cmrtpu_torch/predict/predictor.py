@@ -6,7 +6,9 @@ the inference entry points ``pred_fold`` (one fold's test patients),
 
 ``cmrtpu.predict.predictor`` imports jax at module level, so its numpy-only
 functions are re-implemented here over the port's own copies of the host
-modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``).
+modules (``config``, ``io``, ``ops.resample``, ``pipeline.transforms``);
+``preprocess_model_input`` is one batched torch pass on the caller's device
+that keeps numpy's arithmetic.
 The model code is imported where a ``Predictor`` is built, so a process
 that serves an exported artifact through ``predict/serving.py`` never
 loads ``cmrtpu_torch.models``.
@@ -14,6 +16,7 @@ loads ``cmrtpu_torch.models``.
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import logging
@@ -30,6 +33,7 @@ from cmrtpu_torch.io import MedicalImage, read_image, write_image
 from cmrtpu_torch.ops import resample as R
 from cmrtpu_torch.ops.connected_components import (clean_prediction_2d_cc,
                                                    clean_prediction_3d_cc)
+from cmrtpu_torch.pipeline import transforms as T
 from cmrtpu_torch.pipeline.generator import DataGenerator, finalize_batch
 from cmrtpu_torch.predict.postprocess import undo_generator_steps
 from cmrtpu_torch.train.checkpoint import (WEIGHTS_NAME,
@@ -117,20 +121,23 @@ class Predictor:
             self._apply = tta_forward_from_config(self.model, self.config)
 
     @torch.inference_mode()
-    def _forward(self, x: np.ndarray):
-        """[N, H, W, C] float32 -> [N, H, W, classes] probabilities (a dict
+    def _forward(self, x):
+        """[N, H, W, C] float32 (an array, or a tensor, which is used where
+        it lies on the device) -> [N, H, W, classes] probabilities (a dict
         of them per head for a HEADS model), left on the device (the call
         returns before the device finishes)."""
         return self._apply(torch.as_tensor(x, device=self.device))
 
-    def predict(self, x: np.ndarray, to_host: bool = True):
-        """Batched forward, padded to a multiple of ``_BUCKET`` and trimmed
-        back to the input's batch size: a numpy array, or a dict of them
-        per head; with ``to_host`` False the tensors stay on the device."""
+    def predict(self, x, to_host: bool = True):
+        """Batched forward of an array or tensor, padded on the device to a
+        multiple of ``_BUCKET`` and trimmed back to the input's batch size:
+        a numpy array, or a dict of them per head; with ``to_host`` False
+        the tensors stay on the device."""
+        x = torch.as_tensor(x, device=self.device)
         n = x.shape[0]
         padded = -(-n // _BUCKET) * _BUCKET
         if padded != n:
-            x = np.concatenate([x, np.zeros((padded - n, *x.shape[1:]), x.dtype)])
+            x = torch.cat([x, x.new_zeros((padded - n, *x.shape[1:]))])
         out = self._forward(x)
         return to_numpy(out, n) if to_host else _rows(out, n)
 
@@ -242,37 +249,215 @@ def select_4d_landmark_head(cfg: Dict):
     return str(head[0]), str(head[2]), tuple(range(1, int(head[1])))
 
 
-def preprocess_model_input(slices: np.ndarray, slice_spacing,
-                           cfg: Dict) -> np.ndarray:
-    """Deterministic inference-time preprocessing for a stack of raw 2D
-    slices: per slice resample (if RESAMPLE) -> quantile clip -> normalise ->
-    pad/crop to DIM -> re-normalise. ``slices`` is [N, y, x];
-    ``slice_spacing`` the in-plane (x, y) spacing shared by all slices.
-    Returns the model-ready [N, H, W, 1] float32 batch. Each slice's
-    resample and the rest are the spans ``serve.resample`` and
-    ``serve.normalise`` (serving's ``serve.preprocess`` holds them)."""
-    from cmrtpu_torch.pipeline import transforms as T
+def _linear_taps(n_out: int, out_spacing: float, in_spacing: float,
+                 size: int, w_dtype: torch.dtype, dev: torch.device):
+    """ITK's linear rule along one axis as ``ops/resample.py``'s
+    ``_axis_gather_np`` computes it: each output index's low and high
+    neighbours, their float64 weights (the fraction, and one less it,
+    taken in ``w_dtype``, as the host code takes them in a floating
+    input's dtype) and whether it lies inside the input."""
+    coords = torch.arange(n_out, dtype=torch.float64, device=dev) \
+        * (out_spacing / in_spacing)
+    inside = (coords >= -0.5) & (coords < size - 0.5)
+    c = coords.clamp(0.0, size - 1.0)
+    lo = c.floor()
+    w = (c - lo).to(w_dtype)
+    lo = lo.long()
+    return (lo, (lo + 1).clamp(max=size - 1), w.double(), (1 - w).double(),
+            inside)
 
+
+def _gather_linear(arr: torch.Tensor, dim: int, taps) -> torch.Tensor:
+    """float64 ``arr`` resampled along ``dim`` by ``_linear_taps``' taps:
+    zero outside the input."""
+    lo, hi, w, w1, inside = taps
+    shape = [1] * arr.ndim
+    shape[dim] = -1
+    out = arr.index_select(dim, lo) * w1.view(shape) \
+        + arr.index_select(dim, hi) * w.view(shape)
+    return torch.where(inside.view(shape), out, 0.0)
+
+
+def _quantile_rank(n: int, q):
+    """numpy's "linear" quantile ``q`` (a numpy scalar, whose dtype numpy
+    computes in) of ``n`` values: the 0-based ranks of its two neighbours
+    and their weight."""
+    v = (n - 1) * q
+    if v >= n - 1:
+        return n - 1, n - 1, q.dtype.type(0)
+    lo = int(np.floor(v))
+    return lo, lo + 1, v - q.dtype.type(lo)
+
+
+def _quantiles(ordered: torch.Tensor, qs) -> List[torch.Tensor]:
+    """numpy's "linear" quantiles of each row of ``ordered`` [N, P], its
+    values sorted (one sort a row: ``torch.quantile`` refuses more than
+    2**24 values), one [N] tensor a quantile in the dtype of its ``q``:
+    numpy's lerp between the two neighbours, which counts from the upper
+    one when the weight is 0.5 or more."""
+    out = []
+    for q in qs:
+        lo, hi, t = _quantile_rank(ordered.shape[1], q)
+        dt = getattr(torch, q.dtype.name)
+        a, b = ordered[:, lo], ordered[:, hi]
+        diff = (b - a).to(dt)
+        if t >= 0.5:
+            out.append(b.to(dt) - diff * float(1 - t))
+        else:
+            out.append(a.to(dt) + diff * float(t))
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _pairwise_plan(n: int):
+    """The order in which numpy sums ``n`` contiguous floats: blocks of
+    8192 (its buffer) one after another, each pairwise, halved (the first
+    half a multiple of 8) down to leaves of at most 128 values; a leaf of
+    8 or more adds 8 interleaved lanes, joins them as a tree, then adds its
+    last ``m % 8`` values one by one; a shorter leaf adds all of its
+    values to 0 one by one. Returns each leaf's values as indices [L, 135]
+    (16 rows of 8 lanes, then 7 to add last; ``n`` where a leaf has none,
+    a zero that leaves a sum unchanged), the tree's joins (node, left,
+    right) by height, nodes numbered after the leaves, and each block's
+    root."""
+    leaves, joins = [], []
+
+    def split(start, m):
+        if m <= 128:
+            row = np.full(135, n, np.int64)
+            k = m - m % 8
+            row[:k] = np.arange(start, start + k)
+            row[128:128 + m - k] = np.arange(start + k, start + m)
+            leaves.append(row)
+            return ("leaf", len(leaves) - 1), 0
+        half = m // 2 - m // 2 % 8
+        a, ha = split(start, half)
+        b, hb = split(start + half, m - half)
+        joins.append((a, b, max(ha, hb) + 1))
+        return ("join", len(joins) - 1), max(ha, hb) + 1
+
+    roots = [split(s, min(8192, n - s))[0] for s in range(0, n, 8192)]
+
+    def num(node):
+        return node[1] + (len(leaves) if node[0] == "join" else 0)
+
+    levels = []
+    for h in sorted({j[2] for j in joins}):
+        ids = [(len(leaves) + i, num(a), num(b))
+               for i, (a, b, hj) in enumerate(joins) if hj == h]
+        levels.append(torch.tensor(ids).T)
+    return (torch.from_numpy(np.stack(leaves)), levels,
+            [num(r) for r in roots], len(leaves) + len(joins))
+
+
+def _np_sum(flat: torch.Tensor) -> torch.Tensor:
+    """Each row of ``flat`` [N, n] summed in numpy's order and dtype
+    (``_pairwise_plan``), so a float32 sum is numpy's to the bit."""
+    n_rows, n = flat.shape
+    idx, levels, roots, n_nodes = _pairwise_plan(n)
+    vals = torch.cat([flat, flat.new_zeros(n_rows, 1)], 1)[
+        :, idx.to(flat.device)]
+    lanes = vals[..., :128].unflatten(-1, (16, 8))
+    r = lanes[..., 0, :]
+    for k in range(1, 16):
+        r = r + lanes[..., k, :]
+    leaf = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) \
+        + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+    for k in range(128, 135):
+        leaf = leaf + vals[..., k]
+    nodes = torch.cat([leaf, leaf.new_zeros(n_rows, n_nodes - idx.shape[0])],
+                      1)
+    for level in levels:
+        ids, left, right = level.to(flat.device)
+        nodes[:, ids] = nodes[:, left] + nodes[:, right]
+    out = flat.new_zeros(n_rows)
+    for root in roots:
+        out = out + nodes[:, root]
+    return out
+
+
+def _normalise_slices(x: torch.Tensor, scaler: str) -> torch.Tensor:
+    """``pipeline/transforms.py``'s ``normalise_image`` of each [H, W]
+    slice of ``x`` [N, H, W] (cast to float32 first, as there); the
+    statistics are the slice's own. Robust gives float64, as there."""
+    x = x.float()
+    dims = (1, 2)
+    scaler = scaler.lower()
+    if scaler == "standard":
+        n = x.shape[1] * x.shape[2]
+        mean = (_np_sum(x.reshape(x.shape[0], -1)).double() / n).float()
+        centred = x - mean.view(-1, 1, 1)
+        var = (_np_sum((centred * centred).reshape(x.shape[0], -1)).double()
+               / n).float()
+        return centred / (var.sqrt().view(-1, 1, 1) + T.EPS)
+    if scaler == "robust":
+        ordered = x.reshape(x.shape[0], -1).sort(1).values
+        n = ordered.shape[1]
+        med = ordered[:, n // 2]
+        if n % 2 == 0:
+            med = (ordered[:, n // 2 - 1] + med) / 2
+        q0, q95 = _quantiles(ordered, np.array([0.0, 0.95]))
+        return (x - med.view(-1, 1, 1)).double() \
+            / (q95 - q0 + T.EPS).view(-1, 1, 1)
+    mn = x.amin(dims, keepdim=True)
+    mx = x.amax(dims, keepdim=True)
+    return (x - mn) / (mx - mn + T.EPS)
+
+
+def preprocess_model_input(slices: np.ndarray, slice_spacing, cfg: Dict,
+                           device="cpu") -> torch.Tensor:
+    """Deterministic inference-time preprocessing of a stack of raw 2D
+    slices, as one batched pass on ``device``: the stack is uploaded once
+    in its stored dtype, resampled (if RESAMPLE) to the target spacing by
+    ITK's linear rule in float64, x then y, and cast to float32; then per
+    slice the 0.999 quantile clip, the normaliser, the centre pad/crop to
+    DIM and the normaliser again, each with numpy's arithmetic. ``slices``
+    is [N, y, x]; ``slice_spacing`` the in-plane (x, y) spacing shared by
+    all slices. Returns the model-ready [N, H, W, 1] float32 batch on
+    ``device``. The resample and the rest are one span each,
+    ``serve.resample`` and ``serve.normalise`` (serving's
+    ``serve.preprocess`` holds them)."""
     cfg = C.normalise_config(cfg)
     dim = tuple(C.get(cfg, "DIM"))
     target_spacing = list(reversed(C.get(cfg, "SPACING")))
     scaler = C.get(cfg, "SCALER")
-    resample = bool(C.get(cfg, "RESAMPLE", False))
-    xs = []
-    for nda in slices:
-        img2d = MedicalImage(array=np.asarray(nda), spacing=slice_spacing)
-        if resample:
-            with span("serve.resample"):
-                new_size = T.calc_resampled_size(img2d.size, img2d.spacing,
-                                                 target_spacing)
-                img2d = R.resample_image(img2d, new_size, target_spacing,
-                                         R.LINEAR)
-        with span("serve.normalise"):
-            arr = T.normalise_image(T.clip_quantile(img2d.array, 0.999),
-                                    scaler)
-            arr = T.pad_and_crop(arr.astype(np.float32), dim)
-            xs.append(T.normalise_image(arr, scaler))
-    return np.stack(xs)[..., None]
+    dev = torch.device(device)
+    slices = np.asarray(slices)
+    if slices.dtype.kind == "u" and slices.dtype.itemsize > 1:
+        # torch's 16- to 64-bit unsigned dtypes lack most kernels
+        slices = slices.astype(np.int64)
+    x = torch.from_numpy(np.ascontiguousarray(slices)).to(dev)
+    dtype = slices.dtype
+    if bool(C.get(cfg, "RESAMPLE", False)):
+        with span("serve.resample"):
+            size = (x.shape[2], x.shape[1])
+            new_size = T.calc_resampled_size(size, slice_spacing,
+                                             target_spacing)
+            w_dtype = x.dtype if x.is_floating_point() else torch.float64
+            x = x.double()
+            for k, axis in ((0, 2), (1, 1)):  # x, then y
+                x = _gather_linear(x, axis, _linear_taps(
+                    new_size[k], float(target_spacing[k]),
+                    float(slice_spacing[k]), x.shape[axis],
+                    w_dtype if k == 0 else torch.float64, dev))
+            x, dtype = x.float(), np.dtype(np.float32)
+    with span("serve.normalise"):
+        n = x.shape[0]
+        # clip_quantile: numpy takes a python-float q in a floating
+        # array's dtype, and an integer array's quantile in float64
+        if dtype.kind == "f":
+            q = dtype.type(0.999)
+        else:
+            q, x = np.float64(0.999), x.double()
+        top, = _quantiles(x.reshape(n, -1).sort(1).values, [q])
+        x = torch.minimum(x.clamp(min=0.0), top.view(-1, 1, 1))
+        x = _normalise_slices(x, scaler).float()
+        (py, px), (cy, cx) = T.pad_crop_margins(x.shape[1:], dim)
+        out = x.new_zeros((n, *dim))
+        out[:, py[0]:dim[0] - py[1], px[0]:dim[1] - px[1]] = \
+            x[:, cy[0]:x.shape[1] - cy[1], cx[0]:x.shape[2] - cx[1]]
+        out = _normalise_slices(out, scaler).float()
+    return out[..., None]
 
 
 def pred_fold(config: Dict, device="cuda") -> bool:
@@ -448,7 +633,7 @@ def predict_4d_on_2d_cv(exp_root: str, data_root: str,
             t1 = time.perf_counter()
             batch = preprocess_model_input(
                 nda.reshape(t_dim * z_dim, *nda.shape[2:]),
-                vol.spacing[:2], cfg)
+                vol.spacing[:2], cfg, device=dev)
             t2 = time.perf_counter()
             preds = predictor.predict(batch, to_host=False)
             if isinstance(preds, dict):

@@ -464,7 +464,8 @@ def _calibration_batches_2d(paths, cfg: Dict, batch: int, max_slices: int):
         if nda.ndim != 3:
             raise ValueError(f"{path}: calibration expects 2D/3D studies, "
                              f"got shape {nda.shape}")
-        slices.append(preprocess_model_input(nda, img.spacing[:2], cfg))
+        slices.append(
+            preprocess_model_input(nda, img.spacing[:2], cfg).numpy())
         if sum(s.shape[0] for s in slices) >= max_slices:
             break
     if not slices:

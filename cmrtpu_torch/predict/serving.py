@@ -65,9 +65,10 @@ class ServingEngine:
     the batch. ``ensemble_root``: every fold checkpoint of a timestamped
     experiment root served as ONE vmapped average-probability ensemble at
     ``BATCHSIZE``. ``config`` + ``model_path``: the live restore.
-    ``device``: where the forward and the CC filter run; ``'cuda'`` raises
-    when CUDA is missing. ``warmup``: run the forward (and the CC filter)
-    once at init, so the first study pays no set-up."""
+    ``device``: where the preprocessing, the forward and the CC filter
+    run; ``'cuda'`` raises when CUDA is missing. ``warmup``: run the
+    preprocessing of a study of DIM, the forward (and the CC filter) once
+    at init, so the first study pays no set-up."""
 
     def __init__(self, artifact_dir: Optional[str] = None,
                  config: Optional[Dict] = None,
@@ -95,7 +96,7 @@ class ServingEngine:
             self.batch = int(meta["x_shape"][0])
 
             @torch.inference_mode()
-            def forward(x: np.ndarray):
+            def forward(x):
                 return fn(weights, torch.as_tensor(x, device=self.device))
 
             self._forward = forward
@@ -110,6 +111,10 @@ class ServingEngine:
         self._dim = tuple(C.get(self.config, "DIM"))
         self._cc = cc_clean_fn(self.config)
         if warmup:
+            preprocess_model_input(
+                np.zeros((1, *self._dim), np.int16),
+                tuple(reversed(C.get(self.config, "SPACING"))), self.config,
+                device=self.device).cpu()
             x = np.zeros((self.batch, *self._dim,
                           int(C.get(self.config, "IMG_CHANNELS", 1))),
                          np.float32)
@@ -123,21 +128,24 @@ class ServingEngine:
                      "source=%s)", self.init_s, self.batch, self.device,
                      artifact_dir or ensemble_root or model_path or "config")
 
-    def predict_slices(self, x: np.ndarray):
-        """Forward a [N, H, W, C] batch in ``self.batch``-row chunks (last
-        chunk zero-padded). Chunk outputs stay on the device until the last
-        one is queued; one copy brings them back (one per head for a HEADS
-        model, which returns a dict). Counts the real rows
-        (``serve.rows_real``) and the rows forwarded with the padding
-        (``serve.rows_forwarded``) in ``GLOBAL_TIMER``."""
+    def predict_slices(self, x):
+        """Forward a [N, H, W, C] batch (a tensor on the engine's device,
+        as ``preprocess_model_input`` makes it, or an array, uploaded once)
+        in ``self.batch``-row chunks, the last zero-padded on the device.
+        Chunk outputs stay on the device until the last one is queued; one
+        copy brings them back (one per head for a HEADS model, which
+        returns a dict). Counts the real rows (``serve.rows_real``) and the
+        rows forwarded with the padding (``serve.rows_forwarded``) in
+        ``GLOBAL_TIMER``."""
+        x = torch.as_tensor(x, device=self.device)
         n = x.shape[0]
         outs: List[torch.Tensor] = []
         for start in range(0, n, self.batch):
             chunk = x[start:start + self.batch]
             pad = self.batch - chunk.shape[0]
             if pad:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad, *x.shape[1:]), x.dtype)])
+                chunk = torch.cat(
+                    [chunk, chunk.new_zeros((pad, *x.shape[1:]))])
             outs.append(self._forward(chunk))
         GLOBAL_TIMER.count("serve.rows_real", n)
         GLOBAL_TIMER.count("serve.rows_forwarded", len(outs) * self.batch)
@@ -147,13 +155,16 @@ class ServingEngine:
         return to_numpy(torch.cat(outs), n)
 
     def process_study(self, path: str, out_dir: str) -> Dict:
-        """One study end-to-end: read -> preprocess -> forward -> threshold
-        (+ optional CC filter) -> inverse-preprocess -> write
-        ``<stem>_msk_pred.nrrd`` (and ``<stem>_<name>_pred.nrrd`` per
-        further head). Returns the latency record, whose times are the
-        spans' own: ``serve.study`` (``total_s``) over ``serve.read``,
-        ``serve.preprocess``, ``serve.forward`` and ``serve.cc`` +
-        ``serve.undo`` + ``serve.write`` (``post_write_s``)."""
+        """One study end-to-end: read -> preprocess on the engine's device
+        -> forward -> threshold (+ optional CC filter) ->
+        inverse-preprocess -> write ``<stem>_msk_pred.nrrd`` (and
+        ``<stem>_<name>_pred.nrrd`` per further head). Returns the latency
+        record, whose times are the spans' own: ``serve.study``
+        (``total_s``) over ``serve.read``, ``serve.preprocess``,
+        ``serve.forward`` and ``serve.cc`` + ``serve.undo`` +
+        ``serve.write`` (``post_write_s``). Counts the rows preprocessed on
+        a CUDA device (``serve.rows_preprocessed_device``, 0 elsewhere) in
+        ``GLOBAL_TIMER``."""
         stem = _stem(path)
         stats: Dict = {"file": os.path.basename(path)}
         with span("serve.study", stem=stem) as study:
@@ -169,7 +180,10 @@ class ServingEngine:
                         f"{nda.shape}")
 
             with span("serve.preprocess") as prep:
-                x = preprocess_model_input(nda, img.spacing[:2], self.config)
+                x = preprocess_model_input(nda, img.spacing[:2], self.config,
+                                           device=self.device)
+                GLOBAL_TIMER.count("serve.rows_preprocessed_device",
+                                   x.shape[0] if x.is_cuda else 0)
 
             with span("serve.forward") as fwd:
                 preds = self.predict_slices(x)

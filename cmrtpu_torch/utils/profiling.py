@@ -21,7 +21,8 @@
 The spans of the hot paths (``serve.*`` in ``predict/serving.py`` and
 ``preprocess_model_input``, ``train.*`` in ``FusedStep.train_batch`` and
 ``TrainState.train_step``) and the counters ``serve.rows_real`` /
-``serve.rows_forwarded`` are what the benchmark's per-layer metrics read.
+``serve.rows_forwarded`` / ``serve.rows_preprocessed_device`` are what the
+benchmark's per-layer metrics read.
 The store's ``perf_counter`` times and a trace's times are on different
 clocks and are never compared.
 """

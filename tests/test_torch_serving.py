@@ -85,7 +85,7 @@ def test_served_outputs_match_cmrtpu(fold_dir, in_dir, tmp_path):
         img = read_image(os.path.join(in_dir, name))
         x = preprocess_model_input(img.array, img.spacing[:2], CFG)
         probs = engine.predict_slices(x)
-        ref = np.asarray(jax_engine.predict_slices(x))
+        ref = np.asarray(jax_engine.predict_slices(x.numpy()))
         assert np.abs(probs - 0.5).min() > MARGIN
         assert np.abs(ref - 0.5).min() > MARGIN
         flat = threshold_and_flatten(probs)
@@ -111,6 +111,45 @@ def test_served_outputs_match_cmrtpu(fold_dir, in_dir, tmp_path):
         mt = json.loads((out_t / f"{stem}.done.json").read_text())
         assert sorted(mt) == sorted(mj)
         assert (mt["outputs"], mt["slices"]) == (mj["outputs"], mj["slices"])
+
+
+def test_process_study_preprocesses_on_the_engines_device(fold_dir, in_dir,
+                                                         tmp_path):
+    """One study through ``process_study`` on the CPU: the nrrd it writes
+    equals the one cmrtpu's engine writes from its host preprocessing;
+    the batch the forward gets is a tensor on the engine's device, and
+    ``serve.rows_preprocessed_device`` counts no row, since no CUDA
+    device made them."""
+    from cmrtpu_torch.utils.profiling import GLOBAL_TIMER
+
+    jax_engine, engine = _engines(fold_dir)
+    inputs = []
+    forward = engine._forward
+
+    def recording(x):
+        inputs.append(x)
+        return forward(x)
+
+    engine._forward = recording
+    GLOBAL_TIMER.reset()
+    name, z, _ = STUDIES[2]
+    path = os.path.join(in_dir, name)
+    rec = engine.process_study(path, str(tmp_path / "torch"))
+    jax_engine.process_study(path, str(tmp_path / "jax"))
+    stem = name.split(".")[0]
+    got = read_image(str(tmp_path / "torch" / f"{stem}_msk_pred.nrrd"))
+    want = read_image(str(tmp_path / "jax" / f"{stem}_msk_pred.nrrd"))
+    assert got.array.shape == (z, 24, 28)
+    np.testing.assert_array_equal(got.array, want.array)
+    assert (got.spacing, got.origin, got.direction) \
+        == (want.spacing, want.origin, want.direction)
+    assert rec["slices"] == z
+    assert len(inputs) == 2  # z 5 in chunks of BATCHSIZE 4
+    assert all(isinstance(x, torch.Tensor) and x.device == engine.device
+               for x in inputs)
+    counts = GLOBAL_TIMER.counts()
+    assert counts["serve.rows_preprocessed_device"] == 0
+    assert counts["serve.rows_real"] == z
 
 
 def test_served_outputs_with_3d_cc_match_cmrtpu(fold_dir, in_dir, tmp_path):
