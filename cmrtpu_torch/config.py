@@ -170,7 +170,23 @@ _SETTABLE_EXTRA = frozenset({
     "MODEL_PATH", "MODEL_VARIANT", "MOMENTUM", "QUANT_INT8", "RESUME",
     "STREAM_DTYPE", "STREAM_ECHO", "TENSORBOARD_PATH",
     "WEIGHT_STANDARDISATION",
+    "SWIN_PATCH", "SWIN_EMBED_DIM", "SWIN_DEPTHS", "SWIN_HEADS",
+    "SWIN_WINDOW", "SWIN_MLP_RATIO", "DROP_PATH_RATE",
 })
+
+# MODEL_VARIANT 'swin_unet' (models/swin_unet.py): the keys of the
+# Swin-Unet and their defaults, swin_tiny_patch4_window7_224's widths
+# (arXiv:2105.05537) with Swin-T's drop-path rate, 0.2 (arXiv:2103.14030,
+# section 4.1). They live outside DEFAULTS, whose keys are the reference's.
+SWIN_DEFAULTS: Dict[str, Any] = {
+    "SWIN_PATCH": 4,
+    "SWIN_EMBED_DIM": 96,
+    "SWIN_DEPTHS": [2, 2, 2, 2],
+    "SWIN_HEADS": [3, 6, 12, 24],
+    "SWIN_WINDOW": 7,
+    "SWIN_MLP_RATIO": 4,
+    "DROP_PATH_RATE": 0.2,
+}
 
 
 def normalise_config(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -230,6 +246,44 @@ def get(config: Dict[str, Any], key: str, default: Any = None):
 def ndims(config: Dict[str, Any]) -> int:
     """Model dimensionality is selected by len(DIM) (ref: src/models/Unets.py:90)."""
     return len(get(config, "DIM"))
+
+
+def swin_settings(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The Swin-Unet's keys (SWIN_DEFAULTS where unset) with the
+    resolution and window of each stage, ``stages``: a list of (h, w,
+    window) from the patch grid down. A stage whose shorter side is at
+    most SWIN_WINDOW attends over a window of that side, unshifted, as
+    the public code does. Raises ValueError where DIM is not 2D, does not
+    divide into the stages' patches and windows, or a stage's width does
+    not divide into its heads."""
+    out = {k: config.get(k, v) for k, v in SWIN_DEFAULTS.items()}
+    dim = [int(d) for d in get(config, "DIM")]
+    depths = [int(d) for d in out["SWIN_DEPTHS"]]
+    heads = [int(h) for h in out["SWIN_HEADS"]]
+    patch, embed = int(out["SWIN_PATCH"]), int(out["SWIN_EMBED_DIM"])
+    window = int(out["SWIN_WINDOW"])
+    if len(dim) != 2:
+        raise ValueError(f"DIM {dim}: the Swin-Unet is 2D")
+    if len(heads) != len(depths):
+        raise ValueError(f"SWIN_HEADS {heads} and SWIN_DEPTHS {depths} "
+                         "differ in length")
+    scale = patch * 2 ** (len(depths) - 1)
+    if any(d % scale for d in dim):
+        raise ValueError(f"DIM {dim} is not divisible by SWIN_PATCH x "
+                         f"2^(stages - 1) = {scale}")
+    stages = []
+    for i, n_heads in enumerate(heads):
+        h, w = (d // (patch * 2 ** i) for d in dim)
+        m = min(h, w) if min(h, w) <= window else window
+        if h % m or w % m:
+            raise ValueError(f"stage {i} at {h}x{w} does not divide into "
+                             f"windows of {m}")
+        if (embed * 2 ** i) % n_heads:
+            raise ValueError(f"stage {i}: width {embed * 2 ** i} does not "
+                             f"divide into {n_heads} heads")
+        stages.append((h, w, m))
+    out["stages"] = stages
+    return out
 
 
 def load_config(path: str) -> Dict[str, Any]:

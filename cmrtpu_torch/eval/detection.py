@@ -99,13 +99,13 @@ def localisation_metrics(config: Dict):
         gt, gt_valid, pr, pr_valid = _pairs(y_true, y_pred)
         d = torch.sqrt(torch.sum((gt - pr) ** 2, dim=-1))     # [B, C] px
         h, w = y_true.shape[-3], y_true.shape[-2]
-        corners = torch.tensor([[0.0, 0.0], [0.0, w - 1.0],
-                                [h - 1.0, 0.0], [h - 1.0, w - 1.0]],
-                               device=gt.device)
 
         def farthest_corner(coords):
-            return torch.sqrt(torch.sum(
-                (coords[..., None, :] - corners) ** 2, dim=-1)).amax(dim=-1)
+            # the farther edge on each axis, with no corner table uploaded
+            # (an upload waits for the card)
+            r, c = coords[..., 0], coords[..., 1]
+            return torch.sqrt(torch.maximum(r ** 2, (r - (h - 1.0)) ** 2)
+                              + torch.maximum(c ** 2, (c - (w - 1.0)) ** 2))
 
         both = gt_valid & pr_valid
         ub = torch.where(gt_valid, farthest_corner(gt), farthest_corner(pr))

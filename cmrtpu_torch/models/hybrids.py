@@ -18,7 +18,8 @@ The trunks keep their own sigmoid ``head``. Submodules carry the flax names
 (``unet_2d``, ``unet_3d``, ``head_2d``, ``head_3d``, ``head_avg``), so a
 ``state_dict`` key is the flax path with ``/`` -> ``.`` and the weights
 bridge carries them unchanged. ``get_model`` maps MODEL_VARIANT to a
-model: 'unet' (default), 'unet_2p1d' (the (2+1)D U-Net) or a hybrid.
+model: 'unet' (default), 'unet_2p1d' (the (2+1)D U-Net), 'swin_unet'
+(``swin_unet.py``) or a hybrid.
 REMAT, BN_BF16 and WEIGHT_STANDARDISATION reach both trunks through the
 configs they are built from.
 """
@@ -31,6 +32,7 @@ import torch
 from torch import nn
 
 from cmrtpu_torch import config as C
+from cmrtpu_torch.models.swin_unet import build_swin_unet
 from cmrtpu_torch.models.unet import (UNet, apply_softcap, build_model,
                                       he_normal_)
 
@@ -203,7 +205,8 @@ def build_hybrid_model(config: Dict, variant: str = "avg",
 
 def get_model(config: Dict, supervision: bool = False) -> nn.Module:
     """MODEL_VARIANT selects the plain U-Net ('unet', the default), the
-    (2+1)D U-Net ('unet_2p1d') or a hybrid."""
+    (2+1)D U-Net ('unet_2p1d'), the Swin-Unet ('swin_unet') or a
+    hybrid."""
     variant = str(C.get(config, "MODEL_VARIANT", "unet")).lower()
     if variant in ("unet", ""):
         return build_model(config, supervision=supervision)
@@ -214,5 +217,10 @@ def get_model(config: Dict, supervision: bool = False) -> nn.Module:
                          "PTQ covers the UNet family (plain MODEL_VARIANT)")
     if variant == "unet_2p1d":
         return build_model(config, supervision=supervision, factorized=True)
+    if variant == "swin_unet":
+        if supervision:
+            raise ValueError("MODEL_VARIANT='swin_unet' has no "
+                             "deep-supervision branch")
+        return build_swin_unet(config)
     return build_hybrid_model(config, variant=variant,
                               supervision=supervision)

@@ -946,19 +946,27 @@ def model_summary(model: nn.Module) -> str:
     """Text summary with the parameter count (counterpart of
     ``cmrtpu.models.unet.model_summary`` -> model_summary.txt): one line per
     parameter under its flax path and shape, for the U-Net and the hybrids
-    alike (only the attributes a model has are listed)."""
-    from cmrtpu_torch.train.checkpoint import _flatten, state_dict_to_flax
+    alike, or under its state_dict name for a model with no flax layout
+    (only the attributes a model has are listed)."""
+    from cmrtpu_torch.train.checkpoint import (_flatten, has_cmrtpu_layout,
+                                               state_dict_to_flax)
 
     attrs = " ".join(f"{name}={getattr(model, name)}"
                      for name in ("depth", "filters", "f_size", "m_pool",
                                   "mask_classes", "dtype")
                      if hasattr(model, name))
     lines = [f"{type(model).__name__} {attrs}".rstrip()]
-    params, stats = state_dict_to_flax(model.state_dict())
+    state = model.state_dict()
+    if has_cmrtpu_layout(state):
+        params, stats = state_dict_to_flax(state)
+        leaves = [("/".join(k), v)
+                  for k, v in sorted(_flatten(params).items())]
+    else:  # its own names (the Swin-Unet)
+        leaves = [(k, v.detach().cpu().numpy()) for k, v in state.items()]
+        stats = {}
     total = 0
-    for path, leaf in sorted(_flatten(params).items()):
-        lines.append(f"  {'/'.join(path):60s} {str(leaf.shape):18s} "
-                     f"{leaf.size}")
+    for path, leaf in leaves:
+        lines.append(f"  {path:60s} {str(leaf.shape):18s} {leaf.size}")
         total += leaf.size
     lines.append(f"Trainable params: {total}")
     lines.append("BatchNorm statistics: "

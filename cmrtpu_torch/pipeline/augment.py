@@ -107,8 +107,11 @@ def _grid_distortion_table(factors, size: int):
     """Monotone piecewise-linear dst->src axis maps [B, size] from per-cell
     scale factors [B, 5], linear within each of the 5 cells."""
     step = size // GRID_STEPS
-    widths = torch.full((GRID_STEPS,), float(step), device=factors.device)
-    widths[-1] = float(size - step * (GRID_STEPS - 1))
+    # the last cell takes the remainder; built on the device, as an item
+    # written from the host would wait for the card
+    cells = torch.arange(GRID_STEPS, device=factors.device)
+    widths = torch.where(cells == GRID_STEPS - 1,
+                         float(size - step * (GRID_STEPS - 1)), float(step))
     seg = widths * factors
     ends = torch.cumsum(seg, dim=-1)
     starts = ends - seg

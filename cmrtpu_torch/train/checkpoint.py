@@ -33,6 +33,12 @@ does; the flip in the bridge makes the two compute the same function.
 
 A model trained by either package serves from the other.
 
+A model with no cmrtpu counterpart, and so no flax layout (the
+Swin-Unet, ``models/swin_unet.py``: no entry of its state_dict has a flax
+counterpart), is saved in ``model.npz`` under its own ``state_dict``
+names: ``state_dict/<name>`` keys, restored as they are by
+``load_weights_for_model``.
+
 The full train state for a resume (cmrtpu keeps it with Orbax under
 ``MODEL_PATH/state``) is one ``torch.save`` file, ``MODEL_PATH/state.pt``:
 the model's state_dict, the optimizer's rule name and state_dict (its
@@ -61,6 +67,8 @@ from cmrtpu_torch.utils.io_utils import ensure_dir
 
 WEIGHTS_NAME = "model.npz"
 STATE_NAME = "state.pt"
+# the key prefix of a model.npz in a model's own state_dict names
+NATIVE_PREFIX = "state_dict/"
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var",
@@ -154,45 +162,64 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict = None
     return out
 
 
+def _flax_entry(name: str, tensor: torch.Tensor):
+    """(tree, path, array) of one state_dict entry in the flax layout:
+    tree 'params' or 'batch_stats'; None for an entry with no flax
+    counterpart (decided from the name and rank alone)."""
+    *module, leaf = name.split(".")
+    kind, ndim = (_kind(module[-1]) if module else ""), tensor.dim()
+
+    def arr() -> np.ndarray:
+        return tensor.detach().cpu().numpy()
+
+    if leaf == "weight" and kind in ("conv", "conv_t", "wsconv") \
+            and ndim in _KERNEL_NDIMS:
+        rank = ndim - 2
+        if kind == "conv_t":  # [I, O, *k] -> [*k, I, O], unflipped
+            out = _flip_spatial(arr().transpose(*range(2, rank + 2), 0, 1),
+                                rank)
+        else:  # [O, I, *k] -> [*k, I, O]
+            out = arr().transpose(*range(2, rank + 2), 1, 0)
+        return "params", (*module, "kernel"), np.ascontiguousarray(out)
+    if leaf == "kernel_q" and kind == "qconv" and ndim in _KERNEL_NDIMS:
+        rank = ndim - 2  # [O, I, *k] -> [*k, I, O], int8 kept
+        return "params", (*module, "kernel_q"), np.ascontiguousarray(
+            arr().transpose(*range(2, rank + 2), 1, 0))
+    if (leaf in ("w_scale", "act_scale") and kind == "qconv"
+            or leaf == "gain" and kind == "wsconv") and ndim == 1:
+        return "params", (*module, leaf), arr()
+    if leaf == "weight" and kind == "norm" and ndim == 1:
+        return "params", (*module, "scale"), arr()
+    if leaf == "bias" and kind and ndim == 1:
+        return "params", (*module, "bias"), arr()
+    if leaf in ("running_mean", "running_var") and kind == "norm":
+        return "batch_stats", (*module, leaf[len("running_"):]), arr()
+    return None
+
+
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
                        ) -> Tuple[Dict, Dict]:
     """torch ``state_dict`` -> (params, batch_stats) nested numpy trees, the
     exact inverse of ``flax_to_state_dict``. An entry that is not one of
     the U-Net's raises."""
-    params, stats = {}, {}
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for name, tensor in state_dict.items():
-        *module, leaf = name.split(".")
-        arr = tensor.detach().cpu().numpy()
-        kind = _kind(module[-1]) if module else ""
-        if leaf == "weight" and kind in ("conv", "conv_t", "wsconv") \
-                and arr.ndim in _KERNEL_NDIMS:
-            rank = arr.ndim - 2
-            if kind == "conv_t":  # [I, O, *k] -> [*k, I, O], unflipped
-                arr = _flip_spatial(arr.transpose(*range(2, rank + 2), 0, 1),
-                                    rank)
-            else:  # [O, I, *k] -> [*k, I, O]
-                arr = arr.transpose(*range(2, rank + 2), 1, 0)
-            params[(*module, "kernel")] = np.ascontiguousarray(arr)
-        elif leaf == "kernel_q" and kind == "qconv" \
-                and arr.ndim in _KERNEL_NDIMS:
-            rank = arr.ndim - 2  # [O, I, *k] -> [*k, I, O], int8 kept
-            params[(*module, "kernel_q")] = np.ascontiguousarray(
-                arr.transpose(*range(2, rank + 2), 1, 0))
-        elif (leaf in ("w_scale", "act_scale") and kind == "qconv"
-              or leaf == "gain" and kind == "wsconv") and arr.ndim == 1:
-            params[(*module, leaf)] = arr
-        elif leaf == "weight" and kind == "norm" and arr.ndim == 1:
-            params[(*module, "scale")] = arr
-        elif leaf == "bias" and kind and arr.ndim == 1:
-            params[(*module, "bias")] = arr
-        elif leaf == "running_mean" and kind == "norm":
-            stats[(*module, "mean")] = arr
-        elif leaf == "running_var" and kind == "norm":
-            stats[(*module, "var")] = arr
-        else:
-            raise ValueError(f"{name} {tuple(arr.shape)}: no flax "
+        entry = _flax_entry(name, tensor)
+        if entry is None:
+            raise ValueError(f"{name} {tuple(tensor.shape)}: no flax "
                              "counterpart in the U-Nets and hybrids")
-    return _unflatten(params), _unflatten(stats)
+        tree, path, arr = entry
+        trees[tree][path] = arr
+    return _unflatten(trees["params"]), _unflatten(trees["batch_stats"])
+
+
+def has_cmrtpu_layout(state_dict: Mapping[str, torch.Tensor]) -> bool:
+    """Whether ``state_dict`` is a model's with a cmrtpu layout: False
+    where no entry has a flax counterpart (a model cmrtpu does not have,
+    such as the Swin-Unet), which ``model.npz`` keeps in its own names. A
+    state_dict with some such entries is a U-Net's or a hybrid's, and
+    ``state_dict_to_flax`` raises for the others."""
+    return any(_flax_entry(n, t) is not None for n, t in state_dict.items())
 
 
 def _atomic_write(path: str, write) -> str:
@@ -219,12 +246,18 @@ def _atomic_write(path: str, write) -> str:
 def save_weights(model_path: str,
                  weights: Union[nn.Module, Mapping[str, torch.Tensor]]) -> str:
     """Write ``model_path/model.npz`` in the cmrtpu layout from a model or
-    a state_dict (the serving weights: the EMA shadow with EMA on). Over a
+    a state_dict (the serving weights: the EMA shadow with EMA on), or in
+    the state_dict's own names for a model with no cmrtpu layout. Over a
     process group only rank 0 writes (every rank returns the path)."""
     if not is_main_process():
         return os.path.join(model_path, WEIGHTS_NAME)
     state = weights.state_dict() if isinstance(weights, nn.Module) \
         else weights
+    if not has_cmrtpu_layout(state):
+        blobs = {NATIVE_PREFIX + name: t.detach().cpu().numpy()
+                 for name, t in state.items()}
+        return _atomic_write(os.path.join(model_path, WEIGHTS_NAME),
+                             lambda fh: np.savez(fh, **blobs))
     params, stats = state_dict_to_flax(state)
     blobs = {f"params/{'/'.join(k)}": v for k, v in _flatten(params).items()}
     blobs.update({f"batch_stats/{'/'.join(k)}": v
@@ -333,16 +366,25 @@ class AsyncCheckpointWriter:
                     "is missing or stale") from error
 
 
+def _npz_path(model_path: str) -> str:
+    return model_path if model_path.endswith(".npz") \
+        else os.path.join(model_path, WEIGHTS_NAME)
+
+
 def load_weights(model_path: str) -> Tuple[Dict, Dict]:
     """Returns (params, batch_stats) nested numpy trees from a model.npz
     file or its directory. An int8 twin written before cmrtpu's round 4
     stored a scalar ``act_scale``; it is broadcast to the per-input-channel
     vector of its ``kernel_q``, as cmrtpu's ``load_weights`` does
-    (``cmrtpu/train/checkpoint.py:74-82``)."""
-    path = model_path if model_path.endswith(".npz") \
-        else os.path.join(model_path, WEIGHTS_NAME)
+    (``cmrtpu/train/checkpoint.py:74-82``). A file in a model's own
+    state_dict names has no such trees and raises ValueError."""
+    path = _npz_path(model_path)
     params, stats = {}, {}
     with np.load(path) as blobs:
+        if any(k.startswith(NATIVE_PREFIX) for k in blobs.files):
+            raise ValueError(f"{path} holds a model with no cmrtpu layout "
+                             "(state_dict names); restore it with "
+                             "load_weights_for_model")
         for key in blobs.files:
             prefix, rest = key.split("/", 1)
             target = params if prefix == "params" else stats
@@ -362,9 +404,9 @@ def load_weights_for_model(model_path: str, model: nn.Module,
     match). A model directory with a keras ``model.h5`` and no
     ``model.npz`` (the reference's published folds) is imported instead
     (``train/keras_import.py``), walked in the order that ``config``'s
-    model gives; that route needs h5py."""
-    npz = model_path if model_path.endswith(".npz") \
-        else os.path.join(model_path, WEIGHTS_NAME)
+    model gives; that route needs h5py. A ``model.npz`` in a model's own
+    state_dict names loads as it is."""
+    npz = _npz_path(model_path)
     h5 = model_path if model_path.endswith(".h5") \
         else os.path.join(model_path, "model.h5")
     if not os.path.exists(npz) and os.path.exists(h5):
@@ -372,6 +414,12 @@ def load_weights_for_model(model_path: str, model: nn.Module,
         trees = import_keras_unet_weights(model, h5, config)
         model.load_state_dict(flax_to_state_dict(trees["params"],
                                                  trees["batch_stats"]))
+        return model
+    with np.load(npz) as blobs:
+        native = {k[len(NATIVE_PREFIX):]: torch.from_numpy(blobs[k])
+                  for k in blobs.files if k.startswith(NATIVE_PREFIX)}
+    if native:
+        model.load_state_dict(native)
         return model
     params, stats = load_weights(model_path)
     model.load_state_dict(flax_to_state_dict(params, stats))
