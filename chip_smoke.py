@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N   # N cards of one host (cards_main)
+    python3 chip_smoke.py --k3        # phases 1, 2 and 2c alone
 
 Run from the root of a checkout. ``--cards N`` runs only the multi-process
 check over N cards (``cards_main``); without it, one card and these
@@ -24,6 +25,21 @@ phases, one line each:
                  launches bit-identical; kept volumes equal to scipy's;
                  timed by events, a CUDA graph and the profiler by pass,
                  beside the plain version and the bound;
+  2c. k3       — K3, the Swin-Unet's window attention
+                 (csrc/window_attention.cu), forward and backward, at
+                 Swin-T's four stages at 224² (batch 24, window 7, the
+                 shifted block of 56², 28² and 14², the unshifted 7²)
+                 against its plain twin on the card in bf16; two launches
+                 bit-identical; its launches counted; each timed by events
+                 and a CUDA graph beside the bound, the twin and
+                 scaled_dot_product_attention with the bias and mask as
+                 its mask (a yardstick the port never calls); then the
+                 flagship template's train step (DeviceCachedLoop) with
+                 the Swin-T Swin-Unet at batch 24, K3's counters set to 0
+                 before each step: graphed, the capture launches K3 at
+                 least 14 times each way and a replay none; eager, 14
+                 and 14; swin.windows_kernel equals swin.windows (338 a
+                 slice) at each;
   3. k2        — the CC-label kernel against its plain torch version on the
                  card and scipy's labels, exact, at [10, 224, 224] (random
                  0.3/0.55/0.7, serpentine, empty/full/single), at the serving
@@ -406,6 +422,19 @@ K1_ATOL = 1e-5
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # a write of this many bytes between launches evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
+# the H100's dense bf16 tensor-core peak (700 W), FLOP/s
+BF16_FLOP_S = 989e12
+# K3 against its plain twin in bf16 (the bounds of
+# tests/test_torch_window_attention.py): the same operations, summed in
+# another order, so a probability, dS or output rounds to the other
+# neighbouring bf16 value now and then (read 2.3e-5 to 6.4e-5 on an
+# H100, PERF.md); d(bias) is float32 (at most 3.3e-7)
+K3_GAP, K3_DBIAS_GAP = 1e-3, 1e-5
+# Swin-T's stages at 224² (side, width, heads, shift of the block timed),
+# window 7, at the Swin cell's batch
+K3_CASES = ((56, 96, 3, 3), (28, 192, 6, 3), (14, 384, 12, 3),
+            (7, 768, 24, 0))
+K3_WINDOW, K3_BATCH = 7, 24
 # K2's three passes, as the profiler names their kernels
 K2_KERNELS = ("cc_local_kernel", "cc_merge_kernel", "cc_flatten_kernel")
 # train-f32: the f32 loss on the card against the CPU's
@@ -943,6 +972,224 @@ def phase_k1(cases=None, phase="k1"):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return results, max_err
+
+
+def _k3_bound(side, dim, heads):
+    """Least times (ms) of K3's forward and backward at a stage of the
+    Swin cell: bf16 qkv read and the output written (forward), qkv and
+    d(out) read and d(qkv) written (backward), each once, with the float32
+    bias, log-sum-exp and d(bias); against q k^T and P v (forward), dV,
+    dP, dQ and dK (backward) at the bf16 peak."""
+    tokens = K3_BATCH * side * side
+    windows = K3_BATCH * (side // K3_WINDOW) ** 2
+    t = K3_WINDOW ** 2
+    lse, bias = 4 * heads * windows * t, 4 * heads * t * t
+    fwd_bytes = 2 * tokens * 4 * dim + bias + lse
+    bwd_bytes = 2 * tokens * 7 * dim + 2 * bias + lse
+    flops = 2 * windows * t * t * dim  # one product, every head
+    out = {}
+    for name, nbytes, nflops in (("fwd", fwd_bytes, 2 * flops),
+                                 ("bwd", bwd_bytes, 4 * flops)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, nflops / BF16_FLOP_S
+        out[f"{name}_bound_ms"] = max(t_bytes, t_ops) * 1e3
+        out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else \
+            "operations"
+        out[f"{name}_bytes"] = nbytes
+    return out
+
+
+def _k3_library(qkv, bias, mask, heads, shift, scale):
+    """Yardstick, never called by the port: scaled_dot_product_attention
+    over the windows already gathered, the bias and the mask its float
+    mask; forward, and forward with backward."""
+    from cmrtpu_torch.ops.window_attention import window_token_index
+    n, h, w, c3 = qkv.shape
+    idx = window_token_index(h, w, K3_WINDOW, shift, qkv.device)
+    nw, t = idx.shape
+    q, k, v = qkv.reshape(n, h * w, c3)[:, idx].view(
+        n * nw, t, 3, heads, -1).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+    add = bias[None] if mask is None else (bias[None] + mask[:, None]).expand(
+        n, nw, heads, t, t).reshape(n * nw, heads, t, t)
+    add = add.to(qkv.dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grad = torch.randn_like(q)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=add,
+                                           scale=scale)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=add,
+                                             scale=scale)
+        torch.autograd.grad(out, leaves, grad)
+
+    return {"library_ms": cuda_ms(fwd, 50),
+            "library_fwd_bwd_ms": cuda_ms(fwd_bwd, 20)}
+
+
+def phase_k3():
+    """K3 against its plain twin on the card at the Swin cell's stages,
+    its launches counted, and timed."""
+    from cmrtpu_torch.models.swin_unet import shift_mask
+    from cmrtpu_torch.ops.window_attention import (
+        window_attention_backward_plain, window_attention_plain)
+    fwd, bwd = (kernels.window_attention_forward_cuda,
+                kernels.window_attention_backward_cuda)
+    results = {}
+    with _tf32_off():  # the twin's float32 products in full float32
+        for side, dim, heads, shift in K3_CASES:
+            g = torch.Generator().manual_seed(SEED + side)
+            qkv = torch.randn(K3_BATCH, side, side, 3 * dim,
+                              generator=g).cuda().bfloat16()
+            bias = torch.randn(heads, K3_WINDOW ** 2, K3_WINDOW ** 2,
+                               generator=g).cuda()
+            dout = torch.randn(K3_BATCH, side, side, dim,
+                               generator=g).cuda().bfloat16()
+            mask = shift_mask(side, side, K3_WINDOW, shift).cuda() \
+                if shift else None
+            scale = (dim // heads) ** -0.5
+            args = (heads, K3_WINDOW, shift, scale)
+            launched = (fwd.launches, bwd.launches)
+            out, lse = fwd(qkv, bias, *args)
+            out2, lse2 = fwd(qkv, bias, *args)
+            grads = bwd(qkv, bias, lse, dout, *args)
+            grads2 = bwd(qkv, bias, lse, dout, *args)
+            torch.cuda.synchronize()
+            check((fwd.launches - launched[0], bwd.launches - launched[1])
+                  == (2, 2), "k3: launches not counted once a call")
+            check(torch.equal(out, out2) and torch.equal(lse, lse2)
+                  and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                  f"k3 {side}: two launches differ")
+            want = window_attention_plain(qkv, bias, *args, mask=mask)
+            want_dqkv, want_dbias = window_attention_backward_plain(
+                qkv, bias, dout, *args, mask=mask)
+
+            def gap(a, b):
+                a, b = a.double(), b.double()
+                return float((a - b).norm() / b.norm())
+
+            gaps = {"out": gap(out, want), "dbias": gap(grads[1], want_dbias)}
+            for i, part in enumerate(("dq", "dk", "dv")):
+                sl = slice(i * dim, (i + 1) * dim)
+                gaps[part] = gap(grads[0][..., sl], want_dqkv[..., sl])
+            check(all(v < K3_GAP for k, v in gaps.items() if k != "dbias")
+                  and gaps["dbias"] < K3_DBIAS_GAP,
+                  f"k3 {side}: gaps to the twin {gaps}")
+            fields = {"case": f"{side}x{side} C{dim} h{heads} s{shift}",
+                      "shape": list(qkv.shape), "gaps": gaps,
+                      "fwd_ms": cuda_ms(lambda: fwd(qkv, bias, *args), 100),
+                      "fwd_graph_ms": graph_ms(
+                          lambda: fwd(qkv, bias, *args), 50),
+                      "bwd_ms": cuda_ms(
+                          lambda: bwd(qkv, bias, lse, dout, *args), 100),
+                      "bwd_graph_ms": graph_ms(
+                          lambda: bwd(qkv, bias, lse, dout, *args), 50),
+                      "plain_ms": cuda_ms(lambda: window_attention_plain(
+                          qkv, bias, *args, mask=mask), 10),
+                      "plain_bwd_ms": cuda_ms(
+                          lambda: window_attention_backward_plain(
+                              qkv, bias, dout, *args, mask=mask), 10),
+                      **_k3_library(qkv, bias, mask, heads, shift, scale),
+                      **_k3_bound(side, dim, heads)}
+            for name in ("fwd", "bwd"):
+                fields[f"{name}_roofline_pct"] = 100 * fields[
+                    f"{name}_bound_ms"] / fields[f"{name}_graph_ms"]
+            results[side] = fields
+            log("k3", **fields)
+            del qkv, dout, out, out2, grads, grads2, want, want_dqkv
+            torch.cuda.empty_cache()
+    results["route"] = _k3_route()
+    return results
+
+
+def _k3_route():
+    """K3 on the Swin cell's path: the flagship template's train step
+    (``DeviceCachedLoop.train_step``) with the Swin-T Swin-Unet at 224²,
+    the cell's batch and drop path, on phantom slices. Graphed, as the
+    cell runs it: the step that captures launches K3 at least 14 times
+    forward and 14 backward (each piece's graph is warmed up, then
+    captured), a replayed step none, since its launches are the graphs';
+    then eagerly (``cuda_graphs`` off): 14 and 14. K3's counters are set
+    to 0 before each step, and each step attends every window through K3
+    (``swin.windows_kernel`` = ``swin.windows`` = 338 a slice). The other
+    kernels' counters are left as they were. Returns K3's launches and
+    the two counters by step."""
+    fwd, bwd = (kernels.window_attention_forward_cuda,
+                kernels.window_attention_backward_cuda)
+    with open(FLAGSHIP, encoding="utf-8") as fh:
+        cfg = normalise_config(dict(
+            json.load(fh), MODEL_VARIANT="swin_unet", DIM=[224, 224],
+            BATCHSIZE=K3_BATCH, DROP_PATH_RATE=0.2, MIXED_PRECISION=True))
+    rng = np.random.default_rng(SEED + 23)
+    n = 2 * K3_BATCH
+    cache = types.SimpleNamespace(
+        _cache_x=_phantom(rng, n, 224, 224),
+        _cache_y=_discs(rng, n, 224, 224, cfg["MASK_VALUES"]),
+        masks=True, images=range(n))
+    held = {k: k.launches for k in (kernels.gaussian_blur_2d_cuda,
+                                    kernels.converge_labels_cuda,
+                                    kernels.converge_labels_3d_cuda)}
+    trainer = Trainer(cfg, device="cuda")
+    loop = DeviceCachedLoop(trainer, cache)
+    rows = torch.from_numpy(loop._epoch_indices(n, False)).cuda()
+
+    def step(row):
+        fwd.launches = bwd.launches = 0
+        before = profiling.GLOBAL_TIMER.counts()
+        loop.train_step(rows[row])
+        torch.cuda.synchronize()
+        after = profiling.GLOBAL_TIMER.counts()
+        return {"fwd": fwd.launches, "bwd": bwd.launches,
+                **{k: after.get(k, 0) - before.get(k, 0)
+                   for k in ("swin.windows", "swin.windows_kernel")}}
+
+    by_path = {"swin_train_capture": step(0), "swin_train_replay": step(1)}
+    trainer.model.cuda_graphs = False
+    by_path["swin_train_eager"] = step(0)
+    for k, launches in held.items():
+        k.launches = launches
+    capture, replay, eager = by_path.values()
+    check(capture["fwd"] >= 14 and capture["bwd"] >= 14,
+          f"k3-route: the capture launched K3 {capture}")
+    check((replay["fwd"], replay["bwd"]) == (0, 0),
+          f"k3-route: a replayed step launched K3 {replay}")
+    check((eager["fwd"], eager["bwd"]) == (14, 14),
+          f"k3-route: an eager step launched K3 {eager}, not 14 and 14")
+    check(all(f["swin.windows_kernel"] == f["swin.windows"]
+              == 338 * K3_BATCH for f in by_path.values()),
+          f"k3-route: windows {by_path}")
+    log("k3-route", batch=K3_BATCH, launches_by_path=by_path,
+        windows_per_slice=eager["swin.windows"] / K3_BATCH)
+    del loop, trainer
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def k3_row(k3):
+    """K3's entry of the kernel figures: the 56² stage as its case, the
+    other stages beside it; ``launches`` are the wrapper calls of the
+    graphed train step's capture (``_k3_route``), each backward call
+    launching two kernels."""
+    main = k3[56]
+    keys = ("fwd_ms", "fwd_graph_ms", "bwd_ms", "bwd_graph_ms", "plain_ms",
+            "plain_bwd_ms", "library_ms", "library_fwd_bwd_ms",
+            "fwd_bound_ms", "bwd_bound_ms", "fwd_roofline_pct",
+            "bwd_roofline_pct")
+    route = k3["route"]
+    return {"name": "window_attention_forward_cuda, "
+                    "window_attention_backward_cuda",
+            "route": "cuda", "source": "cmrtpu_torch/csrc/window_attention.cu",
+            "replaces": "none (cmrtpu has no Swin-Unet)",
+            "launches": {k: route["swin_train_capture"][k]
+                         for k in ("fwd", "bwd")},
+            "launches_by_path": {path: {k: f[k] for k in ("fwd", "bwd")}
+                                 for path, f in route.items()},
+            "case": main["case"], "bound_by": main["fwd_bound_by"],
+            **{k: main[k] for k in keys},
+            "stages": {f["case"]: {k: f[k] for k in keys}
+                       for side, f in k3.items() if side != "route"},
+            "route_step": route}
 
 
 def _make_dataset(root):
@@ -5386,7 +5633,7 @@ def _ms(us):
     return None if us is None else us / 1e3
 
 
-def main():
+def main(k3_only=False):
     check(not _loaded_foreign(), f"importing the port loaded "
           f"{_loaded_foreign()}")
     if not torch.cuda.is_available():
@@ -5404,10 +5651,15 @@ def main():
     print(smi, flush=True)
 
     phase_build()
+    if k3_only:
+        print(json.dumps({"kernels": [k3_row(phase_k3())]}), flush=True)
+        print(smi, flush=True)
+        return 0
     k2, k2_err = phase_k2()
     k1, k1_err = phase_k1()
     k1_3d, k1_3d_err = phase_k1(k1_3d_cases(), phase="k1-3d")
     cc3d, cc3d_err = phase_cc3d()
+    k3 = phase_k3()
     # from here on the 3D kernel counts the launches of the paths
     kernels.converge_labels_3d_cuda.launches = 0
 
@@ -5526,7 +5778,8 @@ def main():
          "cine_ms": cc3d_cine["ms"], "cine_graph_ms": cc3d_cine["graph_ms"],
          "cine_device_ms": _ms(cc3d_cine["device_us"]),
          "cine_plain_ms": cc3d_cine["plain_ms"],
-         "cine_bound_ms": cc3d_cine["bound_ms"]}]}),
+         "cine_bound_ms": cc3d_cine["bound_ms"]},
+        k3_row(k3)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5537,4 +5790,4 @@ def main():
 
 if __name__ == "__main__":
     sys.exit(cards_main(int(sys.argv[2])) if sys.argv[1:2] == ["--cards"]
-             else main())
+             else main(k3_only=sys.argv[1:2] == ["--k3"]))

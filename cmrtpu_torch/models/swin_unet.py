@@ -6,9 +6,8 @@ port's MODEL_VARIANT 'swin_unet'.
 Same interface as the U-Net: ``forward`` takes [N, H, W, C] and returns
 [N, H, W, MASK_CLASSES] sigmoid probabilities; dropout's place is taken by
 drop path, whose per-sample masks come from the ``generator`` passed to
-``forward`` in train mode. Tokens stay [N, h, w, C] from the patch grid
-down, so the cyclic shift and the window partition are a roll and a
-reshape.
+``forward`` in train mode. Tokens stay [N, h, w, C], in their natural
+order, from the patch grid down.
 
   patch embed  4x4 conv at stride 4 from IMG_CHANNELS to SWIN_EMBED_DIM,
                then LayerNorm
@@ -16,12 +15,18 @@ reshape.
                MLP = Linear(C, rC) -> GELU (erf) -> Linear(rC, C); s
                alternates 0 and floor(M / 2); a stage whose side is at
                most M attends over its whole side, unshifted
-  WMSA_s       roll by (-s, -s), M x M windows, qkv = Linear(C, 3C), per
-               head softmax(q k^T / sqrt(d) + B + mask_s) v, Linear(C, C),
-               windows reversed, roll by (+s, +s); B[h, i, j] is the
-               learned table T[(dr + M - 1)(2M - 1) + dc + M - 1, h];
-               mask_s is -100 between tokens of different regions of the
-               shifted map ([0, -M), [-M, -s), [-s, end) on each axis)
+  WMSA_s       qkv = Linear(C, 3C) on each token where it stands; the
+               map rolled by (-s, -s) cut into M x M windows, whose tokens
+               are read at their pixels of the map as it is (token t of
+               window (wr, wc) at ((wr M + t // M + s) mod h, (wc M +
+               t % M + s) mod w)); per window and head softmax(q k^T /
+               sqrt(d) + B + mask_s) v, written back at the pixels it was
+               read from; Linear(C, C) on each token. The linears act per
+               token, so they commute with the roll and the partition,
+               and neither is a copy. B[h, i, j] is the learned table
+               T[(dr + M - 1)(2M - 1) + dc + M - 1, h]; mask_s is -100
+               between tokens of different regions of the shifted map
+               ([0, -M), [-M, -s), [-s, end) on each axis)
   encoder      stage i keeps its input as skip i, runs its blocks and,
                but the last, merges 2x2 neighbours: LN(4C) then
                Linear(4C, 2C) without bias; LayerNorm after the last
@@ -51,11 +56,20 @@ updates reach it, and a replaced parameter makes it capture again.
 Forward hooks inside the pieces do not fire in a graphed step (the head's
 do); ``cuda_graphs = False`` runs the pieces eagerly everywhere.
 
+Between the two linears the attention is K3 (``csrc/window_attention.cu``,
+through ``ops/window_attention.py``), forward and backward, on a CUDA
+device (``kernel_attends``), where it takes bfloat16, at most 64 tokens a
+window and a head dim of 32 (every stage of Swin-T) and raises on anything
+else; elsewhere it is K3's plain twin, ``window_attention_plain``. The
+choice is made from the tokens' device, with no setting.
+
 Precision: under MIXED_PRECISION the patch embedding's convolution, every
 linear layer and the attention's two matrix products run in bfloat16 on
-float32 parameters; LayerNorm, the softmax with the bias table and the
-mask added to the scores, the residual stream and its sums, drop path and
-the 1x1 head stay in float32. Without it everything is float32.
+float32 parameters, the products summed in float32; the scores stay
+float32 from that sum and are scaled in float32; LayerNorm, the softmax
+with the bias table and the mask added to the scores, the residual stream
+and its sums, drop path and the 1x1 head stay in float32. Without it
+everything is float32.
 
 Parameter names are the public code's (``layers.0.blocks.1.attn.qkv.weight``,
 ``layers_up.1.upsample.expand.weight``, ``concat_back_dim.2.weight``), and
@@ -63,8 +77,9 @@ the module has no cmrtpu layout: ``train/checkpoint.py`` saves its
 ``state_dict`` under those names. The relative-position index and the
 shift masks are non-persistent buffers. Each block's attention branch
 (LN1, WMSA_s, drop path and the sum) is the span ``swin.attention`` (arg
-``stage``), graphed or not, and the counter ``swin.windows`` adds the
-windows it attends.
+``stage``), graphed or not; the counter ``swin.windows`` adds the
+windows it attends, and ``swin.windows_kernel`` those of them that K3
+attends.
 """
 
 from __future__ import annotations
@@ -78,6 +93,8 @@ from torch import nn
 
 from cmrtpu_torch import config as C
 from cmrtpu_torch.models.unet import apply_softcap
+from cmrtpu_torch.ops.window_attention import (window_attention,
+                                               window_attention_plain)
 from cmrtpu_torch.utils.profiling import GLOBAL_TIMER, span
 
 # the value mask_s takes between tokens of different regions (the public
@@ -142,6 +159,13 @@ def _residual(x: torch.Tensor, branch: torch.Tensor,
     return x + (branch if keep is None else branch * keep)
 
 
+def kernel_attends(x: torch.Tensor) -> bool:
+    """Whether K3 attends a block's tokens ``x``: on a CUDA device always
+    (``window_attention`` launches or raises), elsewhere never (the plain
+    twin)."""
+    return x.is_cuda
+
+
 class WindowAttention(nn.Module):
     """Multi-head self-attention inside M x M windows with the learned
     relative-position bias."""
@@ -149,7 +173,8 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, window: int, heads: int):
         super().__init__()
         self.window, self.heads = window, heads
-        self.scale = (dim // heads) ** -0.5
+        self.head_dim = dim // heads
+        self.scale = self.head_dim ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, heads))
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -165,21 +190,17 @@ class WindowAttention(nn.Module):
             self.relative_position_index.reshape(-1)].view(
                 n, n, -1).permute(2, 0, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+    def forward(self, x: torch.Tensor, shift: int,
+                mask: Optional[torch.Tensor],
                 dtype: torch.dtype) -> torch.Tensor:
-        """x [N * nW, M * M, C] windows -> the same shape in ``dtype``;
-        ``mask`` [nW, M * M, M * M] or None."""
-        bw, n, c = x.shape
-        qkv = _linear(self.qkv, x, dtype).reshape(
-            bw, n, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
-        scores = (q @ k.transpose(-2, -1)).float() + self.bias().unsqueeze(0)
-        if mask is not None:
-            nw = mask.shape[0]
-            scores = (scores.view(bw // nw, nw, self.heads, n, n)
-                      + mask[None, :, None]).view(bw, self.heads, n, n)
-        attn = torch.softmax(scores, dim=-1).to(dtype)
-        out = (attn @ v).transpose(1, 2).reshape(bw, n, c)
+        """x [N, h, w, C] -> WMSA_s in ``dtype``, [N, h, w, C]; ``mask``
+        [nW, M * M, M * M] or None is the plain twin's (K3 derives it)."""
+        qkv = _linear(self.qkv, x, dtype)
+        args = (self.heads, self.window, shift, self.scale)
+        if kernel_attends(x):
+            out = window_attention(qkv, self.bias().contiguous(), *args)
+        else:
+            out = window_attention_plain(qkv, self.bias(), *args, mask=mask)
         return _linear(self.proj, out, dtype)
 
 
@@ -214,16 +235,7 @@ class SwinBlock(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """WMSA_s of LN(x) [N, h, w, C] -> [N, h, w, C] in the compute
         dtype."""
-        n, h, w, _ = x.shape
-        m, s = self.window, self.shift
-        x = x.to(self.dtype)
-        if s:
-            x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))
-        out = window_reverse(self.attn(window_partition(x, m),
-                                       self.attn_mask, self.dtype), m, h, w)
-        if s:
-            out = torch.roll(out, shifts=(s, s), dims=(1, 2))
-        return out
+        return self.attn(x, self.shift, self.attn_mask, self.dtype)
 
     def attention_branch(self, x: torch.Tensor,
                          keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -496,7 +508,8 @@ class SwinUnet(nn.Module):
         its graph), from the image [N, C, H, W] to the last LN's tokens,
         each given its skip and its uniforms; with ``spans`` an attention
         piece is the span ``swin.attention`` and adds its windows to
-        ``swin.windows``."""
+        ``swin.windows``, and to ``swin.windows_kernel`` where K3 attends
+        them."""
         skips: List[torch.Tensor] = []
         draws = iter(uniforms)
         for piece, call in zip(plan, calls):
@@ -510,7 +523,10 @@ class SwinUnet(nn.Module):
                 continue
             stage, m = piece.attention
             n, h, w, _ = x.shape
-            GLOBAL_TIMER.count("swin.windows", n * (h // m) * (w // m))
+            windows = n * (h // m) * (w // m)
+            GLOBAL_TIMER.count("swin.windows", windows)
+            GLOBAL_TIMER.count("swin.windows_kernel",
+                               windows if kernel_attends(x) else 0)
             with span("swin.attention", stage=stage):
                 x = call(x, *extra)
         return x

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels: build, ``ctypes`` binding and wrappers.
 
 Counterpart of ``cmrtpu/ops/pallas_kernels.py``, one kernel for each Pallas
-kernel there, and one for an XLA loop of cmrtpu's:
+kernel there, one for an XLA loop of cmrtpu's, and one for the port's own
+Swin-Unet:
 
   ``gaussian_blur_2d_cuda``  K1, ``csrc/gaussian_blur.cu``, replaces
                              ``gaussian_blur_2d_pallas`` (training targets)
@@ -11,6 +12,13 @@ kernel there, and one for an XLA loop of cmrtpu's:
                              while_loop of ``label_components_3d`` in
                              ``cmrtpu/ops/connected_components.py``
                              (CC_FILTER '3d')
+  ``window_attention_forward_cuda``, ``window_attention_backward_cuda``
+                             K3, ``csrc/window_attention.cu``, replaces
+                             no Pallas kernel (cmrtpu has no Swin-Unet):
+                             the Swin-Unet's shifted-window attention
+                             between its qkv and proj linears, forward
+                             and backward, bound through
+                             ``ops/window_attention.py``
 
 Both CC kernels are tiled union-finds in three launches: a local pass in
 shared memory (a ballot makes each row's runs trees, then one union per
@@ -21,6 +29,10 @@ rows x up to 16 slices of a volume (``cc3d_geometry``), joined under
 26-connectivity. Both move 1 B in and 4 B out per pixel or voxel, so
 memory bounds them; on the serving path's sparse masks each pass is near
 the floor of a launch, on dense ones the shared-memory unions take most.
+K3 gives a block one head and a group of windows
+(``window_attention_geometry``) and keeps each window's scores,
+probabilities and their gradients on chip, so qkv, the output and their
+gradients cross device memory once each: bytes bound it too.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one process
 per source, all at once) and linked into one library in
@@ -151,6 +163,13 @@ def _library() -> ctypes.CDLL:
                 ptr, ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float), i32,
                 i32, i32, ptr]
             lib.gaussian_blur_launch.restype = i32
+            f32 = ctypes.c_float
+            lib.window_attention_fwd_launch.argtypes = [
+                ptr, ptr, ptr, ptr, *[i32] * 7, f32, ptr]
+            lib.window_attention_fwd_launch.restype = i32
+            lib.window_attention_bwd_launch.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, *[i32] * 7, f32, ptr]
+            lib.window_attention_bwd_launch.restype = i32
             _lib = lib
     return _lib
 
@@ -363,3 +382,135 @@ def gaussian_blur_2d_cuda(x: torch.Tensor, sigma: float,
 
 
 gaussian_blur_2d_cuda.launches = 0  # kernel launches since the last reset
+
+
+# K3's windows (csrc/window_attention.cu): a head dim of kD, at most kRows
+# tokens a window, one warpgroup a block, and about four blocks for each of
+# the H100's 132 SMs, of at most WATTN_MAX_GROUP windows each
+WATTN_HEAD_DIM = 32
+WATTN_MAX_TOKENS = 64
+WATTN_BLOCKS = 4 * 132
+WATTN_MAX_GROUP = 16
+
+
+def window_attention_geometry(batch: int, h: int, w: int, window: int,
+                              heads: int) -> Tuple[int, int, int]:
+    """(windows, windows a block, blocks a head) of K3 on a batch of
+    [h, w] maps."""
+    windows = batch * (h // window) * (w // window)
+    group = max(1, min(WATTN_MAX_GROUP, -(-windows * heads // WATTN_BLOCKS)))
+    return windows, group, -(-windows // group)
+
+
+def _window_attention_args(qkv: torch.Tensor, bias: torch.Tensor,
+                           heads: int, window: int, shift: int,
+                           name: str) -> None:
+    """Raise unless K3 takes these: qkv bf16 [N, h, w, 3 * heads * 32] and
+    bias float32 [heads, m * m, m * m], both contiguous on one CUDA device,
+    h and w multiples of the window m, m * m <= 64, 0 <= shift < m."""
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: qkv must be bfloat16, got {qkv.dtype}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
+    t = window * window
+    c3 = 3 * heads * WATTN_HEAD_DIM
+    if qkv.dim() != 4 or qkv.shape[-1] != c3:
+        raise ValueError(f"{name}: qkv must be [N, h, w, {c3}] (head dim "
+                         f"{WATTN_HEAD_DIM}, {heads} heads), got "
+                         f"{tuple(qkv.shape)}")
+    _, h, w, _ = qkv.shape
+    if not (t <= WATTN_MAX_TOKENS and 0 <= shift < window and h % window == 0
+            and w % window == 0):
+        raise ValueError(f"{name}: window {window}, shift {shift} on "
+                         f"[{h}, {w}] maps: need m * m <= "
+                         f"{WATTN_MAX_TOKENS}, 0 <= shift < m and sides "
+                         "that are multiples of m")
+    if tuple(bias.shape) != (heads, t, t):
+        raise ValueError(f"{name}: bias must be [{heads}, {t}, {t}], got "
+                         f"{tuple(bias.shape)}")
+    if not (qkv.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"{name}: qkv and bias must be contiguous")
+    if qkv.device.type != "cuda" or bias.device != qkv.device:
+        raise ValueError(f"{name} takes CUDA tensors on one device, got "
+                         f"{qkv.device} and {bias.device}; the plain version "
+                         "is cmrtpu_torch.ops.window_attention."
+                         "window_attention_plain")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be 16-byte aligned")
+
+
+def window_attention_forward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                                  heads: int, window: int, shift: int,
+                                  scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward: the shifted-window attention of qkv [N, h, w, 3C]
+    (bf16, natural token order) with the bias [heads, m * m, m * m] and the
+    shift mask, ``window_attention_plain``'s contract. Returns the output
+    bf16 [N, h, w, C] and each row's log-sum-exp, float32 [heads, windows,
+    m * m], for the backward. One launch."""
+    _window_attention_args(qkv, bias, heads, window, shift,
+                           "window_attention_forward_cuda")
+    n, h, w, c3 = qkv.shape
+    windows, group, _ = window_attention_geometry(n, h, w, window, heads)
+    out = torch.empty((n, h, w, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((heads, windows, window * window),
+                      dtype=torch.float32, device=qkv.device)
+    if windows:
+        _launch(_library().window_attention_fwd_launch, qkv.device,
+                qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), n, h, w, window, shift, heads, group,
+                float(scale))
+        window_attention_forward_cuda.launches += 1
+    return out, lse
+
+
+# calls since the last reset, one launch each
+window_attention_forward_cuda.launches = 0
+
+
+def window_attention_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                                   lse: torch.Tensor, dout: torch.Tensor,
+                                   heads: int, window: int, shift: int,
+                                   scale: float
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's backward: d(qkv) bf16 [N, h, w, 3C] and d(bias) float32 [heads,
+    m * m, m * m] of ``window_attention_forward_cuda``'s output, given its
+    gradient ``dout`` (bf16 [N, h, w, C], contiguous) and the forward's
+    ``lse``. ``window_attention_backward_plain``'s contract; d(bias) sums
+    each block's partial in a fixed order, so it is the same at every
+    call. A call launches two kernels, the backward
+    (``window_attention_bwd``) and the partials' sum
+    (``window_attention_dbias``), and counts once in ``launches``."""
+    name = "window_attention_backward_cuda"
+    _window_attention_args(qkv, bias, heads, window, shift, name)
+    n, h, w, c3 = qkv.shape
+    windows, group, blocks = window_attention_geometry(n, h, w, window, heads)
+    if (dout.dtype != qkv.dtype or tuple(dout.shape) != (n, h, w, c3 // 3)
+            or not dout.is_contiguous() or dout.device != qkv.device
+            or dout.data_ptr() % 16):
+        raise ValueError(f"{name}: dout must be contiguous bf16 "
+                         f"[{n}, {h}, {w}, {c3 // 3}] on {qkv.device}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    t = window * window
+    if (lse.dtype != torch.float32 or not lse.is_contiguous()
+            or tuple(lse.shape) != (heads, windows, t)
+            or lse.device != qkv.device):
+        raise ValueError(f"{name}: lse must be the forward's, float32 "
+                         f"[{heads}, {windows}, {t}]")
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias)
+    part = torch.empty((heads, blocks, t, t), dtype=torch.float32,
+                       device=qkv.device)
+    if not windows:
+        return dqkv, dbias.zero_()
+    _launch(_library().window_attention_bwd_launch, qkv.device,
+            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(), n, h, w,
+            window, shift, heads, group, float(scale))
+    window_attention_backward_cuda.launches += 1
+    return dqkv, dbias
+
+
+# calls since the last reset, each of two kernels (window_attention_bwd,
+# then window_attention_dbias): the other kernels' counters count calls too
+window_attention_backward_cuda.launches = 0

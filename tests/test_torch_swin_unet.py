@@ -242,6 +242,75 @@ def test_attention_span_and_window_counter():
     assert GLOBAL_TIMER.summary()["swin.attention"]["count"] - spans == 14
 
 
+def _counted_forward(model, x):
+    """The forward's probabilities and what it added to the two window
+    counters."""
+    names = ("swin.windows", "swin.windows_kernel")
+    before = GLOBAL_TIMER.counts()
+    with torch.no_grad():
+        out = model(x)
+    after = GLOBAL_TIMER.counts()
+    return out, {k: after.get(k, 0) - before.get(k, 0) for k in names}
+
+
+def test_windows_kernel_counter_is_zero_on_the_cpu():
+    """On the CPU every block runs K3's plain twin: ``swin.windows_kernel``
+    adds 0 while ``swin.windows`` adds every window."""
+    model = _model().eval()
+    assert not S.kernel_attends(torch.zeros(1, dtype=torch.bfloat16))
+    _, counted = _counted_forward(model, _x(n=3))
+    assert counted == {"swin.windows": 3 * WINDOWS_PER_IMAGE,
+                       "swin.windows_kernel": 0}
+
+
+def test_windows_kernel_counter_follows_the_route(monkeypatch):
+    """With the route forced and K3 stood in for by its plain twin (the
+    mask from ``shift_mask``, as K3 derives it from region ids), each of
+    the 14 blocks goes through the kernel's entry with its own window,
+    shift, heads and scale, ``swin.windows_kernel`` equals
+    ``swin.windows``, and the output is the twin's bit for bit."""
+    model = _model().eval()
+    x = _x(n=3)
+    plain, _ = _counted_forward(model, x)
+    calls = []
+
+    def twin(qkv, bias, heads, window, shift, scale):
+        assert bias.is_contiguous()
+        calls.append((qkv.shape[1], window, shift, heads))
+        _, h, w, _ = qkv.shape
+        mask = S.shift_mask(h, w, window, shift) if shift else None
+        return S.window_attention_plain(qkv, bias, heads, window, shift,
+                                        scale, mask=mask)
+
+    monkeypatch.setattr(S, "kernel_attends", lambda x: True)
+    monkeypatch.setattr(S, "window_attention", twin)
+    routed, counted = _counted_forward(model, x)
+    assert counted == {"swin.windows": 3 * WINDOWS_PER_IMAGE,
+                       "swin.windows_kernel": 3 * WINDOWS_PER_IMAGE}
+    assert calls == [(b.resolution[0], b.window, b.shift, b.attn.heads)
+                     for b in _blocks(model)]
+    torch.testing.assert_close(routed, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("float32", TypeError, "bfloat16"),
+    ("head dim 6", ValueError, "head dim 32"),
+    ("CPU tokens", ValueError, "CUDA tensors"),
+], ids=["float32", "head-dim-6", "cpu-tokens"])
+def test_the_kernel_route_raises_where_k3_does_not_take_a_block(
+        monkeypatch, case, error, match):
+    """Where the route sends a block to K3 (on a CUDA device, forced here),
+    a block K3 does not take raises from K3's wrapper: the plain twin never
+    stands in for it on that route."""
+    cfg = {"float32": CFG,
+           "head dim 6": dict(CFG, MIXED_PRECISION=True),
+           "CPU tokens": dict(CFG, MIXED_PRECISION=True, SWIN_EMBED_DIM=64,
+                              SWIN_HEADS=[2, 4, 8, 16])}[case]
+    model = _model(cfg).eval()
+    monkeypatch.setattr(S, "kernel_attends", lambda x: True)
+    with pytest.raises(error, match=match), torch.no_grad():
+        model(_x(n=1))
+
 
 def _blocks(model):
     return [b for layers in (model.layers, model.layers_up[1:])
